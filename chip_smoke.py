@@ -3,13 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the Hopper kernels (score producer, wavefront DP, traceback walk)
-from ``praline_tpu_torch/csrc`` with nvcc, holds each against its plain
-PyTorch version on the card (bit for bit) at buckets 1023, 63x127 and
-2047, aligns the committed goldens through the CUDA path, then drives the
-main path at full size: the all-pairs distance stage on 8192 pairs of
-bucket 1023 (five runs) and ``msa_align`` on a seeded 128-sequence family
-of lengths 600-1000 (two runs).  One more run of each under
+Builds the four Hopper kernels (score producer, wavefront DP, fused
+producer + DP, traceback walk) from ``praline_tpu_torch/csrc`` with nvcc,
+one process per source, and holds each against its plain PyTorch version
+on the card, bit for bit: at buckets 1023, 63x127 and 2047, the DPs over
+every mode and three gap series at 63x127, and the fused kernel past the
+two-kernel lane cap (3000x3000) and at a long y (600x4000).  It times the
+fused kernel beside the two-kernel route and the plain version, aligns the
+committed goldens through the CUDA path on both routes, then drives the
+main paths at full size, with the launch counts set to 0 before each and
+read after its own runs: the all-pairs distance stage on 8192 pairs of
+bucket 1023 (five runs on the default two-kernel route), ``msa_align`` on
+a seeded 128-sequence family of lengths 600-1000 (two runs), and
+``msa_align`` on a seeded 32-sequence family of lengths 1800-2400 (two
+runs), which needs the fused kernel.  After them, sampled problems of
+each all-pairs stage are held against the plain versions, and the
+headline runs four more times forced onto the fused route, counted on
+their own, to the same results.  One more run of each main path under
 ``torch.profiler`` gives the device time per kernel and the busy share.
 Every phase raises on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX was imported.  The last lines
@@ -20,8 +30,10 @@ CUDA card or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -33,11 +45,21 @@ SEED = 0
 HEADLINE_PAIRS = 8192
 HEADLINE_BUCKET = 1023
 HEADLINE_RUNS = 5
+FUSED_ROUTE_RUNS = 4
 FAMILY_SIZE = 128
+LONG_FAMILY_SIZE = 32
 # (B, bucket_x, bucket_y, shortest length) of the kernel = plain checks:
 # the headline bucket, a small ragged pair, and bucket 2047, where the DP
 # gives each thread two lanes (the merge levels of the msa run take it).
 KERNEL_SHAPES = ((64, 1023, 1023, 512), (16, 63, 127, 1), (8, 2047, 2047, 1024))
+MODES = ("global", "semiglobal", "local")
+SWEEP_SERIES = ((11, 1), (13, 7, 1), (5,))
+# (B, Lx, Ly, shortest length, mode) of the fused kernel's long checks, all
+# with traceback: rows past the two-kernel DP's 2048 lanes, and a long y.
+# The plain DP walks their 6000 and 4600 diagonals one at a time, so they
+# are kept to two; global past 2048 lanes is held by the long family's
+# sampled problems.
+FUSED_LONG_SHAPES = ((2, 3000, 3000, 2500, "local"), (2, 600, 4000, 500, "semiglobal"))
 
 
 def say(phase: str, **fields) -> None:
@@ -67,12 +89,14 @@ class GcClock:
         gc.callbacks.remove(self)
 
 
-def cuda_ms(fn, n: int) -> float:
+def cuda_ms(fn, n: int, warm_up: bool = True) -> float:
     """Mean milliseconds of ``fn`` over ``n`` runs, by CUDA events, after
-    one warm-up run."""
+    one warm-up run unless ``warm_up`` is False (the plain versions, which
+    take seconds and were run at the same shape by an earlier check)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -81,6 +105,17 @@ def cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+@contextlib.contextmanager
+def route_knob(value: str):
+    """``PRALINE_FUSED_DP`` set to ``value`` inside the block, unset after
+    it (``main`` runs everything else on the default routes)."""
+    os.environ["PRALINE_FUSED_DP"] = value
+    try:
+        yield
+    finally:
+        del os.environ["PRALINE_FUSED_DP"]
 
 
 def count_profiles(rng, n, lo, hi, A):
@@ -130,32 +165,55 @@ def phase_build():
     t0 = time.perf_counter()
     build.load_library()
     say("build", seconds=round(time.perf_counter() - t0, 3), arch=build.ARCH,
-        sources=",".join(p.name for p in build.sources()))
+        sources=",".join(p.name for p in build.sources()),
+        per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
+
+
+def same_outputs(got, want, what) -> float:
+    """Raise unless every output tensor is equal; the largest score error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} != {sorted(want)}")
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"{what}: {key} differs from plain")
+    return float((got["score"] - want["score"]).abs().max())
+
+
+def stacked_operands(rng, dev, s, B, bx, by, lo):
+    """Count-profile stacks of B pairs (lengths lo..bucket) on the card."""
+    from praline_tpu_torch.convert import profiles_to_stack
+
+    A = s.shape[0]
+    cx, ivx, lx = profiles_to_stack(count_profiles(rng, B, min(lo, bx), bx, A), bx, dev)
+    cy, ivy, ly = profiles_to_stack(count_profiles(rng, B, min(lo, by), by, A), by, dev)
+    return cx, ivx, cy, ivy, s, lx, ly
 
 
 def phase_kernels_vs_plain(dev):
-    """Each kernel against its plain version on the same CUDA inputs."""
+    """Each kernel against its plain version on the same CUDA inputs: the
+    producer, the DP and the walk at KERNEL_SHAPES, the fused kernel beside
+    them; then both DPs over every mode and SWEEP_SERIES at 63x127."""
     import numpy as np
     import torch
 
     from praline_tpu_torch import builtin_score_matrix
-    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
     from praline_tpu_torch.kernels.replay import replay_moves, replay_moves_plain
     from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
     from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
     from praline_tpu_torch.kernels.wavefront import wavefront_dp
 
-    matrix = builtin_score_matrix("blosum62")
-    s = matrix_to_torch(matrix, dev)
-    A = matrix.alphabet.size
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     rng = np.random.default_rng(SEED)
-    timing = {}
+    timing = {"fused_err": 0.0}
     for B, bx, by, lo in KERNEL_SHAPES:
-        px = count_profiles(rng, B, lo, bx, A)
-        py = count_profiles(rng, B, lo, by, A)
-        cx, ivx, lx = profiles_to_stack(px, bx, dev)
-        cy, ivy, ly = profiles_to_stack(py, by, dev)
+        ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+        cx, ivx, cy, ivy, _, lx, ly = ops
         hs_k = fused_skewed_scores(cx, ivx, cy, ivy, s)
         hs_p = plain_scores(cx, ivx, cy, ivy, s)
         torch.cuda.synchronize()
@@ -164,13 +222,12 @@ def phase_kernels_vs_plain(dev):
         err_scores = float((hs_k - hs_p).abs().max())
         dp_err = 0.0
         for tb in (False, True):
-            got = wavefront_dp(hs_p, lx, ly, (11, 1), "global", tb)
             want = plain_dp(hs_p, lx, ly, (11, 1), "global", tb)
-            torch.cuda.synchronize()
-            for key in want:
-                if not torch.equal(got[key], want[key]):
-                    raise AssertionError(f"DP {key} differs (traceback={tb}) at B={B} {bx}x{by}")
-            dp_err = max(dp_err, float((got["score"] - want["score"]).abs().max()))
+            dp_err = max(dp_err, same_outputs(wavefront_dp(hs_p, lx, ly, (11, 1), "global", tb),
+                                              want, f"DP traceback={tb} B={B} {bx}x{by}"))
+            timing["fused_err"] = max(timing["fused_err"], same_outputs(
+                wavefront_dp_fused(*ops, (11, 1), "global", tb), want,
+                f"fused DP traceback={tb} B={B} {bx}x{by}"))
         walk_args = (want["tb"], want["ti"], want["tj"], want["tcode"], (11, 1), "global", bx + by)
         moves_k, n_k = replay_moves(*walk_args)
         moves_p, n_p = replay_moves_plain(*walk_args)
@@ -180,23 +237,127 @@ def phase_kernels_vs_plain(dev):
         walk_err = float((moves_k.int() - moves_p.int()).abs().max())
         say("kernel=plain", shape=f"B{B}x{bx}x{by}", producer="bit-equal",
             dp_scores="bit-equal", dp_traceback="bit-equal(all tb bytes)",
-            walk="bit-equal(moves, counts)")
+            fused_scores_and_traceback="bit-equal", walk="bit-equal(moves, counts)")
         if bx == HEADLINE_BUCKET:
-            timing = {
+            timing.update({
                 "scores_ms": cuda_ms(lambda: fused_skewed_scores(cx, ivx, cy, ivy, s), 10),
                 "scores_plain_ms": cuda_ms(lambda: plain_scores(cx, ivx, cy, ivy, s), 3),
                 "dp_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global"), 10),
-                "dp_plain_ms": cuda_ms(lambda: plain_dp(hs_p, lx, ly, (11, 1), "global"), 1),
+                "dp_plain_ms": cuda_ms(lambda: plain_dp(hs_p, lx, ly, (11, 1), "global"), 1,
+                                       warm_up=False),
                 "dp_tb_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global", True), 10),
                 "walk_ms": cuda_ms(lambda: replay_moves(*walk_args), 10),
-                "walk_plain_ms": cuda_ms(lambda: replay_moves_plain(*walk_args), 1),
+                "walk_plain_ms": cuda_ms(lambda: replay_moves_plain(*walk_args), 1, warm_up=False),
                 "scores_err": err_scores,
                 "dp_err": dp_err,
                 "walk_err": walk_err,
-            }
+            })
             say("kernel-times", shape=f"B{B}x{bx}x{by}",
                 **{k: round(v, 4) for k, v in timing.items()})
+
+    t0 = time.perf_counter()
+    B, bx, by = 16, 63, 127
+    for mode in MODES:
+        for series in SWEEP_SERIES:
+            ops = stacked_operands(rng, dev, s, B, bx, by, 1)
+            hs_p = plain_scores(*ops[:5])
+            for tb in (False, True):
+                want = plain_dp(hs_p, ops[5], ops[6], series, mode, tb)
+                what = f"{mode} {series} traceback={tb} B{B}x{bx}x{by}"
+                same_outputs(wavefront_dp(hs_p, ops[5], ops[6], series, mode, tb), want, "DP " + what)
+                timing["fused_err"] = max(timing["fused_err"], same_outputs(
+                    wavefront_dp_fused(*ops, series, mode, tb), want, "fused " + what))
+    say("kernel=plain-modes", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
+        series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), traceback="both",
+        dp="bit-equal", fused="bit-equal", seconds=round(time.perf_counter() - t0, 3))
     return timing
+
+
+def phase_fused_long(dev, timing):
+    """The fused kernel where the two-kernel route refuses or the hs tensor
+    would be large, held against the plain composition (which builds hs)."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 2)
+    for B, bx, by, lo, mode in FUSED_LONG_SHAPES:
+        t0 = time.perf_counter()
+        ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+        want = wavefront_dp_fused_plain(*ops, (11, 1), mode, True)
+        timing["fused_err"] = max(timing["fused_err"], same_outputs(
+            wavefront_dp_fused(*ops, (11, 1), mode, True), want,
+            f"fused {mode} traceback B{B}x{bx}x{by}"))
+        say("fused=plain", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1,
+            traceback="bit-equal(all tb bytes)", seconds=round(time.perf_counter() - t0, 3))
+
+
+def phase_fused_times(dev):
+    """Fused kernel, two-kernel route (producer + DP) and plain composition
+    at the headline shape in both modes and at a merge level's shape."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.wavefront import wavefront_dp
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for B, bx, lo, modes in ((64, 1023, 512, (False, True)), (2, 2047, 1024, (True,))):
+        t0 = time.perf_counter()
+        ops = stacked_operands(rng, dev, s, B, bx, bx, lo)
+        for tb in modes:
+            tag = f"B{B}x{bx}x{bx}_{'traceback' if tb else 'scores'}"
+            fused = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
+            two = cuda_ms(lambda: wavefront_dp(fused_skewed_scores(*ops[:5]), ops[5], ops[6],
+                                               (11, 1), "global", tb), 5)
+            fused_again = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
+            plain = cuda_ms(lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", tb), 1,
+                            warm_up=False)
+            out[tag] = {"fused_ms": fused, "fused_again_ms": fused_again,
+                        "two_kernel_ms": two, "plain_ms": plain}
+        say("fused-times", shape=f"B{B}x{bx}x{bx}", seconds=round(time.perf_counter() - t0, 3),
+            **{f"{t}_{k}": round(v, 4) for t, d in out.items() if t.startswith(f"B{B}x")
+               for k, v in d.items()})
+    return out
+
+
+def phase_goldens(dev):
+    """The 8 goldens byte-equal through the fused route (knob 1), then
+    through the two-kernel route (knob 0)."""
+    from praline_tpu_torch import (
+        ALPHABET_AA, ALPHABET_DNA, PralineConfig, builtin_score_matrix,
+        format_alignment_clustal, format_alignment_fasta, load_sequence_fasta, msa_align,
+    )
+    from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, wavefront
+
+    td = ROOT / "testdata"
+    for knob in ("1", "0"):
+        before = (fused_dp.launches, fused_scores.launches, wavefront.launches, replay.launches)
+        t0 = time.perf_counter()
+        with route_knob(knob):
+            for family, tag, mname, kw in GOLDENS:
+                alphabet = ALPHABET_DNA if family == "dna8" else ALPHABET_AA
+                seqs = load_sequence_fasta(td / f"{family}.fasta", alphabet)
+                aln = msa_align(seqs, builtin_score_matrix(mname), PralineConfig(**kw), device=dev)
+                if format_alignment_fasta(aln) != (td / f"{family}.{tag}.golden.fasta").read_text():
+                    raise AssertionError(f"{family}.{tag} (knob {knob}): FASTA differs from the golden")
+                if format_alignment_clustal(aln) != (td / f"{family}.{tag}.golden.aln").read_text():
+                    raise AssertionError(f"{family}.{tag} (knob {knob}): CLUSTAL differs from the golden")
+        fused, scores, dp, walk = (a > b for a, b in zip(
+            (fused_dp.launches, fused_scores.launches, wavefront.launches, replay.launches), before))
+        if knob == "1" and not (fused and walk):
+            raise AssertionError("goldens under PRALINE_FUSED_DP=1 did not launch the fused kernel")
+        if knob == "0" and (fused or not (scores and dp and walk)):
+            raise AssertionError("goldens under PRALINE_FUSED_DP=0 left the two-kernel route")
+        say("goldens", route="fused" if knob == "1" else "two_kernel", cases=len(GOLDENS),
+            result="byte-equal", seconds=round(time.perf_counter() - t0, 3))
 
 
 GOLDENS = [  # (family, tag, matrix, config kwargs); the first four are the defaults
@@ -209,30 +370,6 @@ GOLDENS = [  # (family, tag, matrix, config kwargs); the first four are the defa
     ("family16div", "pam250_semi_pplocal", "pam250", dict(merge_mode="semiglobal", preprofile_mode="local", gap_series=(10, 2), linkage="single")),
     ("family64", "semi_series3", "blosum62", dict(gap_series=(12, 6, 1), merge_mode="semiglobal", linkage="average")),
 ]
-
-
-def phase_goldens(dev):
-    from praline_tpu_torch import (
-        ALPHABET_AA, ALPHABET_DNA, PralineConfig, builtin_score_matrix,
-        format_alignment_clustal, format_alignment_fasta, load_sequence_fasta, msa_align,
-    )
-    from praline_tpu_torch.kernels import fused_scores, wavefront
-
-    td = ROOT / "testdata"
-    before = (fused_scores.launches, wavefront.launches)
-    for family, tag, mname, kw in GOLDENS:
-        alphabet = ALPHABET_DNA if family == "dna8" else ALPHABET_AA
-        seqs = load_sequence_fasta(td / f"{family}.fasta", alphabet)
-        t0 = time.perf_counter()
-        aln = msa_align(seqs, builtin_score_matrix(mname), PralineConfig(**kw), device=dev)
-        if format_alignment_fasta(aln) != (td / f"{family}.{tag}.golden.fasta").read_text():
-            raise AssertionError(f"{family}.{tag}: FASTA differs from the golden")
-        if format_alignment_clustal(aln) != (td / f"{family}.{tag}.golden.aln").read_text():
-            raise AssertionError(f"{family}.{tag}: CLUSTAL differs from the golden")
-        say("golden", case=f"{family}.{tag}", result="byte-equal",
-            seconds=round(time.perf_counter() - t0, 3))
-    if not (fused_scores.launches > before[0] and wavefront.launches > before[1]):
-        raise AssertionError("goldens did not launch both kernels")
 
 
 def headline_pairs():
@@ -249,15 +386,12 @@ def headline_pairs():
     return matrix, pairs, cells
 
 
-def phase_all_pairs(dev, matrix, pairs, cells):
-    """The distance stage's dispatch at the headline workload."""
-    import numpy as np
+def all_pairs_runner(dev, matrix, pairs):
+    """The distance stage's dispatch at the headline workload, as a
+    function that runs it once."""
     import torch
 
-    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
     from praline_tpu_torch.kernels.batch import ProfileArena, align_pairs_batched
-    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
-    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
 
     arena = ProfileArena(matrix.alphabet.size, (HEADLINE_BUCKET,), dev)
 
@@ -269,18 +403,40 @@ def phase_all_pairs(dev, matrix, pairs, cells):
         torch.cuda.synchronize()
         return out
 
+    return run
+
+
+def timed_runs(run, n, route):
+    """``run`` ``n`` times on ``route`` (the only route its chunks may
+    take): the results, which every run must repeat, with each run's wall
+    and garbage-collection seconds."""
+    from praline_tpu_torch.kernels import batch
+
     walls, gcs, res = [], [], None
-    for _ in range(HEADLINE_RUNS):
+    batch.reset_route_counts()
+    for _ in range(n):
         with GcClock() as gc_clock:
             t0 = time.perf_counter()
             out = run()
             walls.append(time.perf_counter() - t0)
         gcs.append(gc_clock.seconds)
         if res is not None and out != res:
-            raise AssertionError("all-pairs: two runs differ")
+            raise AssertionError(f"all-pairs ({route} route): two runs differ")
         res = out
-    wall = statistics.median(walls[1:])
-    # 64 sampled problems against the plain versions on the card
+    if batch.route_counts[route] < 1 or sum(batch.route_counts.values()) != batch.route_counts[route]:
+        raise AssertionError(f"all-pairs: runs meant for the {route} route took {batch.route_counts}")
+    return res, walls, gcs
+
+
+def check_all_pairs(dev, matrix, pairs, res):
+    """The headline's results: finite, and 64 sampled problems equal to
+    the plain versions on the card."""
+    import numpy as np
+
+    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
     sample = np.random.default_rng(SEED + 1).choice(len(pairs), 64, replace=False)
     cx, ivx, lx = profiles_to_stack([pairs[i][0] for i in sample], HEADLINE_BUCKET, dev)
     cy, ivy, ly = profiles_to_stack([pairs[i][1] for i in sample], HEADLINE_BUCKET, dev)
@@ -293,23 +449,26 @@ def phase_all_pairs(dev, matrix, pairs, cells):
             raise AssertionError(f"all-pairs problem {i}: {got} != plain {exp}")
     if not all(np.isfinite(r.score) and r.length > 0 for r in res):
         raise AssertionError("all-pairs: non-finite score or empty path")
-    say("all-pairs", pairs=len(pairs), bucket=HEADLINE_BUCKET, gap_series="11,1",
-        mode="global", cells=int(cells), walls_s=",".join(f"{w:.4f}" for w in walls),
-        gc_s=",".join(f"{g:.4f}" for g in gcs),
-        warm_median_s=round(wall, 4), dp_cells_per_s=f"{cells / wall:.4e}",
-        sampled_vs_plain="64/64 bit-equal")
-    return run
 
 
-def synthetic_family(n=FAMILY_SIZE, seed=SEED):
-    """A root of 1000 residues; each member takes 25% substitutions, two
-    short insertions and deletions down to a length drawn from 600-1000."""
+def say_all_pairs(route, cells, walls, gcs, **extra):
+    wall = statistics.median(walls[1:])
+    say("all-pairs", pairs=HEADLINE_PAIRS, bucket=HEADLINE_BUCKET, gap_series="11,1",
+        mode="global", route=route, cells=int(cells),
+        walls_s=",".join(f"{w:.4f}" for w in walls), gc_s=",".join(f"{g:.4f}" for g in gcs),
+        warm_median_s=round(wall, 4), dp_cells_per_s=f"{cells / wall:.4e}", **extra)
+
+
+def synthetic_family(n=FAMILY_SIZE, seed=SEED, root_len=1000, lo=600, hi=1000):
+    """A root of ``root_len`` residues; each member takes 25% substitutions,
+    two short insertions and deletions down to a length drawn from
+    ``lo``-``hi``."""
     import numpy as np
 
     from praline_tpu_torch import ALPHABET_AA, Sequence
 
     rng = np.random.default_rng(seed)
-    root = rng.integers(0, 20, size=1000)
+    root = rng.integers(0, 20, size=root_len)
     seqs = []
     for k in range(n):
         toks = root.copy()
@@ -318,7 +477,7 @@ def synthetic_family(n=FAMILY_SIZE, seed=SEED):
         for _ in range(2):
             at = int(rng.integers(0, toks.size + 1))
             toks = np.insert(toks, at, rng.integers(0, 20, size=int(rng.integers(1, 4))))
-        target = int(rng.integers(600, 1001))
+        target = int(rng.integers(lo, hi + 1))
         while toks.size > target:
             cut = min(toks.size - target, int(rng.integers(1, 40)))
             at = int(rng.integers(0, toks.size - cut + 1))
@@ -327,16 +486,16 @@ def synthetic_family(n=FAMILY_SIZE, seed=SEED):
     return seqs
 
 
-def phase_msa(dev):
-    """``msa_align`` end to end on the synthetic family, twice; returns a
-    third run for the profiler."""
+def run_msa_twice(dev, seqs, name):
+    """``msa_align`` twice with the default config: every row degaps to
+    its input and both runs give the same bytes.  Returns a third run for
+    the profiler."""
     import numpy as np
 
     from praline_tpu_torch import (
         GAP, METRICS, PralineConfig, builtin_score_matrix, format_alignment_fasta, msa_align,
     )
 
-    seqs = synthetic_family()
     matrix = builtin_score_matrix("blosum62")
     texts = []
     for run in (1, 2):
@@ -347,17 +506,61 @@ def phase_msa(dev):
         stages = METRICS.summary()
         rows = np.asarray(aln.rows)
         if rows.shape != (len(seqs), aln.num_columns):
-            raise AssertionError("msa: rows of unequal width")
+            raise AssertionError(f"{name}: rows of unequal width")
         for seq, row in zip(seqs, rows):
             if not np.array_equal(row[row != GAP], seq.tokens):
-                raise AssertionError(f"msa: row {seq.name} does not degap to its input")
+                raise AssertionError(f"{name}: row {seq.name} does not degap to its input")
         texts.append(format_alignment_fasta(aln))
-        say("msa", run=run, sequences=len(seqs), columns=aln.num_columns,
-            wall_s=round(wall, 4), gc_s=round(gc_clock.seconds, 4),
+        say(name, run=run, sequences=len(seqs),
+            lengths=f"{min(s.length for s in seqs)}-{max(s.length for s in seqs)}",
+            columns=aln.num_columns, wall_s=round(wall, 4), gc_s=round(gc_clock.seconds, 4),
             **{f"{k}_s": v["seconds"] for k, v in stages.items()})
     if texts[0] != texts[1]:
-        raise AssertionError("msa: two runs gave different bytes")
+        raise AssertionError(f"{name}: two runs gave different bytes")
     return lambda: msa_align(seqs, matrix, PralineConfig(), device=dev)
+
+
+def phase_msa(dev):
+    """``msa_align`` end to end on the 128-sequence family, twice."""
+    return run_msa_twice(dev, synthetic_family(), "msa")
+
+
+def long_family():
+    """32 members of a 2400-residue root, lengths 1800-2400: rows and
+    merged profiles past 2047 columns, which only the fused kernel takes
+    on the card."""
+    return synthetic_family(LONG_FAMILY_SIZE, SEED + 4, root_len=2400, lo=1800, hi=2400)
+
+
+def check_long_family(dev, seqs):
+    """16 sampled all-pairs problems of the long family through the batch
+    driver against the plain composition."""
+    import numpy as np
+
+    from praline_tpu_torch import PralineConfig, builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
+    from praline_tpu_torch.kernels.batch import align_pairs_batched
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused_plain
+
+    t0 = time.perf_counter()
+    cfg = PralineConfig()
+    matrix = builtin_score_matrix("blosum62")
+    index = [(i, j) for i in range(len(seqs)) for j in range(i + 1, len(seqs))]
+    sample = [index[k] for k in np.random.default_rng(SEED + 5).choice(len(index), 16, replace=False)]
+    px = [seqs[i].one_hot_profile() for i, _ in sample]
+    py = [seqs[j].one_hot_profile() for _, j in sample]
+    got = align_pairs_batched(list(zip(px, py)), matrix, cfg.gap_series, cfg.distance_mode,
+                              device=dev, traceback=False, bucket_sizes=tuple(cfg.bucket_sizes))
+    cx, ivx, lx = profiles_to_stack(px, max(p.length for p in px), dev)
+    cy, ivy, ly = profiles_to_stack(py, max(p.length for p in py), dev)
+    want = wavefront_dp_fused_plain(cx, ivx, cy, ivy, matrix_to_torch(matrix, dev), lx, ly,
+                                    cfg.gap_series, cfg.distance_mode)
+    for k, r in enumerate(got):
+        exp = tuple(want[key][k].item() for key in ("score", "length", "ti", "tj"))
+        if (r.score, r.length, r.ti, r.tj) != exp:
+            raise AssertionError(f"long-family pair {sample[k]}: {r} != plain {exp}")
+    say("long-family", sampled_all_pairs_vs_plain="16/16 bit-equal",
+        seconds=round(time.perf_counter() - t0, 3))
 
 
 def short_kernel_name(key: str) -> str:
@@ -390,34 +593,71 @@ def phase_profile(name, fn):
              for e in top]))
 
 
+KERNELS = ("scores", "dp", "fused", "walk")
+# The kernels each main path must launch: the all-pairs headline on its
+# default route (two-kernel) and forced onto the fused route, and the two
+# msa_align runs.
+PATH_KERNELS = {"all-pairs": ("scores", "dp"), "all-pairs-fused-route": ("fused",),
+                "msa128": ("scores", "dp", "walk"), "long-family": ("fused", "walk")}
+
+
+def counted(name, phase):
+    """Run ``phase`` with every launch count set to 0 just before it; return
+    its result and the counts read just after."""
+    from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, wavefront
+
+    modules = dict(zip(KERNELS, (fused_scores, wavefront, fused_dp, replay)))
+    for m in modules.values():
+        m.reset_launches()
+    result = phase()
+    counts = {k: m.launches for k, m in modules.items()}
+    say("launches", path=name, **counts)
+    missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
+    return result, counts
+
+
 def main() -> int:
     smi = phase_environment()
     import torch
 
     from praline_tpu_torch.device import resolve_device
-    from praline_tpu_torch.kernels import fused_scores, replay, wavefront
 
     dev = resolve_device("cuda")
+    os.environ.pop("PRALINE_FUSED_DP", None)  # the default routes, whatever the caller's
     phase_build()
     timing = phase_kernels_vs_plain(dev)
+    phase_fused_long(dev, timing)
+    fused_times = phase_fused_times(dev)
     phase_goldens(dev)
     matrix, pairs, cells = headline_pairs()
+    all_pairs_run = all_pairs_runner(dev, matrix, pairs)
+    long_seqs = long_family()
 
-    # ---- the main path: launches are counted from here on ----
-    for counted in (fused_scores, wavefront, replay):
-        counted.reset_launches()
-    all_pairs_run = phase_all_pairs(dev, matrix, pairs, cells)
-    msa_run = phase_msa(dev)
-    launches = {"scores": fused_scores.launches, "dp": wavefront.launches,
-                "walk": replay.launches}
-    # ---- end of the main path ----
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # ---- the main paths: launches are counted per path, over its runs only ----
+    (res, walls, gcs), c1 = counted(
+        "all-pairs", lambda: timed_runs(all_pairs_run, HEADLINE_RUNS, "two_kernel"))
+    msa_run, c2 = counted("msa128", lambda: phase_msa(dev))
+    long_run, c3 = counted("long-family", lambda: run_msa_twice(dev, long_seqs, "long-family"))
+    # ---- end of the main paths ----
+    launches = {k: c1[k] + c2[k] + c3[k] for k in KERNELS}
+    check_all_pairs(dev, matrix, pairs, res)
+    say_all_pairs("two_kernel", cells, walls, gcs, sampled_vs_plain="64/64 bit-equal")
+    with route_knob("1"):
+        (res_fused, walls, gcs), _ = counted(
+            "all-pairs-fused-route", lambda: timed_runs(all_pairs_run, FUSED_ROUTE_RUNS, "fused"))
+    if res_fused != res:
+        raise AssertionError("all-pairs: the fused route differs from the two-kernel route")
+    say_all_pairs("fused", cells, walls, gcs, results="equal to the two_kernel route")
+    check_long_family(dev, long_seqs)
     phase_profile("all-pairs", all_pairs_run)
     phase_profile("msa", msa_run)
+    phase_profile("long-family", long_run)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported: the port must run without it")
 
+    headline = fused_times[f"B64x{HEADLINE_BUCKET}x{HEADLINE_BUCKET}_scores"]
     kernels = [
         {"name": "skewed_scores", "route": "cuda",
          "source": "praline_tpu_torch/csrc/scores.cu",
@@ -436,6 +676,13 @@ def main() -> int:
          "replaces": "praline_tpu/kernels/replay.py:131 (replay_moves, an XLA scan)",
          "launches": launches["walk"], "max_abs_err": timing["walk_err"],
          "ms": timing["walk_ms"], "plain_ms": timing["walk_plain_ms"]},
+        {"name": "wavefront_dp_fused", "route": "cuda",
+         "source": "praline_tpu_torch/csrc/fused_dp.cu",
+         "replaces": "praline_tpu/kernels/fused_dp.py:70 (wavefront_dp_fused), "
+                     "praline_tpu/kernels/chunked.py:26 (wavefront_dp_chunked), "
+                     "praline_tpu/kernels/scan.py:106 (wavefront_dp_streamed)",
+         "launches": launches["fused"], "max_abs_err": timing["fused_err"],
+         "ms": headline["fused_ms"], "plain_ms": headline["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

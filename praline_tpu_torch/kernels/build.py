@@ -1,11 +1,12 @@
 """Build and load the Hopper kernels: nvcc into a plain-C shared library.
 
 Same pattern as the JAX package's C++ twin (``praline_tpu/native/
-__init__.py:25-39``): every ``csrc/*.cu`` is compiled once by ``nvcc`` into
-one shared library with a plain C interface, cached by a hash of the
-sources and flags, and loaded with ``ctypes``.  The build happens at first
-use, never at import, and lands in ``praline_tpu_torch/_build/`` (listed
-in ``.gitignore``).
+__init__.py:25-39``): every ``csrc/*.cu`` is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, cached by a hash of the sources and
+flags, and loaded with ``ctypes``.  The build happens at first use, never
+at import, and lands in ``praline_tpu_torch/_build/`` (listed in
+``.gitignore``).
 
 ``--fmad=false`` keeps every f32 multiply and add separately rounded, the
 nvcc counterpart of the twin's ``-ffp-contract=off``; there is no
@@ -19,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -27,10 +30,13 @@ BUILD_DIR = _PKG / "_build"
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _LIB: ctypes.CDLL | None = None
+# Seconds each source took to compile in the last build of this process
+# (the sources compile in parallel, so the build took about the largest).
+last_build_seconds: dict[str, float] = {}
 
 
 def sources() -> list[Path]:
@@ -57,18 +63,38 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists;
     return its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
     memory and spills per kernel) and prints the compiler's output."""
-    so = BUILD_DIR / f"libpraline_kernels_{_tag()}.so"
+    tag = _tag()
+    so = BUILD_DIR / f"libpraline_kernels_{tag}.so"
     if so.exists() and not verbose:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs = {src: BUILD_DIR / f"{src.stem}.{tag}.{os.getpid()}.o" for src in sources()}
+
+    def compile_one(src: Path):
+        t0 = time.perf_counter()
+        res = subprocess.run([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(objs[src]), str(src)],
+                             capture_output=True, text=True)
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(objs)) as pool:
+        done = dict(zip(objs, pool.map(compile_one, objs)))
+    last_build_seconds.clear()
+    for src, (res, seconds) in done.items():
+        last_build_seconds[src.name] = seconds
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        if verbose:
+            print(f"--- {src.name}\n{res.stdout}{res.stderr}")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs.values())], capture_output=True, text=True)
+    for obj in objs.values():
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     tmp.replace(so)
     return so
 
@@ -84,6 +110,10 @@ def load_library() -> ctypes.CDLL:
         lib.praline_wavefront_dp.restype = i
         lib.praline_wavefront_dp.argtypes = [
             p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p,
+        ]
+        lib.praline_fused_dp.restype = i
+        lib.praline_fused_dp.argtypes = [
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p,
         ]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]

@@ -11,10 +11,14 @@ lengths, terminal cells and state codes, and the traceback bytes
 Bound on the H100: the sequential chain of diagonals inside one problem
 (one block barrier and about a hundred dependent instructions per
 diagonal); throughput comes from one block per problem with many problems
-in flight.  See the source for the lane ownership and the exchange.
+in flight.  See ``csrc/wavefront.cuh`` for the lane ownership and the
+exchange; the fused kernel (``kernels/fused_dp.py``) runs the same
+recurrence.
 
 Taken on the card: every mode, gap series of 1 to 15 levels, buckets up
-to 2047 (``Lp <= 2048``).  Anything else raises; nothing falls back.
+to 2047 (``Lp <= 2048``).  Anything else raises; nothing falls back.  The
+batch driver sends longer rows to the fused kernel
+(``kernels/batch.py::choose_route``).
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False)
     D, B, Lp = hs.shape
     if Lp > MAX_LANES:
         raise NotImplementedError(
-            f"the CUDA DP takes Lp <= {MAX_LANES} (bucket 2047), got {Lp} "
-            "(long-length routes: ROADMAP.md, port queue)"
+            f"the CUDA DP takes Lp <= {MAX_LANES} (bucket 2047), got {Lp}; "
+            "longer rows take kernels.fused_dp.wavefront_dp_fused"
         )
     if Lp < 2 or D < Lp + 1 or B < 1:
         raise ValueError(f"bad hs shape {tuple(hs.shape)}")

@@ -92,10 +92,18 @@ def test_exactness_gate_raises_like_the_oracle():
 
 
 def test_unported_routes_raise(monkeypatch):
+    """Meshes and, on a card, rows past the fused kernel's lane cap are not
+    ported; an hs tensor past its budget is no longer refused: it takes
+    the fused route, with the same results."""
     profs = profiles(2)
     pairs = [(profs[0], profs[1])]
     with pytest.raises(NotImplementedError):
         align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ring route"):
+        batch.choose_route("cuda", 5000, 100, False)
+    want = align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu")
     monkeypatch.setattr(batch, "HS_BYTES_BUDGET", 1024)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu")
+    batch.reset_route_counts()
+    got = align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu")
+    assert batch.route_counts == {"fused": 1, "two_kernel": 0}
+    assert got == want

@@ -7,7 +7,8 @@ pins JAX to the CPU) must be left out::
 
     python -m pytest --noconftest -p no:cacheprovider -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance 0: producer, DP, walk and batched aligner are bit-exact by contract.
+Tolerance 0: producer, DP, fused producer + DP, walk and batched aligner
+are bit-exact by contract.
 """
 
 import zlib
@@ -18,7 +19,7 @@ import torch
 
 from praline_tpu import ALPHABET_AA, Profile, builtin_score_matrix
 from praline_tpu_torch.convert import operands_from_numpy
-from praline_tpu_torch.kernels import batch, fused_scores, replay, wavefront
+from praline_tpu_torch.kernels import batch, fused_dp, fused_scores, replay, wavefront
 from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
 from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
 
@@ -120,7 +121,8 @@ def test_dp_two_lanes_per_thread(cuda):
 
 
 def test_dp_refuses_what_it_does_not_take(cuda):
-    """Buckets past 2047 need the long-length routes, not ported yet."""
+    """Buckets past 2047 are the fused kernel's (the batch driver routes
+    them there); the two-kernel DP refuses them."""
     cx, ivx, cy, ivy, s, lx, ly = operands(12, 1, 2048, 31, cuda)
     hs = plain_scores(cx, ivx, cy, ivy, s)
     with pytest.raises(NotImplementedError):
@@ -139,6 +141,72 @@ def test_batched_aligner_cuda_equals_cpu(cuda, traceback):
     kw = dict(traceback=traceback, bucket_sizes=(63, 127))
     got = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device=cuda, **kw)
     want = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu", **kw)
+    for g, w in zip(got, want):
+        if traceback:
+            assert g.score == w.score
+            assert np.array_equal(g.cols_x, w.cols_x) and np.array_equal(g.cols_y, w.cols_y)
+        else:
+            assert g == w
+
+
+def fused_vs_plain(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode, traceback):
+    before = fused_dp.launches
+    got = fused_dp.wavefront_dp_fused(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode, traceback)
+    torch.cuda.synchronize()
+    assert fused_dp.launches == before + 1
+    want = fused_dp.wavefront_dp_fused_plain(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode,
+                                             traceback)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1), (5,), (4, 3, 2, 1), (9, 7, 5, 3, 2, 1)])
+@pytest.mark.parametrize("traceback", [False, True])
+def test_fused_matches_plain(cuda, mode, gap_series, traceback):
+    seed = zlib.crc32(repr(("fused", mode, gap_series)).encode())
+    ops = operands(seed, 8, 31, 63, cuda)
+    fused_vs_plain(*ops, gap_series, mode, traceback)
+
+
+@pytest.mark.parametrize("bx,by,mode", [(3000, 300, "global"), (3000, 300, "local"),
+                                        (4095, 200, "semiglobal")])
+def test_fused_rows_past_the_two_kernel_cap(cuda, bx, by, mode):
+    """Lp 3001 and 4096: three and four lanes per thread."""
+    ops = operands(bx + by, 2, bx, by, cuda)
+    for traceback in (False, True):
+        fused_vs_plain(*ops, (11, 1), mode, traceback)
+
+
+def test_fused_long_y(cuda):
+    """Ly 8000: no hs tensor, so the length of y is not bounded."""
+    ops = operands(8000, 2, 600, 8000, cuda)
+    for traceback in (False, True):
+        fused_vs_plain(*ops, (11, 1), "semiglobal", traceback)
+
+
+def test_fused_refuses_past_its_lane_cap(cuda):
+    ops = operands(4096, 1, 4096, 31, cuda)
+    with pytest.raises(NotImplementedError):
+        fused_dp.wavefront_dp_fused(*ops, (11, 1), "global")
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+def test_batched_aligner_routes_long_rows_to_the_fused_kernel(cuda, traceback):
+    rng = np.random.default_rng(17)
+    profs = []
+    for L in (2500, 2300, 900):
+        c = rng.integers(0, 2, size=(L, A)).astype(np.float32)
+        c[:, 0] += 1
+        profs.append(Profile(c, np.zeros(L, np.float32), ALPHABET_AA))
+    pairs = [(profs[0], profs[1]), (profs[1], profs[2]), (profs[2], profs[0])]
+    batch.reset_route_counts()
+    got = batch.align_pairs_batched(pairs, B62, (11, 1), "local", device=cuda,
+                                    traceback=traceback)
+    assert batch.route_counts["fused"] == 2
+    want = batch.align_pairs_batched(pairs, B62, (11, 1), "local", device="cpu",
+                                     traceback=traceback)
     for g, w in zip(got, want):
         if traceback:
             assert g.score == w.score

@@ -26,6 +26,7 @@ def test_importing_the_port_leaves_jax_out():
         "import sys\n"
         "import praline_tpu_torch, praline_tpu_torch.msa, praline_tpu_torch.cli\n"
         "import praline_tpu_torch.kernels, praline_tpu_torch.convert\n"
+        "import praline_tpu_torch.kernels.fused_dp, praline_tpu_torch.kernels.batch\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"
     )
@@ -38,6 +39,7 @@ def test_static_scan_finds_no_jax_and_no_compile():
     bad = re.compile(r"^\s*(import jax|from jax)|torch\.compile|scaled_dot_product_attention", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert PKG / "kernels" / "fused_dp.py" in files
     for path in files:
         assert not bad.search(path.read_text()), path
 
