@@ -3,29 +3,40 @@
 
     python3 chip_smoke.py
 
-Builds the four Hopper kernels (score producer, wavefront DP, fused
-producer + DP, traceback walk) from ``praline_tpu_torch/csrc`` with nvcc,
-one process per source, and holds each against its plain PyTorch version
-on the card, bit for bit: at buckets 1023, 63x127 and 2047, the DPs over
-every mode and three gap series at 63x127, and the fused kernel past the
-two-kernel lane cap (3000x3000) and at a long y (600x4000).  It times the
-fused kernel beside the two-kernel route and the plain version, aligns the
-committed goldens through the CUDA path on both routes, then drives the
-main paths at full size, with the launch counts set to 0 before each and
-read after its own runs: the all-pairs distance stage on 8192 pairs of
-bucket 1023 (five runs on the default two-kernel route), ``msa_align`` on
-a seeded 128-sequence family of lengths 600-1000 (two runs), and
-``msa_align`` on a seeded 32-sequence family of lengths 1800-2400 (two
-runs), which needs the fused kernel.  After them, sampled problems of
+Builds the five Hopper kernel sources (score producer, wavefront DP,
+fused producer + DP, lane-tiled DP, traceback walk) from
+``praline_tpu_torch/csrc`` with nvcc, one process per source, with
+``-Xptxas -v`` (registers and spills of the tiled kernel are printed), and
+holds each kernel against its plain PyTorch version on the card, bit for
+bit: at buckets 1023, 63x127 and 2047, the DPs over every mode and three
+gap series at 63x127, the fused kernel past the two-kernel lane cap
+(3000x3000) and at a long y (600x4000), the tiled kernel against its plain
+version at 4 x 700x600 (every mode, three series, both score sources,
+scores and traceback, two tile widths and two visit depths) and, on one
+4600x4400 traceback problem, against the plain DP.  It times the fused
+kernel beside the two-kernel route and the plain version, the tiled
+kernel beside the fused kernel at 3000x3000 and beside the whole-row DP
+at buckets 1023 and 2047, aligns the committed goldens
+through the CUDA path on both routes, then drives the main paths at full
+size, with the launch counts set to 0 before each and read after its own
+runs: the all-pairs distance stage on 8192 pairs of bucket 1023 (five runs
+on the default two-kernel route), ``msa_align`` on a seeded 128-sequence
+family of lengths 600-1000 (two runs), on a seeded 32-sequence family of
+lengths 1800-2400 (two runs), which needs the fused kernel, and on 8
+members of lengths 4300-5000 (two runs; the size of a dynein heavy
+chain), which needs the tiled kernel.  After them, sampled problems of
 each all-pairs stage are held against the plain versions, and the
 headline runs four more times forced onto the fused route, counted on
 their own, to the same results.  One more run of each main path under
 ``torch.profiler`` gives the device time per kernel and the busy share.
 Every phase raises on failure.  The host layers are reached only through
-``praline_tpu_torch``; the run fails if JAX was imported.  The last lines
-are a JSON summary of the kernels, the card's name and power limit, and
-``{"ok": true, ...}``.  Exits non-zero, printing no result, without a
-CUDA card or outside a checkout of the repository.
+``praline_tpu_torch``; the run fails if JAX or the JAX package was
+imported.  The last lines are a JSON summary of the kernels (with each
+one's bound: the larger of the bytes its function must move over 3.35
+TB/s and its f32 operations over 67 TFLOP/s, the H100 SXM's published
+rates), the card's name and power limit, and ``{"ok": true, ...}``.
+Exits non-zero, printing no result, without a CUDA card or outside a
+checkout of the repository.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +60,7 @@ HEADLINE_RUNS = 5
 FUSED_ROUTE_RUNS = 4
 FAMILY_SIZE = 128
 LONG_FAMILY_SIZE = 32
+LONG8_SIZE = 8
 # (B, bucket_x, bucket_y, shortest length) of the kernel = plain checks:
 # the headline bucket, a small ragged pair, and bucket 2047, where the DP
 # gives each thread two lanes (the merge levels of the msa run take it).
@@ -60,6 +73,26 @@ SWEEP_SERIES = ((11, 1), (13, 7, 1), (5,))
 # are kept to two; global past 2048 lanes is held by the long family's
 # sampled problems.
 FUSED_LONG_SHAPES = ((2, 3000, 3000, 2500, "local"), (2, 600, 4000, 500, "semiglobal"))
+# The tiled kernel against its plain version: (B, Lx, Ly, shortest length),
+# and the (tile lanes, diagonals a visit) it runs at.  1299 steps: 3 divides
+# them, 32 does not.
+TILED_SHAPE = (4, 700, 600, 1)
+TILED_CONFIGS = ((128, 3), (256, 32))
+# One long traceback problem against the plain DP (rows past 4096 lanes).
+TILED_LONG = (1, 4600, 4400, 4000, "local")
+# (B, lanes - 1 = Lx = Ly, shortest length) where both the fused and the
+# tiled kernel take the rows: their times side by side.
+TILED_TIMES_SHAPE = (2, 3000, 2500)
+# (B, lanes - 1, shortest length) where the whole-row DP takes the rows at
+# one and at two lanes a thread: the tiled kernel's times beside it.
+TILED_VS_DP_SHAPES = ((64, 1023, 512), (64, 2047, 1024))
+# The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory
+# and f32 outside the tensor cores.  The DP's f32 operations a cell at k =
+# 2: two subtracts, a compare and a length add per gap side, an add and a
+# length add for M, two compares for the best state (selects not counted).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+DP_OPS_PER_CELL = 12
 
 
 def say(phase: str, **fields) -> None:
@@ -159,14 +192,44 @@ def phase_environment():
     return smi
 
 
+def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
+    """Kernel (mangled name) -> (registers, spill store bytes, spill load
+    bytes) from ``-Xptxas -v`` output."""
+    usage, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)), *spill)
+            name = None
+    return usage
+
+
 def phase_build():
+    """All sources compiled anew with ``-Xptxas -v``, in parallel; the
+    tiled kernel's registers and spills at 1, 2, 3 and 15 gap levels."""
     from praline_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
+    build.build(verbose=True)
     build.load_library()
     say("build", seconds=round(time.perf_counter() - t0, 3), arch=build.ARCH,
         sources=",".join(p.name for p in build.sources()),
         per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
+    usage = ptxas_usage("\n".join(build.last_build_log.values()))
+    for kernel in ("tiled_hs_kernel", "tiled_rows_kernel", "wavefront_kernel", "fused_kernel"):
+        found = {}
+        for k in (1, 2, 3, 15):
+            key = next((n for n in usage if f"{kernel}ILi{k}ELi1E" in n), None)
+            if key is None:
+                raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, 1>")
+            found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(*usage[key])
+        say("registers", kernel=kernel, lanes_per_thread=1, **found)
 
 
 def same_outputs(got, want, what) -> float:
@@ -180,6 +243,60 @@ def same_outputs(got, want, what) -> float:
         if not torch.equal(got[key], want[key]):
             raise AssertionError(f"{what}: {key} differs from plain")
     return float((got["score"] - want["score"]).abs().max())
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over
+    its memory rate and ``ops`` f32 operations over its f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def needed_cells(lx, ly) -> float:
+    """DP cells these problems need: the sum of lx * ly.  Bucket and skew
+    padding and cells past the true lengths never reach a terminal, so no
+    bound counts them."""
+    return float((lx.double() * ly.double()).sum())
+
+
+def operand_bytes(lx, ly, A) -> float:
+    """The profile columns these problems hold, read once (A counts and an
+    inverse a column), and the score matrix."""
+    return float(lx.double().sum() + ly.double().sum()) * (A + 1) * 4 + A * A * 4
+
+
+def output_bytes(lx, ly, out) -> float:
+    """A DP's outputs written once: the per-problem results, and one
+    traceback byte for each needed cell."""
+    rest = nbytes(*(v for k, v in out.items() if k != "tb"))
+    return rest + (needed_cells(lx, ly) if "tb" in out else 0.0)
+
+
+def producer_ops(lx, ly, A) -> float:
+    """f32 operations of the scores: T = Cx @ S over the true rows of x,
+    then a dot product of A terms and two scales a needed cell."""
+    return float(lx.double().sum()) * A * A * 2 + needed_cells(lx, ly) * (2 * A + 2)
+
+
+def dp_bound(lx, ly, out) -> dict:
+    """A DP over hs: the hs cells it needs read once, its outputs written
+    once, DP_OPS_PER_CELL f32 operations a cell."""
+    n = needed_cells(lx, ly)
+    return bound(n * 4 + output_bytes(lx, ly, out), n * DP_OPS_PER_CELL)
+
+
+def fused_bound(ops, out) -> dict:
+    """A DP that computes each score in place: its operands read once, its
+    outputs written once, the producer's and the DP's operations."""
+    A, lx, ly = ops[0].shape[2], ops[5], ops[6]
+    return bound(operand_bytes(lx, ly, A) + output_bytes(lx, ly, out),
+                 producer_ops(lx, ly, A) + needed_cells(lx, ly) * DP_OPS_PER_CELL)
 
 
 def stacked_operands(rng, dev, s, B, bx, by, lo):
@@ -239,7 +356,17 @@ def phase_kernels_vs_plain(dev):
             dp_scores="bit-equal", dp_traceback="bit-equal(all tb bytes)",
             fused_scores_and_traceback="bit-equal", walk="bit-equal(moves, counts)")
         if bx == HEADLINE_BUCKET:
+            A = s.shape[0]
+            # the walk reads one traceback byte a move and writes the move
+            moves_bytes = 2 * float(n_k.sum()) + nbytes(n_k)
             timing.update({
+                "scores_bound": bound(operand_bytes(lx, ly, A) + needed_cells(lx, ly) * 4,
+                                      producer_ops(lx, ly, A)),
+                "dp_bound": dp_bound(lx, ly, plain_dp(hs_p, lx, ly, (11, 1), "global")),
+                "walk_bound": bound(moves_bytes, 0.0),
+                # the library yardstick of the producer: H = (Cx @ S) @ Cy^T, unskewed
+                "scores_library_ms": cuda_ms(
+                    lambda: torch.bmm(torch.matmul(cx, s), cy.transpose(1, 2)), 10),
                 "scores_ms": cuda_ms(lambda: fused_skewed_scores(cx, ivx, cy, ivy, s), 10),
                 "scores_plain_ms": cuda_ms(lambda: plain_scores(cx, ivx, cy, ivy, s), 3),
                 "dp_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global"), 10),
@@ -253,7 +380,8 @@ def phase_kernels_vs_plain(dev):
                 "walk_err": walk_err,
             })
             say("kernel-times", shape=f"B{B}x{bx}x{by}",
-                **{k: round(v, 4) for k, v in timing.items()})
+                **{k: (round(v, 4) if isinstance(v, float) else json.dumps(v))
+                   for k, v in timing.items()})
 
     t0 = time.perf_counter()
     B, bx, by = 16, 63, 127
@@ -322,10 +450,131 @@ def phase_fused_times(dev):
                             warm_up=False)
             out[tag] = {"fused_ms": fused, "fused_again_ms": fused_again,
                         "two_kernel_ms": two, "plain_ms": plain}
+            out[tag].update(fused_bound(ops, wavefront_dp_fused(*ops, (11, 1), "global", tb)))
         say("fused-times", shape=f"B{B}x{bx}x{bx}", seconds=round(time.perf_counter() - t0, 3),
-            **{f"{t}_{k}": round(v, 4) for t, d in out.items() if t.startswith(f"B{B}x")
-               for k, v in d.items()})
+            **{f"{t}_{k}": (round(v, 4) if isinstance(v, float) else v)
+               for t, d in out.items() if t.startswith(f"B{B}x") for k, v in d.items()})
     return out
+
+
+def phase_tiled_vs_plain(dev) -> float:
+    """The tiled kernel against its plain version at TILED_SHAPE: every
+    mode, SWEEP_SERIES, both score sources (hs from the producer, and in
+    place), scores and traceback, at each of TILED_CONFIGS.  The plain
+    version's result does not depend on the tiling, so it runs once a case
+    (256-lane tiles, 32 diagonals a visit)."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled, wavefront_dp_tiled_plain
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 6)
+    B, bx, by, lo = TILED_SHAPE
+    err, t0 = 0.0, time.perf_counter()
+    for mode in MODES:
+        for series in SWEEP_SERIES:
+            ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+            hs = fused_skewed_scores(*ops[:5])
+            for tb in (False, True):
+                want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, tb,
+                                                tile_lanes=256, steps_per_visit=32)
+                for w, t in TILED_CONFIGS:
+                    for name, source in (("hs", hs), ("in-place", ops[:5])):
+                        got = wavefront_dp_tiled(source, ops[5], ops[6], series, mode, tb,
+                                                 tile_lanes=w, steps_per_visit=t)
+                        err = max(err, same_outputs(
+                            got, want, f"tiled {name} {mode} {series} traceback={tb} "
+                                       f"tile={w} T={t} B{B}x{bx}x{by}"))
+    say("tiled=plain", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
+        series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), sources="hs,in-place",
+        tile_lanes_and_T="|".join(f"{w},{t}" for w, t in TILED_CONFIGS), traceback="both",
+        result="bit-equal(all outputs, all tb bytes)", seconds=round(time.perf_counter() - t0, 3))
+    return err
+
+
+def phase_tiled_long(dev) -> dict:
+    """One problem past the fused kernel's 4096 lanes, with traceback: the
+    tiled kernel (default tiles, hs source) against the plain DP, each
+    timed."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+    from praline_tpu_torch.kernels.tiled_dp import tile_width, wavefront_dp_tiled
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    B, bx, by, lo, mode = TILED_LONG
+    t0 = time.perf_counter()
+    ops = stacked_operands(np.random.default_rng(SEED + 8), dev, s, B, bx, by, lo)
+    hs = plain_scores(*ops[:5])
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(plain_dp(hs, ops[5], ops[6], (11, 1), mode, True)),
+                       1, warm_up=False)
+    got = wavefront_dp_tiled(hs, ops[5], ops[6], (11, 1), mode, True)
+    err = same_outputs(got, plain[0], f"tiled {mode} traceback B{B}x{bx}x{by}")
+    ms = cuda_ms(lambda: wavefront_dp_tiled(hs, ops[5], ops[6], (11, 1), mode, True), 3)
+    out = {"err": err, "ms": ms, "plain_ms": plain_ms, **dp_bound(ops[5], ops[6], got)}
+    W = tile_width(bx + 1)
+    say("tiled-long", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1, tile_lanes=W,
+        tiles=-(-(bx + 1) // W), traceback="bit-equal to the plain DP (all tb bytes)",
+        tiled_ms=round(ms, 4), plain_dp_ms=round(plain_ms, 4),
+        bound_ms=round(out["bound_ms"], 4), bound_by=out["bound_by"],
+        seconds=round(time.perf_counter() - t0, 3))
+    return out
+
+
+def phase_tiled_times(dev):
+    """The tiled kernel (hs source: alone, and after the producer that
+    feeds it; in place), the fused kernel and the plain composition at
+    B2 x 3000 x 3000, where both kernels take the rows; then the tiled
+    kernel beside the whole-row DP at TILED_VS_DP_SHAPES."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.tiled_dp import tile_width, wavefront_dp_tiled
+    from praline_tpu_torch.kernels.wavefront import wavefront_dp
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    B, bx, lo = TILED_TIMES_SHAPE
+    t0 = time.perf_counter()
+    ops = stacked_operands(np.random.default_rng(SEED + 9), dev, s, B, bx, bx, lo)
+    hs = fused_skewed_scores(*ops[:5])
+    out = {}
+    for tb in (False, True):
+        tag = "traceback" if tb else "scores"
+        args = (ops[5], ops[6], (11, 1), "global", tb)
+        out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+        out[f"{tag}_producer_tiled_ms"] = cuda_ms(
+            lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5]), *args), 5)
+        out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
+        out[f"{tag}_fused_ms"] = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
+        out[f"{tag}_tiled_again_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+    out["traceback_plain_ms"] = cuda_ms(
+        lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", True), 1, warm_up=False)
+    say("tiled-times", shape=f"B{B}x{bx}x{bx}", mode="global", seconds=round(time.perf_counter() - t0, 3),
+        **{k: round(v, 4) for k, v in out.items()})
+    for B, bx, lo in TILED_VS_DP_SHAPES:
+        t0 = time.perf_counter()
+        ops = stacked_operands(np.random.default_rng(SEED + 10), dev, s, B, bx, bx, lo)
+        hs = fused_skewed_scores(*ops[:5])
+        out = {}
+        for tb in (False, True):
+            tag = "traceback" if tb else "scores"
+            args = (ops[5], ops[6], (11, 1), "global", tb)
+            out[f"{tag}_dp_ms"] = cuda_ms(lambda: wavefront_dp(hs, *args), 5)
+            out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+            out[f"{tag}_dp_again_ms"] = cuda_ms(lambda: wavefront_dp(hs, *args), 5)
+        say("tiled-vs-dp", shape=f"B{B}x{bx}x{bx}", mode="global", tile_lanes=tile_width(bx + 1),
+            seconds=round(time.perf_counter() - t0, 3), **{k: round(v, 4) for k, v in out.items()})
+        del hs
 
 
 def phase_goldens(dev):
@@ -532,25 +781,39 @@ def long_family():
     return synthetic_family(LONG_FAMILY_SIZE, SEED + 4, root_len=2400, lo=1800, hi=2400)
 
 
-def check_long_family(dev, seqs):
-    """16 sampled all-pairs problems of the long family through the batch
-    driver against the plain composition."""
+def long8_family():
+    """8 members of a 5000-residue root, lengths 4300-5000 (a dynein heavy
+    chain is about 4650): every row and merged profile past 4096 columns,
+    which only the tiled kernel takes on the card."""
+    return synthetic_family(LONG8_SIZE, SEED + 7, root_len=5000, lo=4300, hi=5000)
+
+
+def check_long_family(dev, seqs, name, n_sample, route=None):
+    """``n_sample`` sampled all-pairs problems of a long family through the
+    batch driver (every chunk on ``route`` where one is named) against the
+    plain composition."""
     import numpy as np
 
     from praline_tpu_torch import PralineConfig, builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
-    from praline_tpu_torch.kernels.batch import align_pairs_batched
+    from praline_tpu_torch.kernels import batch
     from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused_plain
 
     t0 = time.perf_counter()
     cfg = PralineConfig()
     matrix = builtin_score_matrix("blosum62")
     index = [(i, j) for i in range(len(seqs)) for j in range(i + 1, len(seqs))]
-    sample = [index[k] for k in np.random.default_rng(SEED + 5).choice(len(index), 16, replace=False)]
+    sample = [index[k] for k in np.random.default_rng(SEED + 5).choice(len(index), n_sample,
+                                                                       replace=False)]
     px = [seqs[i].one_hot_profile() for i, _ in sample]
     py = [seqs[j].one_hot_profile() for _, j in sample]
-    got = align_pairs_batched(list(zip(px, py)), matrix, cfg.gap_series, cfg.distance_mode,
-                              device=dev, traceback=False, bucket_sizes=tuple(cfg.bucket_sizes))
+    batch.reset_route_counts()
+    got = batch.align_pairs_batched(list(zip(px, py)), matrix, cfg.gap_series, cfg.distance_mode,
+                                    device=dev, traceback=False,
+                                    bucket_sizes=tuple(cfg.bucket_sizes))
+    if route and sum(batch.route_counts.values()) != batch.route_counts[route]:
+        raise AssertionError(f"{name}: sampled pairs meant for the {route} route took "
+                             f"{batch.route_counts}")
     cx, ivx, lx = profiles_to_stack(px, max(p.length for p in px), dev)
     cy, ivy, ly = profiles_to_stack(py, max(p.length for p in py), dev)
     want = wavefront_dp_fused_plain(cx, ivx, cy, ivy, matrix_to_torch(matrix, dev), lx, ly,
@@ -558,8 +821,9 @@ def check_long_family(dev, seqs):
     for k, r in enumerate(got):
         exp = tuple(want[key][k].item() for key in ("score", "length", "ti", "tj"))
         if (r.score, r.length, r.ti, r.tj) != exp:
-            raise AssertionError(f"long-family pair {sample[k]}: {r} != plain {exp}")
-    say("long-family", sampled_all_pairs_vs_plain="16/16 bit-equal",
+            raise AssertionError(f"{name} pair {sample[k]}: {r} != plain {exp}")
+    say(name, routes=json.dumps(batch.route_counts),
+        sampled_all_pairs_vs_plain=f"{n_sample}/{n_sample} bit-equal",
         seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -593,20 +857,22 @@ def phase_profile(name, fn):
              for e in top]))
 
 
-KERNELS = ("scores", "dp", "fused", "walk")
+KERNELS = ("scores", "dp", "fused", "tiled", "walk")
 # The kernels each main path must launch: the all-pairs headline on its
-# default route (two-kernel) and forced onto the fused route, and the two
-# msa_align runs.
+# default route (two-kernel) and forced onto the fused route, and the three
+# msa_align runs.  Only long8 has rows past the fused kernel's lanes; every
+# other path must keep off the tiled kernel.
 PATH_KERNELS = {"all-pairs": ("scores", "dp"), "all-pairs-fused-route": ("fused",),
-                "msa128": ("scores", "dp", "walk"), "long-family": ("fused", "walk")}
+                "msa128": ("scores", "dp", "walk"), "long-family": ("fused", "walk"),
+                "long8": ("scores", "tiled", "walk")}
 
 
 def counted(name, phase):
     """Run ``phase`` with every launch count set to 0 just before it; return
     its result and the counts read just after."""
-    from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, wavefront
+    from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, tiled_dp, wavefront
 
-    modules = dict(zip(KERNELS, (fused_scores, wavefront, fused_dp, replay)))
+    modules = dict(zip(KERNELS, (fused_scores, wavefront, fused_dp, tiled_dp, replay)))
     for m in modules.values():
         m.reset_launches()
     result = phase()
@@ -615,6 +881,8 @@ def counted(name, phase):
     missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
+    if name != "long8" and counts["tiled"]:
+        raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
     return result, counts
 
 
@@ -630,18 +898,23 @@ def main() -> int:
     timing = phase_kernels_vs_plain(dev)
     phase_fused_long(dev, timing)
     fused_times = phase_fused_times(dev)
+    tiled_err = phase_tiled_vs_plain(dev)
+    tiled_long = phase_tiled_long(dev)
+    phase_tiled_times(dev)
     phase_goldens(dev)
     matrix, pairs, cells = headline_pairs()
     all_pairs_run = all_pairs_runner(dev, matrix, pairs)
     long_seqs = long_family()
+    long8_seqs = long8_family()
 
     # ---- the main paths: launches are counted per path, over its runs only ----
     (res, walls, gcs), c1 = counted(
         "all-pairs", lambda: timed_runs(all_pairs_run, HEADLINE_RUNS, "two_kernel"))
     msa_run, c2 = counted("msa128", lambda: phase_msa(dev))
     long_run, c3 = counted("long-family", lambda: run_msa_twice(dev, long_seqs, "long-family"))
+    long8_run, c4 = counted("long8", lambda: run_msa_twice(dev, long8_seqs, "long8"))
     # ---- end of the main paths ----
-    launches = {k: c1[k] + c2[k] + c3[k] for k in KERNELS}
+    launches = {k: c1[k] + c2[k] + c3[k] + c4[k] for k in KERNELS}
     check_all_pairs(dev, matrix, pairs, res)
     say_all_pairs("two_kernel", cells, walls, gcs, sampled_vs_plain="64/64 bit-equal")
     with route_knob("1"):
@@ -650,12 +923,15 @@ def main() -> int:
     if res_fused != res:
         raise AssertionError("all-pairs: the fused route differs from the two-kernel route")
     say_all_pairs("fused", cells, walls, gcs, results="equal to the two_kernel route")
-    check_long_family(dev, long_seqs)
+    check_long_family(dev, long_seqs, "long-family", 16)
+    check_long_family(dev, long8_seqs, "long8", 4, "tiled")
     phase_profile("all-pairs", all_pairs_run)
     phase_profile("msa", msa_run)
     phase_profile("long-family", long_run)
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported: the port must run without it")
+    phase_profile("long8", long8_run)
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "praline_tpu"))
+    if foreign:
+        raise AssertionError(f"JAX or the JAX package was imported: {foreign[:5]}")
 
     headline = fused_times[f"B64x{HEADLINE_BUCKET}x{HEADLINE_BUCKET}_scores"]
     kernels = [
@@ -664,25 +940,36 @@ def main() -> int:
          "replaces": "praline_tpu/kernels/fused_scores.py:359 (fused_skewed_scores_strip), "
                      "praline_tpu/kernels/fused_scores.py:119 (fused_skewed_scores)",
          "launches": launches["scores"], "max_abs_err": timing["scores_err"],
-         "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"]},
+         "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"],
+         **timing["scores_bound"], "library_ms": timing["scores_library_ms"]},
         {"name": "wavefront_dp", "route": "cuda",
          "source": "praline_tpu_torch/csrc/wavefront_dp.cu",
          "replaces": "praline_tpu/kernels/strip.py:587 (wavefront_dp_strip), "
                      "praline_tpu/kernels/pallas_dp.py:628 (wavefront_dp_pallas)",
          "launches": launches["dp"], "max_abs_err": timing["dp_err"],
-         "ms": timing["dp_ms"], "plain_ms": timing["dp_plain_ms"]},
+         "ms": timing["dp_ms"], "plain_ms": timing["dp_plain_ms"],
+         **timing["dp_bound"], "library_ms": None},
         {"name": "replay_moves", "route": "cuda",
          "source": "praline_tpu_torch/csrc/replay.cu",
          "replaces": "praline_tpu/kernels/replay.py:131 (replay_moves, an XLA scan)",
          "launches": launches["walk"], "max_abs_err": timing["walk_err"],
-         "ms": timing["walk_ms"], "plain_ms": timing["walk_plain_ms"]},
+         "ms": timing["walk_ms"], "plain_ms": timing["walk_plain_ms"],
+         **timing["walk_bound"], "library_ms": None},
         {"name": "wavefront_dp_fused", "route": "cuda",
          "source": "praline_tpu_torch/csrc/fused_dp.cu",
          "replaces": "praline_tpu/kernels/fused_dp.py:70 (wavefront_dp_fused), "
                      "praline_tpu/kernels/chunked.py:26 (wavefront_dp_chunked), "
                      "praline_tpu/kernels/scan.py:106 (wavefront_dp_streamed)",
          "launches": launches["fused"], "max_abs_err": timing["fused_err"],
-         "ms": headline["fused_ms"], "plain_ms": headline["plain_ms"]},
+         "ms": headline["fused_ms"], "plain_ms": headline["plain_ms"],
+         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"], "library_ms": None},
+        {"name": "wavefront_dp_tiled", "route": "cuda",
+         "source": "praline_tpu_torch/csrc/tiled_dp.cu",
+         "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled)",
+         "launches": launches["tiled"], "max_abs_err": max(tiled_err, tiled_long["err"]),
+         "ms": tiled_long["ms"], "plain_ms": tiled_long["plain_ms"],
+         "bound_ms": tiled_long["bound_ms"], "bound_by": tiled_long["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

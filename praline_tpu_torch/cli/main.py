@@ -90,9 +90,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --backend {args.backend} {NOT_PORTED}", file=sys.stderr)
         return 2
 
-    from praline_tpu import io as pio
-    from praline_tpu.types import ALPHABETS, PralineConfig
-    from praline_tpu.util.metrics import configure_logging, log
+    from .. import io as pio
+    from ..types import ALPHABETS, PralineConfig
+    from ..util.metrics import configure_logging, log
 
     configure_logging(args.verbose, json_lines=args.log_json)
     alphabet_name = "dna" if args.alphabet == "dna" else "protein"

@@ -5,9 +5,9 @@
 // and praline_tpu/kernels/pallas_dp.py::wavefront_dp_pallas.  The contract
 // is that of kernels/scan.py::wavefront_dp (the plain version beside this
 // kernel), bit for bit; the recurrence itself, its lane layout and its
-// terminal rules are csrc/wavefront.cuh, shared with csrc/fused_dp.cu.
-// This kernel reads each cell's score from hs f32[D, B, Lp], the output of
-// csrc/scores.cu.
+// terminal rules are csrc/wavefront.cuh, shared with csrc/fused_dp.cu and
+// csrc/tiled_dp.cu.  This kernel reads each cell's score from hs
+// f32[D, B, Lp], the output of csrc/scores.cu (the functor HsRows).
 //
 // What bounds it on the H100: the dependency chain along the diagonals.
 // A diagonal costs roughly a hundred dependent instructions per lane plus
@@ -20,7 +20,7 @@
 // Gap series of 1 to 15 levels (the JAX package's limit) are compiled in,
 // k = 2 collapsed; the levels are a template parameter so the carries stay
 // in registers.  Up to two lanes per thread: Lp <= 2048 (bucket 2047);
-// longer rows take csrc/fused_dp.cu.
+// longer rows take csrc/fused_dp.cu (up to 4096 lanes) or csrc/tiled_dp.cu.
 
 #include "wavefront.cuh"
 
@@ -29,15 +29,6 @@ namespace {
 using namespace praline_dp;
 
 constexpr int kMaxQ = 2;
-
-// Cell (i, d - i) of problem b: one element of hs.
-struct HsRows {
-  const float* hs;
-  int B, Lp, b;
-  __device__ __forceinline__ float operator()(int d, int i) const {
-    return __ldg(hs + ((size_t)d * B + b) * Lp + i);
-  }
-};
 
 struct DpArgs {
   const float* hs;

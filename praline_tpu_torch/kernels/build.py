@@ -37,6 +37,9 @@ _LIB: ctypes.CDLL | None = None
 # Seconds each source took to compile in the last build of this process
 # (the sources compile in parallel, so the build took about the largest).
 last_build_seconds: dict[str, float] = {}
+# The compiler's output per source in the last verbose build: with
+# ``-Xptxas -v``, each kernel's registers, shared memory and spills.
+last_build_log: dict[str, str] = {}
 
 
 def sources() -> list[Path]:
@@ -61,8 +64,9 @@ def _tag() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists;
-    return its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel) and prints the compiler's output."""
+    return its path.  ``verbose`` compiles anew with ``-Xptxas -v``
+    (registers, shared memory and spills per kernel) and keeps the
+    compiler's output in :data:`last_build_log`."""
     tag = _tag()
     so = BUILD_DIR / f"libpraline_kernels_{tag}.so"
     if so.exists() and not verbose:
@@ -81,13 +85,14 @@ def build(verbose: bool = False) -> Path:
     with ThreadPoolExecutor(len(objs)) as pool:
         done = dict(zip(objs, pool.map(compile_one, objs)))
     last_build_seconds.clear()
+    last_build_log.clear()
     for src, (res, seconds) in done.items():
         last_build_seconds[src.name] = seconds
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name} ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
         if verbose:
-            print(f"--- {src.name}\n{res.stdout}{res.stderr}")
+            last_build_log[src.name] = res.stdout + res.stderr
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                           *map(str, objs.values())], capture_output=True, text=True)
@@ -115,6 +120,10 @@ def load_library() -> ctypes.CDLL:
         lib.praline_fused_dp.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p,
         ]
+        lib.praline_tiled_dp_hs.restype = i
+        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 8, *[p] * 8]
+        lib.praline_tiled_dp_rows.restype = i
+        lib.praline_tiled_dp_rows.argtypes = [*[p] * 8, *[i] * 9, *[p] * 10]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
         _LIB = lib

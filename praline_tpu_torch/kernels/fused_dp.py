@@ -60,6 +60,39 @@ def padded_alphabet(A: int) -> int:
     return -(-A // 4) * 4
 
 
+def check_series(gap_series, mode) -> int:
+    """The level count of ``gap_series``; raises for a series or mode no
+    CUDA DP takes."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    k = len(gap_series)
+    if not 1 <= k <= MAX_LEVELS:
+        raise ValueError(f"gap series must have 1 to {MAX_LEVELS} levels, got {k}")
+    return k
+
+
+def check_rows(cx, inv_x, cy, inv_y, s, lx, ly) -> tuple[int, int, int, int]:
+    """``(B, Lx, Ly, A)`` of the in-place score source; raises unless every
+    operand is a contiguous tensor of its shape and type on one device."""
+    if cx.dim() != 3 or cy.dim() != 3:
+        raise ValueError("cx and cy must be f32[B, L, A] tensors")
+    B, Lx, A = cx.shape
+    Ly = cy.shape[1]
+    dev = cx.device
+    shapes = (("cx", cx, (B, Lx, A), torch.float32), ("inv_x", inv_x, (B, Lx), torch.float32),
+              ("cy", cy, (B, Ly, A), torch.float32), ("inv_y", inv_y, (B, Ly), torch.float32),
+              ("s", s, (A, A), torch.float32), ("lx", lx, (B,), torch.int32),
+              ("ly", ly, (B,), torch.int32))
+    for name, t, shape, dtype in shapes:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape "
+                             f"{shape} on {dev}")
+    if not (B >= 1 and Lx >= 1 and Ly >= 1 and 1 <= A <= MAX_ALPHABET):
+        raise ValueError(f"shape B={B} Lx={Lx} Ly={Ly} A={A} outside the kernel's range")
+    return B, Lx, Ly, A
+
+
 def wavefront_dp_fused_plain(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
                              mode="global", traceback=False):
     """The plain version: ``skewed_pair_scores`` then the plain DP."""
@@ -78,32 +111,14 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
         return wavefront_dp_fused_plain(cx, inv_x, cy, inv_y, s, lx, ly, gap_series,
                                         mode, traceback)
     global launches
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    k = len(gap_series)
-    if not 1 <= k <= MAX_LEVELS:
-        raise ValueError(f"gap series must have 1 to {MAX_LEVELS} levels, got {k}")
-    if cx.dim() != 3 or cy.dim() != 3:
-        raise ValueError("cx and cy must be f32[B, L, A] tensors")
-    B, Lx, A = cx.shape
-    Ly = cy.shape[1]
+    k = check_series(gap_series, mode)
+    B, Lx, Ly, A = check_rows(cx, inv_x, cy, inv_y, s, lx, ly)
     dev = cx.device
-    shapes = (("cx", cx, (B, Lx, A), torch.float32), ("inv_x", inv_x, (B, Lx), torch.float32),
-              ("cy", cy, (B, Ly, A), torch.float32), ("inv_y", inv_y, (B, Ly), torch.float32),
-              ("s", s, (A, A), torch.float32), ("lx", lx, (B,), torch.int32),
-              ("ly", ly, (B,), torch.int32))
-    for name, t, shape, dtype in shapes:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape "
-                             f"{shape} on {dev}")
-    if not (B >= 1 and Lx >= 1 and Ly >= 1 and 1 <= A <= MAX_ALPHABET):
-        raise ValueError(f"shape B={B} Lx={Lx} Ly={Ly} A={A} outside the kernel's range")
     Lp = Lx + 1
     if Lp > MAX_LANES_FUSED:
         raise NotImplementedError(
             f"the fused CUDA DP takes Lp <= {MAX_LANES_FUSED}, "
-            f"got {Lp} (longer rows: ROADMAP.md §1 item 1, the ring route)"
+            f"got {Lp} (longer rows take kernels/tiled_dp.py)"
         )
     gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
     f32 = dict(dtype=torch.float32, device=dev)

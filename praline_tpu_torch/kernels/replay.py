@@ -20,9 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from praline_tpu.oracle.align import AlignResult
-from praline_tpu.types import GAP
-
+from ..oracle.align import AlignResult
+from ..types import GAP
 from . import build
 from .scan import MODES, PTR_NONE
 

@@ -1,15 +1,23 @@
-"""Plain batched anti-diagonal wavefront DP: the reference for the Hopper DP.
+"""Plain batched anti-diagonal wavefront DP: the reference for the Hopper DPs.
 
 Counterpart of ``praline_tpu/kernels/scan.py::wavefront_dp`` (the
 single-device, materialized-``hs`` form of ``_wavefront``), written as a
-torch loop over anti-diagonals.  It is the parity anchor of the CUDA kernel
-in ``kernels/wavefront.py`` and the path every CPU run takes.
+torch loop over anti-diagonals.  It is the parity anchor of the CUDA
+kernels in ``kernels/wavefront.py``, ``kernels/fused_dp.py`` and
+``kernels/tiled_dp.py`` and the path every CPU run takes.
 
 Layout: diagonal vectors are indexed by lane ``i`` (rows consumed of x);
 lane ``i`` of diagonal ``d`` holds cell ``(i, d - i)``.  Per-problem true
 lengths ``lx, ly`` are at most the bucket shape; padded cells compute
 values that only flow to other padded cells, and terminals are read at the
 true lengths.
+
+The recurrence is split as ``csrc/wavefront.cuh`` splits it, so the lane
+tiled walk (``kernels/tiled_dp.py``) reuses it piece for piece: the d = 1
+carries of a range of lanes (:func:`carries_d1`), one diagonal over that
+range given its left neighbour's carries (:func:`diagonal_step`, with
+:func:`edge_of` giving a range's last lane), and the terminal trackers
+(:class:`Terminals`).  :func:`wavefront_dp` runs them over the whole row.
 
 Traceback byte per interior cell (identical to the JAX package):
   bits 0-4  M predecessor code (0 = M, 1..k = Ix level, k+1..2k = Iy level,
@@ -59,7 +67,8 @@ def _priority_select(m, ixs, iys, lm, lixs, liys, codes_x, codes_y):
 
 
 def _shift(v, fill):
-    """Lane i <- lane i-1, ``fill`` at lane 0."""
+    """Lane i <- lane i-1; the first lane takes ``fill`` (a scalar, or a
+    ``[B]`` column: the left neighbour's value)."""
     out = torch.empty_like(v)
     out[:, 0] = fill
     out[:, 1:] = v[:, :-1]
@@ -71,6 +80,288 @@ def _take(v, idx):
     return v.gather(1, idx.clamp(0, v.shape[1] - 1).long()[:, None])[:, 0]
 
 
+class Recurrence:
+    """What every diagonal of one call shares: the series, the mode and the
+    border run costs."""
+
+    def __init__(self, gap_series, mode, traceback, D):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        k = len(gap_series)
+        if not 1 <= k <= 15:
+            raise ValueError("gap series must have 1 to 15 levels")
+        self.k = k
+        self.g = [float(np.float32(x)) for x in gap_series]
+        self.collapsed = k == 2
+        self.kc = 1 if self.collapsed else k
+        self.track_stay = self.collapsed and traceback
+        self.mode = mode
+        self.local = mode == "local"
+        self.semi = mode == "semiglobal"
+        self.traceback = traceback
+        self.border_m = 0.0 if self.local else NEG
+        self.cum = _gap_prefix(gap_series, D + 1)
+        self.codes_x = [1] if self.collapsed else [1 + l for l in range(k)]
+        self.codes_y = [1 + k] if self.collapsed else [1 + k + l for l in range(k)]
+
+
+def carries_d1(rec: Recurrence, lane, B):
+    """The carries at d = 1 of the lanes ``lane`` (global lane indices,
+    ``[1, w]``): cells (0, 1) on lane 0 and (1, 0) on lane 1."""
+    dev = lane.device
+    w = lane.shape[1]
+    zeros = torch.zeros((B, w), dtype=torch.float32, device=dev)
+    negs = torch.full((B, w), NEG, dtype=torch.float32, device=dev)
+    izeros = torch.zeros((B, w), dtype=torch.int32, device=dev)
+    kc = rec.kc
+    m1 = torch.where((lane == 0) | (lane == 1), rec.border_m, negs)
+    lm1 = zeros
+    ix1 = [negs] * kc
+    iy1 = [negs] * kc
+    lix1 = [zeros] * kc
+    liy1 = [zeros] * kc
+    if not rec.local:
+        bval = 0.0 if rec.semi else -float(rec.cum[1])
+        ix1[0] = torch.where(lane == 1, bval, negs)
+        iy1[0] = torch.where(lane == 0, bval, negs)
+        lix1[0] = torch.where(lane == 1, 1.0, zeros)
+        liy1[0] = torch.where(lane == 0, 1.0, zeros)
+    # best-state rows: r2 = diagonal 0 (cell (0,0), M = 0), r1 = diagonal 1
+    r2v = torch.where(lane == 0, 0.0, negs)
+    r1v, r1l, r1c = _priority_select(m1, ix1, iy1, lm1, lix1, liy1, rec.codes_x, rec.codes_y)
+    return dict(m1=m1, lm1=lm1, ix1=ix1, iy1=iy1, lix1=lix1, liy1=liy1, r1v=r1v, r1l=r1l,
+                r1c=r1c, r2v=r2v, r2l=zeros, r2c=izeros, psx=izeros, psy=izeros)
+
+
+def edge_of(c):
+    """The values the last lane of a range hands to the next lane: its M,
+    best(d-2), their lengths and code, its x stay bit and Ix levels (the
+    NX values of ``csrc/wavefront.cuh``), each a ``[B]`` column."""
+    return dict(m1=c["m1"][:, -1], r2v=c["r2v"][:, -1], r2l=c["r2l"][:, -1],
+                r2c=c["r2c"][:, -1], lm1=c["lm1"][:, -1], psx=c["psx"][:, -1],
+                ix1=[v[:, -1] for v in c["ix1"]], lix1=[v[:, -1] for v in c["lix1"]])
+
+
+def diagonal_step(rec: Recurrence, c, left, d, lane0, hrow):
+    """Diagonal ``d`` over the lanes ``lane0 .. lane0 + w - 1`` whose
+    carries (at d - 1) are ``c``; ``left`` is :func:`edge_of` the lane
+    before ``lane0`` (``None`` at lane 0: the border fill) and ``hrow`` the
+    lanes' scores ``hs[d, :, lane0:lane0 + w]``.  Returns the carries at d
+    and the cell dict (best value, length and code, M value and length,
+    and the traceback bits when asked for)."""
+    k, kc, g = rec.k, rec.kc, rec.g
+    collapsed, local = rec.collapsed, rec.local
+    i32 = torch.int32
+    w = hrow.shape[1]
+    m1, lm1, ix1, iy1, lix1, liy1 = (c[n] for n in ("m1", "lm1", "ix1", "iy1", "lix1", "liy1"))
+
+    def fill(name, default, level=None):
+        if left is None:
+            return default
+        return left[name] if level is None else left[name][level]
+
+    m1s = _shift(m1, fill("m1", NEG))
+    b2vs = _shift(c["r2v"], fill("r2v", NEG))
+    lm1s = _shift(lm1, fill("lm1", 0.0))
+    b2ls = _shift(c["r2l"], fill("r2l", 0.0))
+    b2cs = _shift(c["r2c"], fill("r2c", 0))
+    ix1s = [_shift(v, fill("ix1", NEG, l)) for l, v in enumerate(ix1)]
+    lix1s = [_shift(v, fill("lix1", 0.0, l)) for l, v in enumerate(lix1)]
+
+    # ---- gap states ----
+    nix = [None] * kc
+    niy = [None] * kc
+    nlix = [None] * kc
+    nliy = [None] * kc
+    if collapsed:
+        # k = 2 collapse (praline_tpu/kernels/scan.py:246-260): one
+        # max-of-levels row per side; sx/sy are the chosen level minus
+        # one and the next diagonal's stay bits.
+        open_x = m1s - g[0]
+        ext_x = ix1s[0] - g[1]
+        sx = ext_x > open_x
+        nix[0] = torch.where(sx, ext_x, open_x)
+        nlix[0] = torch.where(sx, lix1s[0], lm1s) + 1.0
+        open_y = m1 - g[0]
+        ext_y = iy1[0] - g[1]
+        sy = ext_y > open_y
+        niy[0] = torch.where(sy, ext_y, open_y)
+        nliy[0] = torch.where(sy, liy1[0], lm1) + 1.0
+    elif k == 1:
+        stay_x = ix1s[0] > m1s
+        nix[0] = torch.where(stay_x, ix1s[0], m1s) - g[0]
+        nlix[0] = torch.where(stay_x, lix1s[0], lm1s) + 1.0
+        stay_y = iy1[0] > m1
+        niy[0] = torch.where(stay_y, iy1[0], m1) - g[0]
+        nliy[0] = torch.where(stay_y, liy1[0], lm1) + 1.0
+    else:
+        nix[0] = m1s - g[0]
+        nlix[0] = lm1s + 1.0
+        niy[0] = m1 - g[0]
+        nliy[0] = lm1 + 1.0
+        for l in range(1, k - 1):
+            nix[l] = ix1s[l - 1] - g[l]
+            nlix[l] = lix1s[l - 1] + 1.0
+            niy[l] = iy1[l - 1] - g[l]
+            nliy[l] = liy1[l - 1] + 1.0
+        stay_x = ix1s[k - 1] > ix1s[k - 2]
+        nix[k - 1] = torch.where(stay_x, ix1s[k - 1], ix1s[k - 2]) - g[k - 1]
+        nlix[k - 1] = torch.where(stay_x, lix1s[k - 1], lix1s[k - 2]) + 1.0
+        stay_y = iy1[k - 1] > iy1[k - 2]
+        niy[k - 1] = torch.where(stay_y, iy1[k - 1], iy1[k - 2]) - g[k - 1]
+        nliy[k - 1] = torch.where(stay_y, liy1[k - 1], liy1[k - 2]) + 1.0
+
+    # ---- M state ----
+    nm = hrow + b2vs
+    nlm = b2ls + 1.0
+    mcode = b2cs
+    if local:
+        clamp = nm < 0.0
+        nm = torch.where(clamp, 0.0, nm)
+        mcode = torch.where(clamp, PTR_NONE, mcode)
+        # the length restarts at any zero-valued M cell
+        nlm = torch.where(nm <= 0.0, 0.0, nlm)
+
+    # ---- borders: lane 0 = cell (0, d), lane d = cell (d, 0) ----
+    # Only two lanes change, so they are written in place (every tensor
+    # written here was created in this step).
+    def border(v, at0_val, atd_val):
+        if lane0 == 0:
+            v[:, 0] = at0_val
+        if lane0 <= d < lane0 + w:
+            v[:, d - lane0] = atd_val
+
+    border(nm, rec.border_m, rec.border_m)
+    border(nlm, 0.0, 0.0)
+    bx = 0.0 if rec.semi else -float(rec.cum[d])
+    lvl_d = min(d, k)  # border run level (1-based)
+    for l in range(kc):
+        if local:
+            border(nix[l], NEG, NEG)
+            border(niy[l], NEG, NEG)
+            border(nlix[l], 0.0, 0.0)
+            border(nliy[l], 0.0, 0.0)
+            continue
+        on_lvl = collapsed or lvl_d == l + 1
+        bval = bx if on_lvl else NEG
+        border(nix[l], NEG, bval)
+        border(niy[l], bval, NEG)
+        border(nlix[l], 0.0, float(d))
+        border(nliy[l], float(d), 0.0)
+
+    # ---- best state, for the d+2 step and for terminals ----
+    psx, psy = c["psx"], c["psy"]
+    if collapsed:
+        # a (d, 0) border cell is a level-k run; (0, d) carries no Ix
+        if local:
+            border(sx, False, False)
+            border(sy, False, False)
+        else:
+            border(sx, False, True)
+            border(sy, True, False)
+        sxi = sx.to(i32)
+        syi = sy.to(i32)
+        bv, bl, bc = _priority_select(nm, nix, niy, nlm, nlix, nliy, [1 + sxi], [1 + k + syi])
+    else:
+        bv, bl, bc = _priority_select(nm, nix, niy, nlm, nlix, nliy, rec.codes_x, rec.codes_y)
+
+    cell = dict(bv=bv, bl=bl, bc=bc, nm=nm, nlm=nlm)
+    if rec.traceback:
+        bits = mcode.to(torch.uint8)
+        if local:
+            bits = bits | ((nm <= 0.0).to(torch.uint8) << 7)
+        if collapsed:
+            # bit 5 = previous diagonal's x-stay shifted one lane
+            # (cell (i-1, j)); bit 6 = previous y-stay on the same lane
+            bits = bits | (_shift(psx, fill("psx", 0)).to(torch.uint8) << 5)
+            bits = bits | (psy.to(torch.uint8) << 6)
+        else:
+            bits = bits | (stay_x.to(torch.uint8) << 5)
+            bits = bits | (stay_y.to(torch.uint8) << 6)
+        cell["bits"] = bits
+
+    if rec.track_stay:
+        psx, psy = sxi, syi
+    carries = dict(m1=nm, lm1=nlm, ix1=nix, iy1=niy, lix1=nlix, liy1=nliy,
+                   r1v=bv, r1l=bl, r1c=bc, r2v=c["r1v"], r2l=c["r1l"], r2c=c["r1c"],
+                   psx=psx, psy=psy)
+    return carries, cell
+
+
+class Terminals:
+    """Per-problem terminal trackers, fed one diagonal of a lane range at a
+    time (any order of ranges gives the same result: every candidate cell
+    is unique and the tie rules are a total order)."""
+
+    def __init__(self, rec: Recurrence, lx, ly):
+        B = lx.shape[0]
+        dev = lx.device
+        f32, i32 = torch.float32, torch.int32
+        self.rec, self.lx, self.ly = rec, lx, ly
+        self.tval = torch.full((B,), NEG, dtype=f32, device=dev)
+        self.tlen = torch.zeros((B,), dtype=f32, device=dev)
+        self.ti = torch.zeros((B,), dtype=i32, device=dev)
+        self.tj = torch.zeros((B,), dtype=i32, device=dev)
+        self.tcode = torch.zeros((B,), dtype=i32, device=dev)
+        if rec.semi:
+            # diagonal-1 border cells are candidates when a side has length 1;
+            # (1, 0) is preferred over (0, 1) (larger i).
+            k = rec.k
+            for pick, ci, cj, cc in ((ly == 1, 0, 1, 1 + k), (lx == 1, 1, 0, 1)):
+                self._put(pick, 0.0, 1.0, ci, cj, cc)
+
+    def _put(self, repl, v, ln, i, j, code=None):
+        self.tval = torch.where(repl, v, self.tval)
+        self.tlen = torch.where(repl, ln, self.tlen)
+        self.ti = torch.where(repl, i, self.ti)
+        self.tj = torch.where(repl, j, self.tj)
+        if code is not None:
+            self.tcode = torch.where(repl, code, self.tcode)
+
+    def add(self, d, lane0, lane, cell):
+        """Diagonal ``d``'s cells on the lanes ``lane`` (``[1, w]``, the
+        global indices ``lane0 ..``)."""
+        lx, ly = self.lx, self.ly
+        w = lane.shape[1]
+        bv, bl, bc = cell["bv"], cell["bl"], cell["bc"]
+        mode = self.rec.mode
+        if mode == "global":
+            pick = ((lx + ly) == d) & (lx >= lane0) & (lx < lane0 + w)
+            at = lx - lane0
+            self._put(pick, _take(bv, at), _take(bl, at), lx, ly, _take(bc, at))
+        elif mode == "semiglobal":
+            # candidate A: last-column cell (d - ly, ly); then candidate B:
+            # last-row cell (lx, d - lx).  Ties keep larger i, then larger j.
+            for ci, cj in ((d - ly, ly), (lx, d - lx)):
+                ok = (ci >= 0) & (ci <= lx) & (cj >= 0) & (cj <= ly)
+                ok = ok & (ci >= lane0) & (ci < lane0 + w)
+                at = ci - lane0
+                cv = _take(bv, at)
+                better = cv > self.tval
+                tie = (cv == self.tval) & ((ci > self.ti) | ((ci == self.ti) & (cj > self.tj)))
+                self._put(ok & (better | tie), cv, _take(bl, at), ci, cj, _take(bc, at))
+        else:  # local: running argmax over interior M cells
+            valid = (lane >= 1) & (lane <= lx[:, None]) & (d - lane >= 1) & (
+                d - lane <= ly[:, None]
+            )
+            mv = torch.where(valid, cell["nm"], NEG)
+            step_best, _ = mv.max(dim=1)
+            # first maximal lane = smallest i (the pinned tie-break)
+            arg = (mv == step_best[:, None]).to(torch.uint8).argmax(dim=1).to(torch.int32)
+            step_arg = arg + lane0
+            cj = d - step_arg
+            better = step_best > self.tval
+            tie = (step_best == self.tval) & (
+                (step_arg < self.ti) | ((step_arg == self.ti) & (cj < self.tj)))
+            # a range without an interior cell has no candidate
+            repl = (better | tie) & (step_best > NEG)
+            self._put(repl, step_best, _take(cell["nlm"], arg), step_arg, cj)
+
+    def result(self):
+        return {"score": self.tval, "length": self.tlen, "ti": self.ti, "tj": self.tj,
+                "tcode": self.tcode}
+
+
 def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False):
     """Run the batched DP over skewed scores ``hs f32[D, B, Lp]``.
 
@@ -80,238 +371,21 @@ def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False)
     ``tcode`` int32[B] terminal state code, and with ``traceback`` the
     direction bytes ``tb`` uint8[D-2, B, Lp].
     """
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    k = len(gap_series)
-    if not 1 <= k <= 15:
-        raise ValueError("gap series must have 1 to 15 levels")
     D, B, Lp = hs.shape
+    rec = Recurrence(gap_series, mode, traceback, D)
     dev = hs.device
-    f32, i32 = torch.float32, torch.int32
-    lx = lx.to(dev, i32)
-    ly = ly.to(dev, i32)
-    g = [float(np.float32(x)) for x in gap_series]
-    collapsed = k == 2
-    kc = 1 if collapsed else k
-    track_stay = collapsed and traceback
-    local = mode == "local"
-    semi = mode == "semiglobal"
-
-    cum = _gap_prefix(gap_series, D + 1)
-    lane = torch.arange(Lp, device=dev, dtype=i32)[None, :]
-    zeros = torch.zeros((B, Lp), dtype=f32, device=dev)
-    negs = torch.full((B, Lp), NEG, dtype=f32, device=dev)
-    izeros = torch.zeros((B, Lp), dtype=i32, device=dev)
-
-    # ---- carries at d = 1: cells (0, 1) on lane 0 and (1, 0) on lane 1 ----
-    border_m = 0.0 if local else NEG
-    m1 = torch.where((lane == 0) | (lane == 1), border_m, negs)
-    lm1 = zeros
-    ix1 = [negs] * kc
-    iy1 = [negs] * kc
-    lix1 = [zeros] * kc
-    liy1 = [zeros] * kc
-    if not local:
-        bval = 0.0 if semi else -float(cum[1])
-        ix1[0] = torch.where(lane == 1, bval, negs)
-        iy1[0] = torch.where(lane == 0, bval, negs)
-        lix1[0] = torch.where(lane == 1, 1.0, zeros)
-        liy1[0] = torch.where(lane == 0, 1.0, zeros)
-    # best-state rows: r2 = diagonal 0 (cell (0,0), M = 0), r1 = diagonal 1
-    r2v = torch.where(lane == 0, 0.0, negs)
-    r2l = zeros
-    r2c = izeros
-    codes_x = [1] if collapsed else [1 + l for l in range(k)]
-    codes_y = [1 + k] if collapsed else [1 + k + l for l in range(k)]
-    r1v, r1l, r1c = _priority_select(m1, ix1, iy1, lm1, lix1, liy1, codes_x, codes_y)
-    psx = psy = izeros
-
-    # ---- terminal trackers ----
-    tval = torch.full((B,), NEG, dtype=f32, device=dev)
-    tlen = torch.zeros((B,), dtype=f32, device=dev)
-    ti = torch.zeros((B,), dtype=i32, device=dev)
-    tj = torch.zeros((B,), dtype=i32, device=dev)
-    tcode = torch.zeros((B,), dtype=i32, device=dev)
-    if semi:
-        # diagonal-1 border cells are candidates when a side has length 1;
-        # (1, 0) is preferred over (0, 1) (larger i).
-        for pick, ci, cj, cc in ((ly == 1, 0, 1, 1 + k), (lx == 1, 1, 0, 1)):
-            tval = torch.where(pick, 0.0, tval)
-            tlen = torch.where(pick, 1.0, tlen)
-            ti = torch.where(pick, ci, ti)
-            tj = torch.where(pick, cj, tj)
-            tcode = torch.where(pick, cc, tcode)
-
+    lx = lx.to(dev, torch.int32)
+    ly = ly.to(dev, torch.int32)
+    lane = torch.arange(Lp, device=dev, dtype=torch.int32)[None, :]
+    c = carries_d1(rec, lane, B)
+    term = Terminals(rec, lx, ly)
     tb = torch.empty((max(D - 2, 0), B, Lp), dtype=torch.uint8, device=dev) if traceback else None
-
     for d in range(2, D):
-        hrow = hs[d]
-        m1s = _shift(m1, NEG)
-        b2vs = _shift(r2v, NEG)
-        lm1s = _shift(lm1, 0.0)
-        b2ls = _shift(r2l, 0.0)
-        b2cs = _shift(r2c, 0)
-        ix1s = [_shift(v, NEG) for v in ix1]
-        lix1s = [_shift(v, 0.0) for v in lix1]
-
-        # ---- gap states ----
-        nix = [None] * kc
-        niy = [None] * kc
-        nlix = [None] * kc
-        nliy = [None] * kc
-        if collapsed:
-            # k = 2 collapse (praline_tpu/kernels/scan.py:246-260): one
-            # max-of-levels row per side; sx/sy are the chosen level minus
-            # one and the next diagonal's stay bits.
-            open_x = m1s - g[0]
-            ext_x = ix1s[0] - g[1]
-            sx = ext_x > open_x
-            nix[0] = torch.where(sx, ext_x, open_x)
-            nlix[0] = torch.where(sx, lix1s[0], lm1s) + 1.0
-            open_y = m1 - g[0]
-            ext_y = iy1[0] - g[1]
-            sy = ext_y > open_y
-            niy[0] = torch.where(sy, ext_y, open_y)
-            nliy[0] = torch.where(sy, liy1[0], lm1) + 1.0
-        elif k == 1:
-            stay_x = ix1s[0] > m1s
-            nix[0] = torch.where(stay_x, ix1s[0], m1s) - g[0]
-            nlix[0] = torch.where(stay_x, lix1s[0], lm1s) + 1.0
-            stay_y = iy1[0] > m1
-            niy[0] = torch.where(stay_y, iy1[0], m1) - g[0]
-            nliy[0] = torch.where(stay_y, liy1[0], lm1) + 1.0
-        else:
-            nix[0] = m1s - g[0]
-            nlix[0] = lm1s + 1.0
-            niy[0] = m1 - g[0]
-            nliy[0] = lm1 + 1.0
-            for l in range(1, k - 1):
-                nix[l] = ix1s[l - 1] - g[l]
-                nlix[l] = lix1s[l - 1] + 1.0
-                niy[l] = iy1[l - 1] - g[l]
-                nliy[l] = liy1[l - 1] + 1.0
-            stay_x = ix1s[k - 1] > ix1s[k - 2]
-            nix[k - 1] = torch.where(stay_x, ix1s[k - 1], ix1s[k - 2]) - g[k - 1]
-            nlix[k - 1] = torch.where(stay_x, lix1s[k - 1], lix1s[k - 2]) + 1.0
-            stay_y = iy1[k - 1] > iy1[k - 2]
-            niy[k - 1] = torch.where(stay_y, iy1[k - 1], iy1[k - 2]) - g[k - 1]
-            nliy[k - 1] = torch.where(stay_y, liy1[k - 1], liy1[k - 2]) + 1.0
-
-        # ---- M state ----
-        nm = hrow + b2vs
-        nlm = b2ls + 1.0
-        mcode = b2cs
-        if local:
-            clamp = nm < 0.0
-            nm = torch.where(clamp, 0.0, nm)
-            mcode = torch.where(clamp, PTR_NONE, mcode)
-            # the length restarts at any zero-valued M cell
-            nlm = torch.where(nm <= 0.0, 0.0, nlm)
-
-        # ---- borders: lane 0 = cell (0, d), lane d = cell (d, 0) ----
-        # Only two lanes change, so they are written in place (every
-        # tensor written here was created in this step).
-        def border(v, at0_val, atd_val):
-            v[:, 0] = at0_val
-            if d < Lp:
-                v[:, d] = atd_val
-
-        border(nm, border_m, border_m)
-        border(nlm, 0.0, 0.0)
-        bx = 0.0 if semi else -float(cum[d])
-        lvl_d = min(d, k)  # border run level (1-based)
-        for l in range(kc):
-            if local:
-                border(nix[l], NEG, NEG)
-                border(niy[l], NEG, NEG)
-                border(nlix[l], 0.0, 0.0)
-                border(nliy[l], 0.0, 0.0)
-                continue
-            on_lvl = collapsed or lvl_d == l + 1
-            bval = bx if on_lvl else NEG
-            border(nix[l], NEG, bval)
-            border(niy[l], bval, NEG)
-            border(nlix[l], 0.0, float(d))
-            border(nliy[l], float(d), 0.0)
-
-        # ---- best state, for the d+2 step and for terminals ----
-        if collapsed:
-            # a (d, 0) border cell is a level-k run; (0, d) carries no Ix
-            if local:
-                border(sx, False, False)
-                border(sy, False, False)
-            else:
-                border(sx, False, True)
-                border(sy, True, False)
-            sxi = sx.to(i32)
-            syi = sy.to(i32)
-            bv, bl, bc = _priority_select(
-                nm, nix, niy, nlm, nlix, nliy, [1 + sxi], [1 + k + syi]
-            )
-        else:
-            bv, bl, bc = _priority_select(nm, nix, niy, nlm, nlix, nliy, codes_x, codes_y)
-
-        # ---- terminal tracking ----
-        if mode == "global":
-            pick = (lx + ly) == d
-            tval = torch.where(pick, _take(bv, lx), tval)
-            tlen = torch.where(pick, _take(bl, lx), tlen)
-            tcode = torch.where(pick, _take(bc, lx), tcode)
-            ti = torch.where(pick, lx, ti)
-            tj = torch.where(pick, ly, tj)
-        elif semi:
-            # candidate A: last-column cell (d - ly, ly); then candidate B:
-            # last-row cell (lx, d - lx).  Ties keep larger i, then larger j.
-            for ci, cj in ((d - ly, ly), (lx, d - lx)):
-                ok = (ci >= 0) & (ci <= lx) & (cj >= 0) & (cj <= ly)
-                cv, cl, cc = _take(bv, ci), _take(bl, ci), _take(bc, ci)
-                better = cv > tval
-                tie = (cv == tval) & ((ci > ti) | ((ci == ti) & (cj > tj)))
-                repl = ok & (better | tie)
-                tval = torch.where(repl, cv, tval)
-                tlen = torch.where(repl, cl, tlen)
-                tcode = torch.where(repl, cc, tcode)
-                ti = torch.where(repl, ci, ti)
-                tj = torch.where(repl, cj, tj)
-        else:  # local: running argmax over interior M cells
-            valid = (lane >= 1) & (lane <= lx[:, None]) & (d - lane >= 1) & (
-                d - lane <= ly[:, None]
-            )
-            mv = torch.where(valid, nm, NEG)
-            step_best, _ = mv.max(dim=1)
-            # first maximal lane = smallest i (the pinned tie-break)
-            step_arg = (mv == step_best[:, None]).to(torch.uint8).argmax(dim=1).to(i32)
-            step_len = _take(nlm, step_arg)
-            cj = d - step_arg
-            better = step_best > tval
-            tie = (step_best == tval) & ((step_arg < ti) | ((step_arg == ti) & (cj < tj)))
-            repl = better | tie
-            tval = torch.where(repl, step_best, tval)
-            tlen = torch.where(repl, step_len, tlen)
-            ti = torch.where(repl, step_arg, ti)
-            tj = torch.where(repl, cj, tj)
-
+        c, cell = diagonal_step(rec, c, None, d, 0, hs[d])
+        term.add(d, 0, lane, cell)
         if traceback:
-            bits = mcode.to(torch.uint8)
-            if local:
-                bits = bits | ((nm <= 0.0).to(torch.uint8) << 7)
-            if collapsed:
-                # bit 5 = previous diagonal's x-stay shifted one lane
-                # (cell (i-1, j)); bit 6 = previous y-stay on the same lane
-                bits = bits | (_shift(psx, 0).to(torch.uint8) << 5)
-                bits = bits | (psy.to(torch.uint8) << 6)
-            else:
-                bits = bits | (stay_x.to(torch.uint8) << 5)
-                bits = bits | (stay_y.to(torch.uint8) << 6)
-            tb[d - 2] = bits
-
-        m1, ix1, iy1, lm1, lix1, liy1 = nm, nix, niy, nlm, nlix, nliy
-        r2v, r2l, r2c = r1v, r1l, r1c
-        r1v, r1l, r1c = bv, bl, bc
-        if track_stay:
-            psx, psy = sxi, syi
-
-    out = {"score": tval, "length": tlen, "ti": ti, "tj": tj, "tcode": tcode}
+            tb[d - 2] = cell["bits"]
+    out = term.result()
     if traceback:
         out["tb"] = tb
     return out

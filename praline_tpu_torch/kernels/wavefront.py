@@ -29,18 +29,34 @@ import numpy as np
 import torch
 
 from . import build
+from .fused_dp import check_series
 from .scan import MODES
 from .scan import wavefront_dp as wavefront_dp_plain
 
 launches = 0  # kernel launches by wavefront_dp (not by the plain path)
 
-MAX_LEVELS = 15
 MAX_LANES = 2048
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def check_hs(hs, lx, ly) -> tuple[int, int, int]:
+    """``(D, B, Lp)`` of the hs score source; raises unless ``hs`` and the
+    lengths are contiguous tensors of their shapes on one device."""
+    if hs.dtype != torch.float32 or hs.dim() != 3 or not hs.is_contiguous():
+        raise ValueError("hs must be a contiguous f32[D, B, Lp] tensor")
+    D, B, Lp = hs.shape
+    if Lp < 2 or D < Lp + 1 or B < 1:
+        raise ValueError(f"bad hs shape {tuple(hs.shape)}")
+    dev = hs.device
+    for name, t in (("lx", lx), ("ly", ly)):
+        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (B,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32[{B}] tensor on {dev}")
+    return D, B, Lp
 
 
 def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False):
@@ -51,26 +67,14 @@ def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False)
     if hs.device.type == "cpu":
         return wavefront_dp_plain(hs, lx, ly, gap_series, mode, traceback)
     global launches
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    k = len(gap_series)
-    if not 1 <= k <= MAX_LEVELS:
-        raise ValueError(f"gap series must have 1 to {MAX_LEVELS} levels, got {k}")
-    if hs.dtype != torch.float32 or hs.dim() != 3 or not hs.is_contiguous():
-        raise ValueError("hs must be a contiguous f32[D, B, Lp] tensor")
-    D, B, Lp = hs.shape
+    k = check_series(gap_series, mode)
+    D, B, Lp = check_hs(hs, lx, ly)
     if Lp > MAX_LANES:
         raise NotImplementedError(
             f"the CUDA DP takes Lp <= {MAX_LANES} (bucket 2047), got {Lp}; "
             "longer rows take kernels.fused_dp.wavefront_dp_fused"
         )
-    if Lp < 2 or D < Lp + 1 or B < 1:
-        raise ValueError(f"bad hs shape {tuple(hs.shape)}")
     dev = hs.device
-    for name, t in (("lx", lx), ("ly", ly)):
-        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (B,) \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32[{B}] tensor on {dev}")
     gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)

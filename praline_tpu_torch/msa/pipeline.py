@@ -4,9 +4,9 @@ Counterpart of ``praline_tpu/msa/pipeline.py:42-374``, stage for stage:
 preprofiles, the O(N^2) all-pairs distance stage (scores only), the guide
 tree, and the progressive merge one tree level at a time.  Every pairwise
 DP goes through ``kernels.batch.align_pairs_batched`` on the caller's
-device; profiles, the tree and gap injection are the JAX package's own
-host code (``praline_tpu.oracle``), so the output is column-identical to
-``oracle_msa``.
+device; profiles, the tree and gap injection are the port's copy of the
+JAX package's host code (``praline_tpu_torch.oracle``), so the output is
+column-identical to ``oracle_msa``.
 
 Not ported yet (ROADMAP.md, port queue): the single-dispatch device merge
 (``praline_tpu/msa/device_merge.py``), device meshes and the
@@ -18,25 +18,25 @@ from __future__ import annotations
 
 import numpy as np
 
-from praline_tpu.oracle.align import AlignResult
-from praline_tpu.oracle.merge import full_coverage_path, inject_gaps, reorder_to_input
-from praline_tpu.oracle.msa import oracle_msa
-from praline_tpu.oracle.preprofile import project_to_master, star_counts
-from praline_tpu.oracle.profile import compose_profiles, member_profile, node_profile
-from praline_tpu.oracle.tree import build_guide_tree, similarity_from_scores
-from praline_tpu.types import (
+from ..device import resolve_device
+from ..kernels.batch import ProfileArena, align_pairs_batched
+from ..oracle.align import AlignResult
+from ..oracle.merge import full_coverage_path, inject_gaps, reorder_to_input
+from ..oracle.msa import oracle_msa
+from ..oracle.preprofile import project_to_master, star_counts
+from ..oracle.profile import compose_profiles, member_profile, node_profile
+from ..oracle.tree import build_guide_tree, similarity_from_scores
+from ..types import (
+    TRACK_ID_PREPROFILE,
     Alignment,
     PralineConfig,
     Profile,
     ScoreMatrix,
     Sequence,
     SequenceTree,
-    TRACK_ID_PREPROFILE,
 )
-from praline_tpu.util.metrics import METRICS, log
-
-from ..device import resolve_device
-from ..kernels.batch import ProfileArena, align_pairs_batched
+from ..util.checkpoint import Checkpoint, run_digest
+from ..util.metrics import METRICS, log
 
 # Pairs per resumable distance tile: the O(N^2) stage checkpoints tile by
 # tile when a checkpoint directory is set (same tile as the JAX package).
@@ -231,8 +231,6 @@ def msa_align(
     (``"xla"``, ``"pallas"``) belong to ``praline_tpu`` and raise here.
     ``on_tree(tree)`` is called once the guide tree exists.
     """
-    from praline_tpu.util.checkpoint import Checkpoint, run_digest
-
     config = config or PralineConfig()
     if config.backend in ("xla", "pallas"):
         raise ValueError(

@@ -7,8 +7,8 @@ pins JAX to the CPU) must be left out::
 
     python -m pytest --noconftest -p no:cacheprovider -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance 0: producer, DP, fused producer + DP, walk and batched aligner
-are bit-exact by contract.
+Tolerance 0: producer, DP, fused producer + DP, tiled DP, walk and
+batched aligner are bit-exact by contract.
 """
 
 import zlib
@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from praline_tpu import ALPHABET_AA, Profile, builtin_score_matrix
-from praline_tpu_torch.convert import operands_from_numpy
-from praline_tpu_torch.kernels import batch, fused_dp, fused_scores, replay, wavefront
+from praline_tpu_torch import ALPHABET_AA, Profile, builtin_score_matrix
+from praline_tpu_torch.convert import matrix_to_torch, operands_from_numpy, profiles_to_stack
+from praline_tpu_torch.kernels import batch, fused_dp, fused_scores, replay, tiled_dp, wavefront
 from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
 from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
 
@@ -213,3 +213,68 @@ def test_batched_aligner_routes_long_rows_to_the_fused_kernel(cuda, traceback):
             assert np.array_equal(g.cols_x, w.cols_x) and np.array_equal(g.cols_y, w.cols_y)
         else:
             assert g == w
+
+
+def tiled_vs_plain(source, lx, ly, gap_series, mode, traceback, want, **kw):
+    before = tiled_dp.launches
+    got = tiled_dp.wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, **kw)
+    torch.cuda.synchronize()
+    assert tiled_dp.launches == before + 1
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), (kw, key)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1), (5,), (9, 7, 5, 3, 2, 1)])
+@pytest.mark.parametrize("traceback", [False, True])
+def test_tiled_matches_plain(cuda, mode, gap_series, traceback):
+    """Both score sources; tiles of 32, 128 and 256 lanes (Lp 301: a
+    ragged last tile); 1, 7 and 32 diagonals a visit."""
+    seed = zlib.crc32(repr(("tiled", mode, gap_series)).encode())
+    ops = operands(seed, 4, 300, 200, cuda)
+    hs = plain_scores(*ops[:5])
+    want = plain_dp(hs, ops[5], ops[6], gap_series, mode, traceback)
+    for w, t in ((32, 7), (128, 32), (256, 1)):
+        tiled_vs_plain(hs, ops[5], ops[6], gap_series, mode, traceback, want,
+                       tile_lanes=w, steps_per_visit=t)
+    tiled_vs_plain(ops[:5], ops[5], ops[6], gap_series, mode, traceback, want,
+                   tile_lanes=128, steps_per_visit=32)
+
+
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_tiled_rows_past_the_fused_cap(cuda, mode):
+    """Lp 4201, the default tiles (5 of 864 lanes), both sources."""
+    ops = operands(4200 + len(mode), 1, 4200, 300, cuda)
+    hs = plain_scores(*ops[:5])
+    for traceback in (False, True):
+        want = plain_dp(hs, ops[5], ops[6], (11, 1), mode, traceback)
+        tiled_vs_plain(hs, ops[5], ops[6], (11, 1), mode, traceback, want)
+        tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, traceback, want)
+
+
+def test_tiled_refuses_what_it_does_not_take(cuda):
+    ops = operands(5, 1, 100, 50, cuda)
+    for kw in (dict(tile_lanes=48), dict(tile_lanes=2048), dict(steps_per_visit=33)):
+        with pytest.raises(ValueError):
+            tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], **kw)
+
+
+def test_batched_aligner_routes_rows_past_4096_to_the_tiled_kernel(cuda):
+    rng = np.random.default_rng(19)
+    profs = []
+    for L in (4300, 4150):
+        c = rng.integers(0, 2, size=(L, A)).astype(np.float32)
+        c[:, 0] += 1
+        profs.append(Profile(c, np.zeros(L, np.float32), ALPHABET_AA))
+    pairs = [(profs[0], profs[1])]
+    for traceback in (False, True):
+        batch.reset_route_counts()
+        got = batch.align_pairs_batched(pairs, B62, (11, 1), "semiglobal", device=cuda,
+                                        traceback=traceback)
+        assert batch.route_counts["tiled"] == 1
+        cx, ivx, lx = profiles_to_stack([profs[0]], 4300, cuda)
+        cy, ivy, ly = profiles_to_stack([profs[1]], 4150, cuda)
+        want = plain_dp(plain_scores(cx, ivx, cy, ivy, matrix_to_torch(B62, cuda)), lx, ly, (11, 1),
+                        "semiglobal")
+        assert got[0].score == want["score"][0].item()

@@ -1,8 +1,11 @@
-"""The port never imports JAX, and never moves to the CPU unasked.
+"""The port never imports JAX or the JAX package, and never moves to the
+CPU unasked.
 
-A fresh interpreter imports the port's packages and must not have pulled
-in ``jax``; a static scan finds no JAX import and no ``torch.compile``
-under the package; asking for ``"cuda"`` without a card raises.
+A fresh interpreter imports every module of the port and runs
+``msa_align`` on the CPU, and must not have pulled in ``jax`` or
+``praline_tpu``; a static scan finds no import of either (nor
+``torch.compile``) under the package or in ``chip_smoke.py``; asking for
+``"cuda"`` without a card raises.
 """
 
 import re
@@ -21,13 +24,34 @@ PKG = Path(praline_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 
 
+def port_modules():
+    """Dotted names of every module of the port (``__main__`` runs the CLI
+    when imported, so it is left out)."""
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__main__":
+            continue
+        names.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return names
+
+
 def test_importing_the_port_leaves_jax_out():
+    """Every module imported and ``msa_align`` run on the CPU: neither
+    ``jax`` nor ``praline_tpu`` is loaded."""
+    modules = port_modules()
+    assert "praline_tpu_torch.kernels.tiled_dp" in modules and "praline_tpu_torch.oracle.msa" in modules
     code = (
-        "import sys\n"
-        "import praline_tpu_torch, praline_tpu_torch.msa, praline_tpu_torch.cli\n"
-        "import praline_tpu_torch.kernels, praline_tpu_torch.convert\n"
-        "import praline_tpu_torch.kernels.fused_dp, praline_tpu_torch.kernels.batch\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from praline_tpu_torch import ALPHABET_AA, builtin_score_matrix, load_sequence_fasta\n"
+        "from praline_tpu_torch import format_alignment_fasta, msa_align\n"
+        "seqs = load_sequence_fasta('testdata/family10.fasta', ALPHABET_AA)\n"
+        "aln = msa_align(seqs, builtin_score_matrix('blosum62'), device='cpu')\n"
+        "assert format_alignment_fasta(aln) == open('testdata/family10.default.golden.fasta').read()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'praline_tpu'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
@@ -42,6 +66,20 @@ def test_static_scan_finds_no_jax_and_no_compile():
     assert PKG / "kernels" / "fused_dp.py" in files
     for path in files:
         assert not bad.search(path.read_text()), path
+
+
+def test_static_scan_finds_no_import_of_the_jax_package():
+    """Absolute or relative-free, direct or inside a function: no module of
+    the port and not ``chip_smoke.py`` names ``praline_tpu`` in an import
+    unless it is ``praline_tpu_torch``."""
+    bad = re.compile(r"^\s*(from\s+praline_tpu|import\s+praline_tpu)(?!_torch)\b", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PKG / "oracle" / "align.py" in files
+    for path in files:
+        assert not bad.search(path.read_text()), path
+    assert bad.search("from praline_tpu.oracle import x\n")
+    assert bad.search("    import praline_tpu\n")
+    assert not bad.search("from praline_tpu_torch.oracle import x\n")
 
 
 def test_chip_smoke_imports_only_the_port():

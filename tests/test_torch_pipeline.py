@@ -2,7 +2,9 @@
 
 The 8 golden configurations of ``tests/e2e/test_goldens.py`` (16 files in
 ``testdata/``) must come out byte-equal, FASTA and CLUSTAL, plus one CLI
-run and the CLI's refusals of knobs the port does not have yet.
+run and the CLI's refusals of knobs the port does not have yet.  The
+inputs are read, and the outputs written, by the port's own readers and
+writers (``praline_tpu_torch.io``).
 """
 
 from pathlib import Path
@@ -10,8 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from praline_tpu import ALPHABET_AA, ALPHABET_DNA, PralineConfig, builtin_score_matrix
-from praline_tpu.io import format_alignment_clustal, format_alignment_fasta, load_sequence_fasta
+from praline_tpu_torch import ALPHABET_AA, ALPHABET_DNA, PralineConfig, builtin_score_matrix
+from praline_tpu_torch.io import (
+    format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
+)
 from praline_tpu_torch.cli.main import main
 from praline_tpu_torch.msa import msa_align
 

@@ -2,9 +2,11 @@
 
 Before the fused kernel the port refused, on a card, every bucket past
 2047 and every ``hs`` tensor past its budget; the JAX package aligns
-them.  ``choose_route`` now sends them to the fused producer + DP; past
-the fused kernel's own lane cap a card still refuses.  ``PRALINE_FUSED_DP``
-decides only where both routes take the shape.  With the two-kernel lane
+them.  ``choose_route`` now sends them to the fused producer + DP, and
+rows past the fused kernel's own lane cap to the tiled DP
+(``tests/test_torch_tiled.py``); only a traceback past its byte budget
+is still refused on a card.  ``PRALINE_FUSED_DP`` decides only where both
+the two-kernel and the fused route take the shape.  With the two-kernel lane
 cap lowered to 64 lanes, two golden configurations run most of their DPs
 through the fused route on the CPU and stay byte-equal.
 """
@@ -14,8 +16,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from praline_tpu import ALPHABET_AA, PralineConfig, builtin_score_matrix
-from praline_tpu.io import format_alignment_clustal, format_alignment_fasta, load_sequence_fasta
+from praline_tpu_torch import ALPHABET_AA, PralineConfig, builtin_score_matrix
+from praline_tpu_torch.io import (
+    format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
+)
 from praline_tpu_torch.kernels import batch, wavefront
 from praline_tpu_torch.kernels.fused_dp import MAX_LANES_FUSED
 from praline_tpu_torch.msa import msa_align
@@ -47,12 +51,12 @@ def test_hs_past_its_budget_takes_the_fused_route():
 
 @pytest.mark.parametrize("traceback", [False, True])
 def test_past_the_fused_cap_a_card_refuses(traceback):
+    """It no longer refuses: rows past the fused kernel's lane cap take the
+    tiled kernel, on a card as on the CPU."""
     cap = MAX_LANES_FUSED
     assert ROUTE("cuda", cap - 1, 100, traceback) == "fused"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ROUTE("cuda", cap, 100, traceback)
-    # the plain versions on the CPU take any length
-    assert ROUTE("cpu", cap, 100, traceback) == "fused"
+    for dev in ("cuda", "cpu"):
+        assert ROUTE(dev, cap, 100, traceback) == "tiled"
 
 
 def test_giant_traceback_needs_the_checkpointed_route():

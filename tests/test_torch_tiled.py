@@ -1,0 +1,201 @@
+"""The port's lane-tiled DP on the CPU, and the route it carries.
+
+``praline_tpu_torch.kernels.tiled_dp.wavefront_dp_tiled`` on CPU tensors
+takes its plain version, which walks the Hopper kernel's (diagonal block,
+tile, step) order with its edge hand-off.  It is held bit for bit against:
+
+- the JAX package's ``wavefront_dp_tiled`` (K6, Pallas, interpret mode) on
+  the same seeded scores in K6's body layout;
+- the port's plain whole-row DP ``kernels/scan.py::wavefront_dp`` over
+  modes x gap series x tile widths x diagonals a visit, with both score
+  sources;
+- the 8 goldens, aligned through the tiled route with the two-kernel and
+  fused lane caps lowered to 64 lanes and the tile cap lowered so that
+  each golden's widest DP walks two tiles.
+
+Tolerance 0.  The CUDA kernel is held against the plain version in
+``test_torch_cuda.py``.
+"""
+
+import itertools
+import zlib
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from praline_tpu import ALPHABET_AA as JAX_ALPHABET_AA
+from praline_tpu import builtin_score_matrix as jax_matrix
+from praline_tpu.kernels.pallas_dp_tiled import wavefront_dp_tiled as jax_tiled
+from praline_tpu_torch import ALPHABET_AA, ALPHABET_DNA, builtin_score_matrix
+from praline_tpu_torch.convert import operands_from_numpy
+from praline_tpu_torch.io import (
+    format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
+)
+from praline_tpu_torch.kernels import batch, fused_dp, tiled_dp, wavefront
+from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+from praline_tpu_torch.kernels.scores import skewed_pair_scores
+from praline_tpu_torch.msa import msa_align
+
+torch.set_num_threads(1)
+
+TESTDATA = Path(__file__).resolve().parents[1] / "testdata"
+S = jax_matrix("blosum62").as_f32()
+A = JAX_ALPHABET_AA.size
+MODES = ["global", "semiglobal", "local"]
+
+
+def seed_of(*key):
+    return zlib.crc32(repr(key).encode())
+
+
+def operands(seed, B, Lx, Ly):
+    """Integer-count profiles with their inverses and ragged true lengths;
+    problem 0 has lx = 1 (a diagonal-1 terminal)."""
+    rng = np.random.default_rng(seed)
+    cx = rng.integers(0, 3, size=(B, Lx, A)).astype(np.float32)
+    cy = rng.integers(0, 3, size=(B, Ly, A)).astype(np.float32)
+    cx[:, :, 0] += 1
+    cy[:, :, 0] += 1
+    ivx = (np.float32(1.0) / cx.sum(axis=2)).astype(np.float32)
+    ivy = (np.float32(1.0) / cy.sum(axis=2)).astype(np.float32)
+    lx = rng.integers(1, Lx + 1, size=B).astype(np.int32)
+    ly = rng.integers(1, Ly + 1, size=B).astype(np.int32)
+    lx[0] = 1
+    return operands_from_numpy(cx, ivx, cy, ivy, S, lx, ly, "cpu")
+
+
+def tiled(source, lx, ly, gap_series, mode, traceback, **kw):
+    before = tiled_dp.launches
+    out = tiled_dp.wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, **kw)
+    assert tiled_dp.launches == before  # CPU tensors take the plain version
+    return out
+
+
+@pytest.mark.parametrize("gap_series,mode,traceback", [((11, 1), "global", False),
+                                                       ((5,), "local", True)])
+def test_plain_matches_jax_tiled_kernel(gap_series, mode, traceback):
+    """K6 in interpret mode on the body layout (rows = diagonals 2.., lanes
+    padded to 128), as ``tests/kernels/test_tiled.py`` feeds it.  K6 keeps
+    lengths only in scores mode and state codes only with traceback."""
+    ops = operands(seed_of("jax", gap_series, mode), 3, 150, 120)
+    hs = skewed_pair_scores(*ops[:5]).numpy()
+    D, B, Lp = hs.shape
+    body = np.zeros((-(-(D - 2) // 128) * 128, B, -(-Lp // 128) * 128), np.float32)
+    body[: D - 2, :, :Lp] = hs[2:]
+    lx, ly = ops[5].numpy(), ops[6].numpy()
+    want = jax_tiled(jnp.asarray(body), jnp.asarray(lx), jnp.asarray(ly), gap_series=gap_series,
+                     mode=mode, traceback=traceback, steps_per_visit=8, total_d=D,
+                     interpret=True)
+    got = tiled(ops[:5], ops[5], ops[6], gap_series, mode, traceback, tile_lanes=64,
+                steps_per_visit=8)
+    keys = ("score", "ti", "tj") + (("tcode",) if traceback else ("length",))
+    for key in keys:
+        assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
+    if traceback:
+        assert np.array_equal(got["tb"].numpy(), np.asarray(want["tb"])[: D - 2, :, :Lp])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1), (5,)])
+@pytest.mark.parametrize("traceback", [False, True])
+def test_plain_matches_whole_row_plain_dp(mode, gap_series, traceback):
+    """Tile widths 32 and 48 (a ragged last tile of 61 lanes either way)
+    and 1, 7 and 32 diagonals a visit (the 108 steps: 32 does not divide
+    them, 1 does); the in-place source once."""
+    ops = operands(seed_of("plain", mode, gap_series), 3, 60, 47)
+    hs = skewed_pair_scores(*ops[:5])
+    want = plain_dp(hs, ops[5], ops[6], gap_series, mode, traceback)
+    runs = [(hs, w, t) for w, t in itertools.product((32, 48), (1, 7, 32))] + [(ops[:5], 32, 5)]
+    for source, w, t in runs:
+        got = tiled(source, ops[5], ops[6], gap_series, mode, traceback, tile_lanes=w,
+                    steps_per_visit=t)
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (w, t, key)
+
+
+def test_default_tiles_are_balanced_and_warp_wide():
+    assert tiled_dp.tile_width(200, 48) == 48
+    assert [tiled_dp.tile_width(Lp) for Lp in (2, 1024, 1025, 4097, 4601)] == [
+        32, 1024, 544, 832, 928]
+    assert [tiled_dp.carry_values(k) for k in (1, 2, 3, 15)] == [14, 14, 22, 70]
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+@pytest.mark.parametrize("bx,by", [(4096, 4096), (4645, 4683), (5889, 120)])
+def test_rows_past_the_fused_cap_take_the_tiled_route(bx, by, traceback):
+    """The hs source where one problem's hs fits its budget, else scores
+    in place; rows of 4096 lanes or fewer keep their routes."""
+    for dev in ("cuda", "cpu"):
+        assert batch.choose_route(dev, bx, by, traceback) == "tiled"
+        assert batch.choose_route(dev, fused_dp.MAX_LANES_FUSED - 1, by, traceback) == "fused"
+    assert batch.tiled_source(bx, by) == "hs"
+    assert batch.tiled_source(bx, batch.HS_BYTES_BUDGET // (4 * (bx + 1))) == "rows"
+
+
+def test_giant_traceback_on_the_tiled_route_still_raises():
+    by = batch.TB_BYTES_BUDGET // 5000
+    assert batch.choose_route("cuda", 4999, by, False) == "tiled"
+    with pytest.raises(NotImplementedError, match="checkpointed"):
+        batch.choose_route("cuda", 4999, by, True)
+    assert batch.choose_route("cpu", 4999, by, True) == "tiled"
+
+
+def test_chunk_sizing_counts_the_carry_scratch():
+    A_ = 23
+    hs_bytes, tb_bytes = batch.per_problem_bytes(4600, 4400)
+    carry = tiled_dp.carry_values(fused_dp.MAX_LEVELS) * 4601 * 4
+    operands_bytes = (4600 + 4400) * (A_ + 1) * 4
+    got = batch.chunk_problem_bytes("tiled", "cuda", 4600, 4400, A_, True)
+    assert got == operands_bytes + hs_bytes + carry + 2 * tb_bytes
+    by = batch.HS_BYTES_BUDGET // (4 * 4601)  # the rows source: no hs on the card
+    rows = batch.chunk_problem_bytes("tiled", "cuda", 4600, by, A_, False)
+    assert rows == (4600 + by) * (A_ + 1) * 4 + (4600 + by) * 24 * 4 + carry
+
+
+# (matrix, config kwargs, tile cap): each cap cuts the golden's widest DP
+# (its longest merged profile) into two tiles.
+GOLDENS = {
+    ("family10", "default"): ("blosum62", {}, 64),
+    ("family10", "ppglobal"): ("blosum62", dict(preprofile_mode="global"), 64),
+    ("family10", "series3_local"): ("blosum62", dict(
+        gap_series=(13, 7, 1), distance_mode="local", linkage="complete"), 64),
+    ("family16div", "default"): ("blosum62", {}, 96),
+    ("family16div", "pam250_semi_pplocal"): ("pam250", dict(
+        merge_mode="semiglobal", preprofile_mode="local", gap_series=(10, 2), linkage="single"), 96),
+    ("dna8", "default"): ("dna_simple", dict(
+        gap_series=(8, 2), alphabet="dna", score_matrix="dna_simple"), 64),
+    ("family64", "default"): ("blosum62", {}, 64),
+    ("family64", "semi_series3"): ("blosum62", dict(
+        gap_series=(12, 6, 1), merge_mode="semiglobal", linkage="average"), 512),
+}
+
+
+@pytest.mark.parametrize("family,tag", sorted(GOLDENS))
+def test_goldens_through_the_tiled_route(monkeypatch, family, tag):
+    from praline_tpu_torch import PralineConfig
+
+    monkeypatch.setattr(wavefront, "MAX_LANES", 64)
+    monkeypatch.setattr(batch, "MAX_LANES_FUSED", 64)
+    matrix_name, kw, tile_cap = GOLDENS[(family, tag)]
+    monkeypatch.setattr(tiled_dp, "MAX_TILE_LANES", tile_cap)
+    monkeypatch.delenv(batch.FUSED_DP_ENV, raising=False)
+    widest = []
+    plain = tiled_dp.wavefront_dp_tiled_plain
+
+    def spy(source, lx, ly, *args, **options):
+        widest.append(int(lx.max()) + 1)
+        return plain(source, lx, ly, *args, **options)
+
+    monkeypatch.setattr(tiled_dp, "wavefront_dp_tiled_plain", spy)
+    alphabet = ALPHABET_DNA if family == "dna8" else ALPHABET_AA
+    seqs = load_sequence_fasta(TESTDATA / f"{family}.fasta", alphabet)
+    batch.reset_route_counts()
+    aln = msa_align(seqs, builtin_score_matrix(matrix_name), PralineConfig(**kw), device="cpu")
+    assert format_alignment_fasta(aln) == (TESTDATA / f"{family}.{tag}.golden.fasta").read_text()
+    assert format_alignment_clustal(aln) == (TESTDATA / f"{family}.{tag}.golden.aln").read_text()
+    assert batch.route_counts["tiled"] > 0 and batch.route_counts["fused"] == 0
+    assert max(widest) > tile_cap  # the widest DP walked two tiles or more
