@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the five Hopper kernel sources (score producer, wavefront DP,
-fused producer + DP, lane-tiled DP, traceback walk) from
-``praline_tpu_torch/csrc`` with nvcc, one process per source, with
-``-Xptxas -v`` (registers and spills of the tiled kernel are printed), and
-holds each kernel against its plain PyTorch version on the card, bit for
-bit: at buckets 1023, 63x127 and 2047, the DPs over every mode and three
-gap series at 63x127, the fused kernel past the two-kernel lane cap
-(3000x3000) and at a long y (600x4000), the tiled kernel against its plain
-version at 4 x 700x600 (every mode, three series, both score sources,
-scores and traceback, two tile widths and two visit depths) and, on one
-4600x4400 traceback problem, against the plain DP.  It times the fused
+Builds the six Hopper kernel sources (score producer, wavefront DP,
+fused producer + DP, lane-tiled DP, traceback walk, and the benchmark's
+probes) from ``praline_tpu_torch/csrc`` with nvcc, one process per source,
+with ``-Xptxas -v`` (registers and spills of the tiled kernel and the
+probes are printed), and holds each kernel against its plain PyTorch
+version on the card, bit for bit: at buckets 1023, 63x127 and 2047, the
+DPs over every mode and three gap series at 63x127, the fused kernel past
+the two-kernel lane cap (3000x3000) and at a long y (600x4000), the tiled
+kernel against its plain version at 4 x 700x600 (every mode, three series,
+both score sources, scores and traceback, two tile widths and two visit
+depths) and, on one 4600x4400 traceback problem, against the plain DP;
+the probes at the benchmark's shapes (K7 f32[256, 1024] through 131072
+links, into the subnormal range; K8 f32[1056, 256], four chains of 131072
+links; K9 at every TPU write block on a small tensor and at the producer's
+block on f32[64, 17408, 1024]).  It times the fused
 kernel beside the two-kernel route and the plain version, the tiled
 kernel beside the fused kernel at 3000x3000 and beside the whole-row DP
 at buckets 1023 and 2047, aligns the committed goldens
@@ -24,8 +28,14 @@ on the default two-kernel route), ``msa_align`` on a seeded 128-sequence
 family of lengths 600-1000 (two runs), on a seeded 32-sequence family of
 lengths 1800-2400 (two runs), which needs the fused kernel, and on 8
 members of lengths 4300-5000 (two runs; the size of a dynein heavy
-chain), which needs the tiled kernel.  After them, sampled problems of
-each all-pairs stage are held against the plain versions, and the
+chain), which needs the tiled kernel; the two-track composite workload of
+``bench.py``'s ``tracks`` config (1024 pairs of one-hot profiles of
+512-1023 residues, BLOSUM62 + PAM250 weighted 1 and 0.5; two runs scores
+only, then one with traceback, each its own path); and the port's
+``utilization`` and ``wprobe`` bench configs, whose rates are printed.
+After them, sampled problems of
+each all-pairs stage and 16 composite problems are held against the plain
+versions, and the
 headline runs four more times forced onto the fused route, counted on
 their own, to the same results.  One more run of each main path under
 ``torch.profiler`` gives the device time per kernel and the busy share.
@@ -128,16 +138,9 @@ def cuda_ms(fn, n: int, warm_up: bool = True) -> float:
     take seconds and were run at the same shape by an earlier check)."""
     import torch
 
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    from praline_tpu_torch.bench import device_ms
+
+    return device_ms(fn, n, torch.device("cuda"), warm_up)
 
 
 @contextlib.contextmanager
@@ -149,20 +152,6 @@ def route_knob(value: str):
         yield
     finally:
         del os.environ["PRALINE_FUSED_DP"]
-
-
-def count_profiles(rng, n, lo, hi, A):
-    """Ragged integer-count profiles (bench.py:69-75): 1-2 members per
-    column, so every column inverse is 1/2 or 1/3, never 1."""
-    from praline_tpu_torch import ALPHABET_AA, Profile
-
-    out = []
-    for _ in range(n):
-        L = int(rng.integers(lo, hi + 1))
-        c = rng.integers(0, 2, size=(L, A)).astype("float32")
-        c[:, 0] += 1.0
-        out.append(Profile(c, c[:, 0] * 0, ALPHABET_AA))
-    return out
 
 
 def phase_environment():
@@ -230,6 +219,14 @@ def phase_build():
                 raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, 1>")
             found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(*usage[key])
         say("registers", kernel=kernel, lanes_per_thread=1, **found)
+    probes = {}
+    for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel"):
+        key = next((n for n in usage if kernel in n), None)
+        if key is None:
+            raise AssertionError(f"build: no -Xptxas -v line for {kernel}")
+        probes[kernel.split("_kernel")[0]] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
+            *usage[key])
+    say("registers", kernel="probes", **probes)
 
 
 def same_outputs(got, want, what) -> float:
@@ -301,6 +298,7 @@ def fused_bound(ops, out) -> dict:
 
 def stacked_operands(rng, dev, s, B, bx, by, lo):
     """Count-profile stacks of B pairs (lengths lo..bucket) on the card."""
+    from praline_tpu_torch.bench import count_profiles
     from praline_tpu_torch.convert import profiles_to_stack
 
     A = s.shape[0]
@@ -399,6 +397,215 @@ def phase_kernels_vs_plain(dev):
         series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), traceback="both",
         dp="bit-equal", fused="bit-equal", seconds=round(time.perf_counter() - t0, 3))
     return timing
+
+
+def chain_values(rng, shape):
+    """Inputs of the chain probes: values near 1 (whose chains of 131072
+    links pass 1e-38 near link 87,500 and end subnormal), both signs, above
+    1000 (where ``v - 1.0`` wins the max), and 1e-36, zeros and 1e30."""
+    import numpy as np
+    import torch
+
+    x = rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
+    flat = x.reshape(-1)
+    n = flat.size
+    flat[: n // 4] = rng.uniform(900.0, 5000.0, size=n // 4)
+    flat[n // 4 : n // 2] = -flat[n // 4 : n // 2]
+    flat[n // 2 : n // 2 + 6] = [1e-36, -1e-36, 0.0, -0.0, 1000.0, 1e30]
+    rng.shuffle(flat)
+    return torch.from_numpy(x)
+
+
+def bit_equal(got, want, what) -> float:
+    """Raise unless the two f32 tensors hold the same bits; the largest
+    difference (0.0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{what} differs from plain")
+    return float((got - want).abs().max())
+
+
+def phase_probes_vs_plain(dev) -> dict:
+    """The three probes against their plain versions, bit for bit, at the
+    shapes the utilization and wprobe configs run them (K9 at each of its
+    four TPU blocks on the full tensor and at the producer's pattern at
+    B64), each timed beside its plain version (and K9 beside
+    ``torch.full``)."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import bench
+    from praline_tpu_torch.kernels import probes
+
+    rng = np.random.default_rng(SEED + 12)
+    out = {}
+    t0 = time.perf_counter()
+    x = chain_values(rng, bench.SMEM_SHAPE).to(dev)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(probes.smem_chain_plain(x, bench.SMEM_LINKS)), 1,
+                       warm_up=False)
+    got = probes.smem_chain(x, bench.SMEM_LINKS)
+    err = bit_equal(got, plain[0], "smem_chain")
+    subnormal = int(((got.abs() < 1.1754944e-38) & (got != 0)).sum())
+    if not subnormal:
+        raise AssertionError("smem_chain: no chain reached the subnormal range")
+    n = x.numel()
+    out["smem_chain"] = {
+        "err": err, "plain_ms": plain_ms,
+        "ms": cuda_ms(lambda: probes.smem_chain(x, bench.SMEM_LINKS), 3),
+        **bound(2 * n * 4, n * bench.SMEM_LINKS * bench.OPS_PER_LINK)}
+    say("probe=plain", kernel="smem_chain", shape=list(bench.SMEM_SHAPE), links=bench.SMEM_LINKS,
+        result="bit-equal", subnormal_results=subnormal,
+        **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out["smem_chain"].items()})
+
+    x = chain_values(rng, bench.ALU_SHAPE).to(dev)
+    nacc, links = probes.NACC, bench.ALU_LINKS
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(probes.alu_chains_plain(x, links)), 1,
+                       warm_up=False)
+    err = bit_equal(probes.alu_chains(x, links), plain[0], "alu_chains")
+    n = x.numel()
+    out["alu_chains"] = {
+        "err": err, "plain_ms": plain_ms,
+        "ms": cuda_ms(lambda: probes.alu_chains(x, links), 3),
+        # the seeds (nacc multiplies), the links, the sum (nacc - 1 adds)
+        **bound(2 * n * 4, n * (nacc * links * bench.OPS_PER_LINK + 2 * nacc - 1))}
+    say("probe=plain", kernel="alu_chains", shape=list(bench.ALU_SHAPE), nacc=nacc, links=links,
+        result="bit-equal",
+        **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out["alu_chains"].items()})
+
+    small = (20, 300, 1100)
+    for block in (*bench.WPROBE_BLOCKS.values(), (3, 100, 77)):
+        for value in (-0.0, 2.5):
+            xv = torch.tensor([[value]], device=dev)
+            bit_equal(probes.write_blocks(xv, small, block),
+                      probes.write_blocks_plain(xv, torch.empty(small, device=dev)),
+                      f"write_blocks {block}")
+    hs = torch.empty((2 * 300 + 1, 5, 301), device=dev)
+    xv = torch.tensor([[2.5]], device=dev)
+    bit_equal(probes.write_blocks(xv, block=probes.HS_BLOCK, out=probes.hs_pattern_view(hs)),
+              torch.full(hs.shape, 2.5, device=dev).permute(1, 0, 2), "write_blocks hs pattern")
+    del hs
+    # The wprobe path's own shapes: every TPU block on its full tensor and
+    # the producer's pattern at B64 (the path holds its headline chunk
+    # itself, bench.assert_filled), each output poisoned first.
+    shape = bench.WPROBE_SHAPE
+    xv = torch.tensor([[1.5]], device=dev)
+    ref = torch.empty(shape, device=dev)
+    plain_ms = cuda_ms(lambda: probes.write_blocks_plain(xv, ref), 3)
+    big = torch.empty(shape, device=dev)
+    times = {}
+    for name, block in bench.WPROBE_BLOCKS.items():
+        big.fill_(float("nan"))
+        times[name] = cuda_ms(lambda: probes.write_blocks(xv, block=block, out=big), 5)
+        err = bit_equal(big, ref, f"write_blocks {name} on {shape}")
+    del ref
+    library_ms = cuda_ms(lambda: torch.full(shape, 1.5, device=dev), 3)
+    del big
+    hs = torch.full((2 * HEADLINE_BUCKET + 1, 64, HEADLINE_BUCKET + 1), float("nan"), device=dev)
+    probes.write_blocks(xv, block=probes.HS_BLOCK, out=probes.hs_pattern_view(hs))
+    bit_equal(hs, probes.write_blocks_plain(xv, torch.empty_like(hs)), "write_blocks hs pattern B64")
+    del hs
+    out["write_blocks"] = {"err": err, "ms": times["16x128x128"], "plain_ms": plain_ms,
+                           "library_ms": library_ms, **bound(4 + 4 * float(np.prod(shape)), 0.0)}
+    say("probe=plain", kernel="write_blocks", small=list(small),
+        blocks="|".join(bench.WPROBE_BLOCKS) + "|3x100x77", full_shape=list(shape),
+        full_blocks_ms=",".join(f"{k}:{v:.4f}" for k, v in times.items()),
+        hs_pattern=f"B5x301,B64x{HEADLINE_BUCKET}", result="bit-equal",
+        seconds=round(time.perf_counter() - t0, 3),
+        **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out["write_blocks"].items()})
+    return out
+
+
+def tracks_runner(dev):
+    """``bench.py``'s ``tracks`` workload (its first pair set) as a
+    function that aligns it once, scores only or with traceback."""
+    import torch
+
+    from praline_tpu_torch.bench import tracks_workload
+    from praline_tpu_torch.kernels.batch import align_tracksets_batched
+
+    sets, cells, mats, w = tracks_workload()
+
+    def run(traceback=False):
+        out = align_tracksets_batched(sets[0], mats, w, (11, 1), "global", device=dev,
+                                      traceback=traceback, bucket_sizes=(HEADLINE_BUCKET,))
+        torch.cuda.synchronize()
+        return out
+
+    return sets[0], cells[0], mats, w, run
+
+
+def run_tracks(run, cells, n, traceback):
+    """The composite path ``n`` times on the two-kernel route (see
+    :func:`timed_runs`).  Returns the results and the chunks of all runs."""
+    import numpy as np
+
+    from praline_tpu_torch.kernels import batch
+
+    res, walls, gcs = timed_runs(lambda: run(traceback), n, "two_kernel")
+    chunks = batch.route_counts["two_kernel"]
+    if not all(np.isfinite(r.score) for r in res):
+        raise AssertionError("tracks: a non-finite score")
+    say("tracks", pairs=len(res), tracks="blosum62,pam250", weights="1.0,0.5", gap_series="11,1",
+        mode="global", traceback=traceback, chunks_a_run=chunks // n, cells=int(cells),
+        walls_s=",".join(f"{w:.4f}" for w in walls), gc_s=",".join(f"{g:.4f}" for g in gcs),
+        cells_per_s=f"{cells / min(walls):.4e}")
+    return res, chunks
+
+
+def check_tracks(dev, pairs, mats, w, res, res_tb) -> None:
+    """16 sampled composite problems against the plain composition on the
+    card (plain producer per track, weighted sum, plain DP with traceback,
+    plain walk); every traceback run's score equal to the scores run's."""
+    import numpy as np
+
+    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
+    from praline_tpu_torch.kernels.replay import moves_to_result, replay_moves_plain
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.scores import composite_skewed_scores
+
+    t0 = time.perf_counter()
+    if any(a.score != b.score for a, b in zip(res, res_tb)):
+        raise AssertionError("tracks: the traceback run's scores differ from the scores run's")
+    sample = np.random.default_rng(SEED + 11).choice(len(pairs), 16, replace=False)
+    sides = []
+    for side in (0, 1):
+        stacks = [profiles_to_stack([pairs[i][side][t] for i in sample], HEADLINE_BUCKET, dev)
+                  for t in range(len(mats))]
+        sides.append(stacks)
+    lx, ly = sides[0][0][2], sides[1][0][2]
+    hs = composite_skewed_scores([st[0] for st in sides[0]], [st[1] for st in sides[0]],
+                                 [st[0] for st in sides[1]], [st[1] for st in sides[1]],
+                                 [matrix_to_torch(m, dev) for m in mats], w)
+    want = plain_dp(hs, lx, ly, (11, 1), "global", True)
+    moves, nmoves = replay_moves_plain(want["tb"], want["ti"], want["tj"], want["tcode"],
+                                       (11, 1), "global", 2 * HEADLINE_BUCKET)
+    for k, i in enumerate(sample):
+        exp = tuple(want[key][k].item() for key in ("score", "length", "ti", "tj"))
+        if (res[i].score, res[i].length, res[i].ti, res[i].tj) != exp:
+            raise AssertionError(f"tracks problem {i}: {res[i]} != plain {exp}")
+        path = moves_to_result(moves[k].cpu().numpy(), int(nmoves[k]), exp[0], exp[2], exp[3],
+                               int(lx[k]), int(ly[k]), "global")
+        if not (np.array_equal(path.cols_x, res_tb[i].cols_x)
+                and np.array_equal(path.cols_y, res_tb[i].cols_y)):
+            raise AssertionError(f"tracks problem {i}: traceback columns differ from plain")
+    say("tracks=plain", sampled="16/16 bit-equal (scores, lengths, terminals, columns)",
+        seconds=round(time.perf_counter() - t0, 3))
+
+
+def phase_bench(dev, name):
+    """The port's bench config ``name`` at its full size, its numbers on a
+    line of their own."""
+    from praline_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    out = bench.CONFIGS[name](dev)
+    flat = {k: (json.dumps(v) if isinstance(v, (dict, list)) else v) for k, v in out.items()}
+    say(name, seconds=round(time.perf_counter() - t0, 3), **flat)
+    return out
 
 
 def phase_fused_long(dev, timing):
@@ -622,17 +829,12 @@ GOLDENS = [  # (family, tag, matrix, config kwargs); the first four are the defa
 
 
 def headline_pairs():
-    """bench.py:63-97: 256 ragged count profiles (512-1023), 8192 pairs."""
-    import numpy as np
+    """bench.py:63-97: 256 ragged count profiles (512-1023), 8192 pairs
+    (the first of the headline's two pair sets)."""
+    from praline_tpu_torch.bench import cells_workload
 
-    from praline_tpu_torch import builtin_score_matrix
-
-    matrix = builtin_score_matrix("blosum62")
-    rng = np.random.default_rng(SEED)
-    profs = count_profiles(rng, 256, HEADLINE_BUCKET // 2, HEADLINE_BUCKET, matrix.alphabet.size)
-    pairs = [(profs[(i * 7) % 256], profs[(i * 13 + 5) % 256]) for i in range(HEADLINE_PAIRS)]
-    cells = float(sum(float(p.length) * q.length for p, q in pairs))
-    return matrix, pairs, cells
+    matrix, sets, cells = cells_workload(B=HEADLINE_PAIRS, L=HEADLINE_BUCKET)
+    return matrix, sets[0], cells[0]
 
 
 def all_pairs_runner(dev, matrix, pairs):
@@ -670,10 +872,10 @@ def timed_runs(run, n, route):
             walls.append(time.perf_counter() - t0)
         gcs.append(gc_clock.seconds)
         if res is not None and out != res:
-            raise AssertionError(f"all-pairs ({route} route): two runs differ")
+            raise AssertionError(f"{route} route: two runs differ")
         res = out
     if batch.route_counts[route] < 1 or sum(batch.route_counts.values()) != batch.route_counts[route]:
-        raise AssertionError(f"all-pairs: runs meant for the {route} route took {batch.route_counts}")
+        raise AssertionError(f"runs meant for the {route} route took {batch.route_counts}")
     return res, walls, gcs
 
 
@@ -857,26 +1059,29 @@ def phase_profile(name, fn):
              for e in top]))
 
 
-KERNELS = ("scores", "dp", "fused", "tiled", "walk")
+KERNELS = ("scores", "dp", "fused", "tiled", "walk", "alu_chains", "smem_chain", "write_blocks")
 # The kernels each main path must launch: the all-pairs headline on its
-# default route (two-kernel) and forced onto the fused route, and the three
-# msa_align runs.  Only long8 has rows past the fused kernel's lanes; every
-# other path must keep off the tiled kernel.
+# default route (two-kernel) and forced onto the fused route, the three
+# msa_align runs, the composites (the producer at least twice a chunk: see
+# main), and the utilization and wprobe configs.  Only long8 has rows past
+# the fused kernel's lanes; every other path must keep off the tiled kernel.
 PATH_KERNELS = {"all-pairs": ("scores", "dp"), "all-pairs-fused-route": ("fused",),
                 "msa128": ("scores", "dp", "walk"), "long-family": ("fused", "walk"),
-                "long8": ("scores", "tiled", "walk")}
+                "long8": ("scores", "tiled", "walk"), "tracks": ("scores", "dp"),
+                "tracks-traceback": ("scores", "dp", "walk"),
+                "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",)}
 
 
 def counted(name, phase):
     """Run ``phase`` with every launch count set to 0 just before it; return
     its result and the counts read just after."""
-    from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, tiled_dp, wavefront
+    from praline_tpu_torch.kernels import fused_dp, fused_scores, probes, replay, tiled_dp, wavefront
 
     modules = dict(zip(KERNELS, (fused_scores, wavefront, fused_dp, tiled_dp, replay)))
-    for m in modules.values():
+    for m in (*modules.values(), probes):
         m.reset_launches()
     result = phase()
-    counts = {k: m.launches for k, m in modules.items()}
+    counts = {k: m.launches for k, m in modules.items()} | probes.launches
     say("launches", path=name, **counts)
     missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
     if missing:
@@ -902,10 +1107,12 @@ def main() -> int:
     tiled_long = phase_tiled_long(dev)
     phase_tiled_times(dev)
     phase_goldens(dev)
+    probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
     all_pairs_run = all_pairs_runner(dev, matrix, pairs)
     long_seqs = long_family()
     long8_seqs = long8_family()
+    track_pairs, track_cells, track_mats, track_w, tracks_run = tracks_runner(dev)
 
     # ---- the main paths: launches are counted per path, over its runs only ----
     (res, walls, gcs), c1 = counted(
@@ -913,8 +1120,19 @@ def main() -> int:
     msa_run, c2 = counted("msa128", lambda: phase_msa(dev))
     long_run, c3 = counted("long-family", lambda: run_msa_twice(dev, long_seqs, "long-family"))
     long8_run, c4 = counted("long8", lambda: run_msa_twice(dev, long8_seqs, "long8"))
+    (tracks_res, chunks), c5 = counted("tracks", lambda: run_tracks(tracks_run, track_cells, 2, False))
+    (tracks_tb, chunks_tb), c6 = counted(
+        "tracks-traceback", lambda: run_tracks(tracks_run, track_cells, 1, True))
+    _, c7 = counted("utilization", lambda: phase_bench(dev, "utilization"))
+    _, c8 = counted("wprobe", lambda: phase_bench(dev, "wprobe"))
     # ---- end of the main paths ----
-    launches = {k: c1[k] + c2[k] + c3[k] + c4[k] for k in KERNELS}
+    paths = (c1, c2, c3, c4, c5, c6, c7, c8)
+    launches = {k: sum(c[k] for c in paths) for k in KERNELS}
+    for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
+        if c["scores"] != 2 * n or c["dp"] != n:
+            raise AssertionError(f"{name}: {c['scores']} producer and {c['dp']} DP launches "
+                                 f"for {n} chunks of two tracks")
+    check_tracks(dev, track_pairs, track_mats, track_w, tracks_res, tracks_tb)
     check_all_pairs(dev, matrix, pairs, res)
     say_all_pairs("two_kernel", cells, walls, gcs, sampled_vs_plain="64/64 bit-equal")
     with route_knob("1"):
@@ -929,6 +1147,7 @@ def main() -> int:
     phase_profile("msa", msa_run)
     phase_profile("long-family", long_run)
     phase_profile("long8", long8_run)
+    phase_profile("tracks", tracks_run)
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "praline_tpu"))
     if foreign:
         raise AssertionError(f"JAX or the JAX package was imported: {foreign[:5]}")
@@ -971,6 +1190,15 @@ def main() -> int:
          "bound_ms": tiled_long["bound_ms"], "bound_by": tiled_long["bound_by"],
          "library_ms": None},
     ]
+    for name, replaces in (("smem_chain", "bench.py:224 (bench_utilization.run_vmem)"),
+                           ("alu_chains", "bench.py:256 (bench_utilization.run_alu)"),
+                           ("write_blocks", "tools/onchip_wprobe.py:37 (make_writer)")):
+        t = probe_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "praline_tpu_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -126,6 +126,13 @@ def load_library() -> ctypes.CDLL:
         lib.praline_tiled_dp_rows.argtypes = [*[p] * 8, *[i] * 9, *[p] * 10]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
+        ll = ctypes.c_longlong
+        lib.praline_alu_chains.restype = i
+        lib.praline_alu_chains.argtypes = [p, p, ll, ll, p]
+        lib.praline_smem_chain.restype = i
+        lib.praline_smem_chain.argtypes = [p, p, ll, ll, p]
+        lib.praline_write_blocks.restype = i
+        lib.praline_write_blocks.argtypes = [p, p, i, i, i, ll, ll, i, i, i, p]
         _LIB = lib
     return _LIB
 

@@ -1,4 +1,5 @@
-"""Plain skewed pair scores: the reference for the Hopper producer.
+"""Plain skewed pair scores (the reference for the Hopper producer) and
+their multi-track composite.
 
 Counterpart of ``praline_tpu/kernels/scores.py::skewed_pair_scores``.  The
 column-pair score matrix is produced in integer count space and scaled in
@@ -42,3 +43,22 @@ def skewed_pair_scores(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
     hs = h[:, i_g, j_g]  # (B, D, Lp)
     hs = torch.where(valid[None], hs, torch.zeros((), dtype=hs.dtype, device=dev))
     return hs.permute(1, 0, 2).contiguous()
+
+
+def composite_skewed_scores(cxs, inv_xs, cys, inv_ys, ss, weights) -> torch.Tensor:
+    """Multi-track composite ``f32[D, B, Lx+1]``: the weighted sum of the
+    per-track skewed scores, accumulated in track order with every multiply
+    and add rounded on its own (``praline_tpu/kernels/scores.py:98-122``).
+    Each argument is a sequence with one entry a track; the tracks share
+    ``B``, ``Lx`` and ``Ly`` and may differ in alphabet."""
+    acc = None
+    for cx, inv_x, cy, inv_y, s, w in zip(cxs, inv_xs, cys, inv_ys, ss, weights):
+        term = skewed_pair_scores(cx, inv_x, cy, inv_y, s) * track_weight(w)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def track_weight(w) -> torch.Tensor:
+    """A track weight as the f32 the JAX package multiplies by
+    (``jnp.float32(w)``), as a 0-dim CPU tensor (a scalar on any device)."""
+    return torch.tensor(float(w), dtype=torch.float32)

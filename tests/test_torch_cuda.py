@@ -7,8 +7,9 @@ pins JAX to the CPU) must be left out::
 
     python -m pytest --noconftest -p no:cacheprovider -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance 0: producer, DP, fused producer + DP, tiled DP, walk and
-batched aligner are bit-exact by contract.
+Tolerance 0: producer, DP, fused producer + DP, tiled DP, walk, the
+probes and the batched aligners (single-track and composite) are
+bit-exact by contract.
 """
 
 import zlib
@@ -19,7 +20,9 @@ import torch
 
 from praline_tpu_torch import ALPHABET_AA, Profile, builtin_score_matrix
 from praline_tpu_torch.convert import matrix_to_torch, operands_from_numpy, profiles_to_stack
-from praline_tpu_torch.kernels import batch, fused_dp, fused_scores, replay, tiled_dp, wavefront
+from praline_tpu_torch.kernels import (
+    batch, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
+)
 from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
 from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
 
@@ -278,3 +281,88 @@ def test_batched_aligner_routes_rows_past_4096_to_the_tiled_kernel(cuda):
         want = plain_dp(plain_scores(cx, ivx, cy, ivy, matrix_to_torch(B62, cuda)), lx, ly, (11, 1),
                         "semiglobal")
         assert got[0].score == want["score"][0].item()
+
+
+def chain_values(seed, shape, device):
+    """Both arms of the probe's max, negatives and values near 1e-36 and
+    1.0, whose chains cross into the subnormal range."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
+    flat = x.reshape(-1)
+    n = flat.size
+    flat[: n // 4] = rng.uniform(900.0, 5000.0, size=n // 4)
+    flat[n // 4 : n // 2] = -flat[n // 4 : n // 2]
+    flat[n // 2 : n // 2 + 6] = [1e-36, -1e-36, 0.0, -0.0, 1000.0, 1e30]
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("links", [0, 1, 1000, 90000])
+def test_probe_chains_match_plain(cuda, links):
+    """K7 and K8 bit for bit; 90000 links take chains from 1.0 below
+    1e-38."""
+    x = chain_values(links, (33, 100), cuda)  # 3300 elements: a ragged last block
+    before = dict(probes.launches)
+    got = probes.smem_chain(x, links)
+    torch.cuda.synchronize()
+    assert probes.launches["smem_chain"] == before["smem_chain"] + 1
+    want = probes.smem_chain_plain(x, links)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if links == 90000:
+        assert ((want.abs() < 1.1754944e-38) & (want != 0)).any()  # subnormals reached
+    got = probes.alu_chains(x, min(links, 2000))
+    want = probes.alu_chains_plain(x, min(links, 2000))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [(16, 128, 128), (8, 128, 1024), (3, 100, 77), (1, 1, 1)])
+def test_write_blocks_match_plain(cuda, block):
+    x = torch.tensor([[-0.0]], device=cuda)
+    before = probes.launches["write_blocks"]
+    got = probes.write_blocks(x, (20, 300, 1100), block)
+    torch.cuda.synchronize()
+    assert probes.launches["write_blocks"] == before + 1
+    want = probes.write_blocks_plain(x, torch.empty((20, 300, 1100), device=cuda))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    hs = torch.full((300, 5, 200), 3.0, device=cuda)
+    probes.write_blocks(torch.tensor([[2.5]], device=cuda), block=probes.HS_BLOCK,
+                        out=probes.hs_pattern_view(hs))
+    assert torch.equal(hs, torch.full_like(hs, 2.5))
+
+
+def trackset_pairs(seed, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        Lx, Ly = int(rng.integers(lo, hi + 1)), int(rng.integers(lo, hi + 1))
+        pairs.append(tuple(tuple(Profile.from_tokens(rng.integers(0, 20, size=L).astype(np.int32),
+                                                     ALPHABET_AA) for _ in range(2))
+                           for L in (Lx, Ly)))
+    return pairs
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("traceback", [False, True])
+def test_composites_match_plain_on_both_routes(cuda, monkeypatch, mode, traceback):
+    """align_tracksets_batched on the card equals the CPU's plain
+    composition: the whole-row route, then the tiled route (the whole-row
+    cap lowered to 32 lanes, tiles of 64)."""
+    mats, w = [B62, builtin_score_matrix("pam250")], (1.0, 0.5)
+    pairs = trackset_pairs(23, 12, 60, 300)
+    want = batch.align_tracksets_batched(pairs, mats, w, (11, 1), mode, device="cpu",
+                                         traceback=traceback)
+    for cap, route in ((wavefront.MAX_LANES, "two_kernel"), (32, "tiled")):
+        monkeypatch.setattr(wavefront, "MAX_LANES", cap)
+        monkeypatch.setattr(tiled_dp, "MAX_TILE_LANES", 64)
+        batch.reset_route_counts()
+        before = fused_scores.launches
+        got = batch.align_tracksets_batched(pairs, mats, w, (11, 1), mode, device=cuda,
+                                            traceback=traceback)
+        assert batch.route_counts[route] > 0 and sum(batch.route_counts.values()) == \
+            batch.route_counts[route]
+        assert fused_scores.launches - before == 2 * batch.route_counts[route]
+        for g, e in zip(got, want):
+            if traceback:
+                assert g.score == e.score
+                assert np.array_equal(g.cols_x, e.cols_x) and np.array_equal(g.cols_y, e.cols_y)
+            else:
+                assert g == e
