@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the six Hopper kernel sources (score producer, wavefront DP,
-fused producer + DP, lane-tiled DP, traceback walk, and the benchmark's
-probes) from ``praline_tpu_torch/csrc`` with nvcc, one process per source,
-with ``-Xptxas -v`` (registers and spills of the tiled kernel and the
-probes are printed), and holds each kernel against its plain PyTorch
-version on the card, bit for bit: at buckets 1023, 63x127 and 2047, the
+Builds the seven Hopper kernel sources (the score producer's two tiers,
+tensor-core and scalar, wavefront DP, fused producer + DP, lane-tiled DP,
+traceback walk, and the benchmark's probes) from ``praline_tpu_torch/csrc``
+with nvcc, one process per source, with ``-Xptxas -v`` (registers and
+spills of the producers, the tiled kernel and the probes are printed),
+and holds each kernel against its plain PyTorch version on the card, bit
+for bit: both producer tiers at buckets 1023, 63x127 and 2047 and at the
+tensor-core predicate's edges (alphabets 4, 32 and 23, counts of 255,
+|T| = 32766, |H| just under 2**24, one-hot profiles; each output
+NaN-poisoned first), the other kernels at buckets 1023, 63x127 and 2047, the
 DPs over every mode and three gap series at 63x127, the fused kernel past
 the two-kernel lane cap (3000x3000) and at a long y (600x4000), the tiled
 kernel against its plain version at 4 x 700x600 (every mode, three series,
@@ -39,7 +43,9 @@ versions, and the
 headline runs four more times forced onto the fused route, counted on
 their own, to the same results.  One more run of each main path under
 ``torch.profiler`` gives the device time per kernel and the busy share.
-Every phase raises on failure.  The host layers are reached only through
+Every producer launch of every main path must take the tensor-core tier
+(the launches are counted per tier).  Every phase raises on failure.  The
+host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
 one's bound: the larger of the bytes its function must move over 3.35
@@ -227,6 +233,17 @@ def phase_build():
         probes[kernel.split("_kernel")[0]] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
             *usage[key])
     say("registers", kernel="probes", **probes)
+    producers = {}
+    for kernel in ("skewed_scores_mma_kernel", "skewed_scores_kernel"):
+        key = next((n for n in usage if kernel in n), None)
+        if key is None:
+            raise AssertionError(f"build: no -Xptxas -v line for {kernel}")
+        producers[kernel] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(*usage[key])
+    smem = re.search(r"Compiling entry function '[^']*skewed_scores_mma_kernel[^']*'.*?"
+                     r"Used \d+ registers[^\n]*", build.last_build_log.get("scores_mma.cu", ""),
+                     re.S)
+    say("registers", kernel="producers", **producers,
+        mma_ptxas=repr(smem.group(0).splitlines()[-1].strip()) if smem else "not found")
 
 
 def same_outputs(got, want, what) -> float:
@@ -329,12 +346,11 @@ def phase_kernels_vs_plain(dev):
     for B, bx, by, lo in KERNEL_SHAPES:
         ops = stacked_operands(rng, dev, s, B, bx, by, lo)
         cx, ivx, cy, ivy, _, lx, ly = ops
-        hs_k = fused_skewed_scores(cx, ivx, cy, ivy, s)
+        if producer_tier(ops) != "mma":
+            raise AssertionError(f"the tensor-core predicate refused B={B} {bx}x{by}")
         hs_p = plain_scores(cx, ivx, cy, ivy, s)
-        torch.cuda.synchronize()
-        if not torch.equal(hs_k, hs_p):
-            raise AssertionError(f"producer differs from plain at B={B} {bx}x{by}")
-        err_scores = float((hs_k - hs_p).abs().max())
+        err_scores = max(producer_vs_plain(ops[:5], hs_p, tier, f"B={B} {bx}x{by}")
+                         for tier in ("mma", "scalar"))
         dp_err = 0.0
         for tb in (False, True):
             want = plain_dp(hs_p, lx, ly, (11, 1), "global", tb)
@@ -350,7 +366,7 @@ def phase_kernels_vs_plain(dev):
         if not (torch.equal(moves_k, moves_p) and torch.equal(n_k, n_p)):
             raise AssertionError(f"traceback walk differs from plain at B={B} {bx}x{by}")
         walk_err = float((moves_k.int() - moves_p.int()).abs().max())
-        say("kernel=plain", shape=f"B{B}x{bx}x{by}", producer="bit-equal",
+        say("kernel=plain", shape=f"B{B}x{bx}x{by}", producer="bit-equal(mma, scalar; NaN-poisoned)",
             dp_scores="bit-equal", dp_traceback="bit-equal(all tb bytes)",
             fused_scores_and_traceback="bit-equal", walk="bit-equal(moves, counts)")
         if bx == HEADLINE_BUCKET:
@@ -365,7 +381,14 @@ def phase_kernels_vs_plain(dev):
                 # the library yardstick of the producer: H = (Cx @ S) @ Cy^T, unskewed
                 "scores_library_ms": cuda_ms(
                     lambda: torch.bmm(torch.matmul(cx, s), cy.transpose(1, 2)), 10),
-                "scores_ms": cuda_ms(lambda: fused_skewed_scores(cx, ivx, cy, ivy, s), 10),
+                # the two tiers in turns: mma, scalar, mma again
+                "scores_ms": cuda_ms(lambda: fused_skewed_scores(cx, ivx, cy, ivy, s, tier="mma"), 10),
+                "scores_scalar_ms": cuda_ms(
+                    lambda: fused_skewed_scores(cx, ivx, cy, ivy, s, tier="scalar"), 10),
+                "scores_again_ms": cuda_ms(
+                    lambda: fused_skewed_scores(cx, ivx, cy, ivy, s, tier="mma"), 10),
+                # the store pattern alone (K9 at csrc/scores.cu's blocks) on the same hs shape
+                "scores_hs_pattern_ms": hs_pattern_ms(hs_p),
                 "scores_plain_ms": cuda_ms(lambda: plain_scores(cx, ivx, cy, ivy, s), 3),
                 "dp_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global"), 10),
                 "dp_plain_ms": cuda_ms(lambda: plain_dp(hs_p, lx, ly, (11, 1), "global"), 1,
@@ -381,6 +404,7 @@ def phase_kernels_vs_plain(dev):
                 **{k: (round(v, 4) if isinstance(v, float) else json.dumps(v))
                    for k, v in timing.items()})
 
+    timing["scores_edge_err"] = phase_producer_edges(dev)
     t0 = time.perf_counter()
     B, bx, by = 16, 63, 127
     for mode in MODES:
@@ -397,6 +421,115 @@ def phase_kernels_vs_plain(dev):
         series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), traceback="both",
         dp="bit-equal", fused="bit-equal", seconds=round(time.perf_counter() - t0, 3))
     return timing
+
+
+def producer_tier(ops) -> str:
+    """The producer tier the batch drivers' predicate gives these operands
+    (their statistics taken from host copies)."""
+    from praline_tpu_torch.kernels.fused_scores import tier_of
+
+    cx, _, cy, _, s = ops[:5]
+    return tier_of(cx.cpu().numpy(), cy.cpu().numpy(), s.cpu().numpy())
+
+
+def producer_vs_plain(ops, want, tier, what) -> float:
+    """The producer's ``tier`` kernel into a NaN-poisoned tensor, held bit
+    for bit against the plain version's ``want``; the largest difference
+    (0.0)."""
+    import torch
+
+    from praline_tpu_torch.kernels import fused_scores
+
+    out = torch.full(want.shape, float("nan"), device=want.device)
+    before = dict(fused_scores.launches)
+    fused_scores.fused_skewed_scores(*ops, tier=tier, out=out)
+    if fused_scores.launches[tier] != before[tier] + 1:
+        raise AssertionError(f"producer {tier}: no launch counted")
+    return bit_equal(out, want, f"producer {tier} at {what}")
+
+
+def hs_pattern_ms(hs) -> float:
+    """The scalar producer's store pattern alone (K9 ``write_blocks`` at
+    ``csrc/scores.cu``'s blocks of 128 lanes x 128 diagonals) over a tensor
+    of ``hs``'s shape."""
+    import torch
+
+    from praline_tpu_torch.kernels import probes
+
+    out = torch.empty_like(hs)
+    xv = torch.tensor([[1.5]], device=hs.device)
+    return cuda_ms(lambda: probes.write_blocks(xv, block=probes.HS_BLOCK,
+                                               out=probes.hs_pattern_view(out)), 10)
+
+
+def edge_operands(rng, B, Lx, Ly, A):
+    """Operands at the tensor-core predicate's edges: S of entries in
+    [-127, 127] with +127 twice and -127 once in row 0; x columns of 258
+    counts (one of them 258 copies of residue 0: |T| = 32766, just under
+    2**15); y columns of two residues of 255 counts (one meets both +127
+    entries: |H_int| = 32766 * 510, just under 2**24); zero counts and
+    inverse 1.0 past random lengths."""
+    import numpy as np
+
+    s = rng.integers(-127, 128, size=(A, A)).astype(np.float32)
+    s[0, 1] = s[0, 2] = 127
+    s[0, 3] = -127
+    cx = rng.multinomial(258, np.ones(A) / A, size=(B, Lx)).astype(np.float32)
+    cy = np.zeros((B, Ly, A), np.float32)
+    k = np.argsort(rng.random((B, Ly, A)), axis=-1)[..., :2]
+    np.put_along_axis(cy, k, 255.0, axis=-1)
+    cx[:, 0] = 0
+    cx[:, 0, 0] = 258
+    cy[:, 0] = 0
+    cy[:, 0, 1] = cy[:, 0, 2] = 255
+    lx = rng.integers(1, Lx + 1, size=B)
+    ly = rng.integers(1, Ly + 1, size=B)
+    for b in range(B):
+        cx[b, max(1, lx[b]):] = 0
+        cy[b, max(1, ly[b]):] = 0
+    inv = lambda c: (np.float32(1) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+    return cx, inv(cx), cy, inv(cy), s
+
+
+# (B, Lx, Ly, A) of the producer's edge cases: the alphabets 4, 32 and 23,
+# Lx != Ly, B = 1, a single column on either side, ragged last blocks.
+PRODUCER_EDGES = ((3, 300, 200, 4), (1, 130, 70, 32), (2, 64, 1, 23), (2, 1, 257, 23),
+                  (5, 1023, 511, 20))
+
+
+def phase_producer_edges(dev) -> float:
+    """Both producer tiers bit for bit against the plain version at the
+    tensor-core predicate's edges (PRODUCER_EDGES, every case admitted,
+    each output NaN-poisoned), and on one-hot profiles under BLOSUM62 and
+    PAM250 (every |T| <= 127: the kernel's one-pass blocks)."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import operands_from_numpy
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
+    rng = np.random.default_rng(SEED + 13)
+    t0, err, cases = time.perf_counter(), 0.0, []
+    for B, Lx, Ly, A in PRODUCER_EDGES:
+        cases.append((f"edge B{B}x{Lx}x{Ly} A{A}", edge_operands(rng, B, Lx, Ly, A)))
+    for name in ("blosum62", "pam250"):
+        s = builtin_score_matrix(name).as_f32()
+        A = s.shape[0]
+        side = [np.eye(A, dtype=np.float32)[rng.integers(0, 20, size=(16, L))] for L in (700, 900)]
+        ones = [np.ones(c.shape[:2], np.float32) for c in side]
+        cases.append((f"one-hot {name} B16x700x900", (side[0], ones[0], side[1], ones[1], s)))
+    for what, arrs in cases:
+        ops = operands_from_numpy(*arrs, [1], [1], dev)[:5]
+        if producer_tier(ops) != "mma":
+            raise AssertionError(f"the tensor-core predicate refused {what}")
+        want = plain_scores(*ops)
+        torch.cuda.synchronize()
+        for tier in ("mma", "scalar"):
+            err = max(err, producer_vs_plain(ops, want, tier, what))
+    say("producer=plain", cases="|".join(w for w, _ in cases), tiers="mma,scalar",
+        result="bit-equal(NaN-poisoned outputs)", seconds=round(time.perf_counter() - t0, 3))
+    return err
 
 
 def chain_values(rng, shape):
@@ -647,10 +780,11 @@ def phase_fused_times(dev):
     for B, bx, lo, modes in ((64, 1023, 512, (False, True)), (2, 2047, 1024, (True,))):
         t0 = time.perf_counter()
         ops = stacked_operands(rng, dev, s, B, bx, bx, lo)
+        tier = producer_tier(ops)
         for tb in modes:
             tag = f"B{B}x{bx}x{bx}_{'traceback' if tb else 'scores'}"
             fused = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
-            two = cuda_ms(lambda: wavefront_dp(fused_skewed_scores(*ops[:5]), ops[5], ops[6],
+            two = cuda_ms(lambda: wavefront_dp(fused_skewed_scores(*ops[:5], tier=tier), ops[5], ops[6],
                                                (11, 1), "global", tb), 5)
             fused_again = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
             plain = cuda_ms(lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", tb), 1,
@@ -684,7 +818,7 @@ def phase_tiled_vs_plain(dev) -> float:
     for mode in MODES:
         for series in SWEEP_SERIES:
             ops = stacked_operands(rng, dev, s, B, bx, by, lo)
-            hs = fused_skewed_scores(*ops[:5])
+            hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
             for tb in (False, True):
                 want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, tb,
                                                 tile_lanes=256, steps_per_visit=32)
@@ -753,14 +887,15 @@ def phase_tiled_times(dev):
     B, bx, lo = TILED_TIMES_SHAPE
     t0 = time.perf_counter()
     ops = stacked_operands(np.random.default_rng(SEED + 9), dev, s, B, bx, bx, lo)
-    hs = fused_skewed_scores(*ops[:5])
+    tier = producer_tier(ops)
+    hs = fused_skewed_scores(*ops[:5], tier=tier)
     out = {}
     for tb in (False, True):
         tag = "traceback" if tb else "scores"
         args = (ops[5], ops[6], (11, 1), "global", tb)
         out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
         out[f"{tag}_producer_tiled_ms"] = cuda_ms(
-            lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5]), *args), 5)
+            lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
         out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
         out[f"{tag}_fused_ms"] = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
         out[f"{tag}_tiled_again_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
@@ -771,7 +906,7 @@ def phase_tiled_times(dev):
     for B, bx, lo in TILED_VS_DP_SHAPES:
         t0 = time.perf_counter()
         ops = stacked_operands(np.random.default_rng(SEED + 10), dev, s, B, bx, bx, lo)
-        hs = fused_skewed_scores(*ops[:5])
+        hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
         out = {}
         for tb in (False, True):
             tag = "traceback" if tb else "scores"
@@ -795,7 +930,8 @@ def phase_goldens(dev):
 
     td = ROOT / "testdata"
     for knob in ("1", "0"):
-        before = (fused_dp.launches, fused_scores.launches, wavefront.launches, replay.launches)
+        before = (fused_dp.launches, sum(fused_scores.launches.values()), wavefront.launches,
+                  replay.launches)
         t0 = time.perf_counter()
         with route_knob(knob):
             for family, tag, mname, kw in GOLDENS:
@@ -807,7 +943,8 @@ def phase_goldens(dev):
                 if format_alignment_clustal(aln) != (td / f"{family}.{tag}.golden.aln").read_text():
                     raise AssertionError(f"{family}.{tag} (knob {knob}): CLUSTAL differs from the golden")
         fused, scores, dp, walk = (a > b for a, b in zip(
-            (fused_dp.launches, fused_scores.launches, wavefront.launches, replay.launches), before))
+            (fused_dp.launches, sum(fused_scores.launches.values()), wavefront.launches,
+             replay.launches), before))
         if knob == "1" and not (fused and walk):
             raise AssertionError("goldens under PRALINE_FUSED_DP=1 did not launch the fused kernel")
         if knob == "0" and (fused or not (scores and dp and walk)):
@@ -1059,16 +1196,20 @@ def phase_profile(name, fn):
              for e in top]))
 
 
-KERNELS = ("scores", "dp", "fused", "tiled", "walk", "alu_chains", "smem_chain", "write_blocks")
+KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "tiled", "walk", "alu_chains",
+           "smem_chain", "write_blocks")
 # The kernels each main path must launch: the all-pairs headline on its
 # default route (two-kernel) and forced onto the fused route, the three
 # msa_align runs, the composites (the producer at least twice a chunk: see
 # main), and the utilization and wprobe configs.  Only long8 has rows past
 # the fused kernel's lanes; every other path must keep off the tiled kernel.
-PATH_KERNELS = {"all-pairs": ("scores", "dp"), "all-pairs-fused-route": ("fused",),
-                "msa128": ("scores", "dp", "walk"), "long-family": ("fused", "walk"),
-                "long8": ("scores", "tiled", "walk"), "tracks": ("scores", "dp"),
-                "tracks-traceback": ("scores", "dp", "walk"),
+# Every path's profiles are integer counts the tensor-core predicate
+# admits, so every producer launch of a path takes the "mma" tier; the
+# scalar tier is launched and checked by the producer phases alone.
+PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
+                "msa128": ("scores_mma", "dp", "walk"), "long-family": ("fused", "walk"),
+                "long8": ("scores_mma", "tiled", "walk"), "tracks": ("scores_mma", "dp"),
+                "tracks-traceback": ("scores_mma", "dp", "walk"),
                 "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",)}
 
 
@@ -1077,15 +1218,20 @@ def counted(name, phase):
     its result and the counts read just after."""
     from praline_tpu_torch.kernels import fused_dp, fused_scores, probes, replay, tiled_dp, wavefront
 
-    modules = dict(zip(KERNELS, (fused_scores, wavefront, fused_dp, tiled_dp, replay)))
-    for m in (*modules.values(), probes):
+    modules = dict(zip(("dp", "fused", "tiled", "walk"), (wavefront, fused_dp, tiled_dp, replay)))
+    for m in (*modules.values(), fused_scores, probes):
         m.reset_launches()
     result = phase()
-    counts = {k: m.launches for k, m in modules.items()} | probes.launches
+    counts = ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
+              | {k: m.launches for k, m in modules.items()} | probes.launches)
     say("launches", path=name, **counts)
     missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
+    if counts["scores_scalar"]:
+        raise AssertionError(f"{name}: {counts['scores_scalar']} of "
+                             f"{counts['scores_scalar'] + counts['scores_mma']} producer launches "
+                             "left the tensor-core tier")
     if name != "long8" and counts["tiled"]:
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
     return result, counts
@@ -1129,8 +1275,8 @@ def main() -> int:
     paths = (c1, c2, c3, c4, c5, c6, c7, c8)
     launches = {k: sum(c[k] for c in paths) for k in KERNELS}
     for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
-        if c["scores"] != 2 * n or c["dp"] != n:
-            raise AssertionError(f"{name}: {c['scores']} producer and {c['dp']} DP launches "
+        if c["scores_mma"] != 2 * n or c["dp"] != n:
+            raise AssertionError(f"{name}: {c['scores_mma']} producer and {c['dp']} DP launches "
                                  f"for {n} chunks of two tracks")
     check_tracks(dev, track_pairs, track_mats, track_w, tracks_res, tracks_tb)
     check_all_pairs(dev, matrix, pairs, res)
@@ -1155,12 +1301,21 @@ def main() -> int:
     headline = fused_times[f"B64x{HEADLINE_BUCKET}x{HEADLINE_BUCKET}_scores"]
     kernels = [
         {"name": "skewed_scores", "route": "cuda",
-         "source": "praline_tpu_torch/csrc/scores.cu",
+         "source": "praline_tpu_torch/csrc/scores_mma.cu",
          "replaces": "praline_tpu/kernels/fused_scores.py:359 (fused_skewed_scores_strip), "
                      "praline_tpu/kernels/fused_scores.py:119 (fused_skewed_scores)",
-         "launches": launches["scores"], "max_abs_err": timing["scores_err"],
+         "launches": launches["scores_mma"] + launches["scores_scalar"],
+         "max_abs_err": max(timing["scores_err"], timing["scores_edge_err"]),
          "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"],
-         **timing["scores_bound"], "library_ms": timing["scores_library_ms"]},
+         **timing["scores_bound"], "library_ms": timing["scores_library_ms"],
+         "hs_pattern_ms": timing["scores_hs_pattern_ms"],
+         "variants": {
+             "mma": {"source": "praline_tpu_torch/csrc/scores_mma.cu",
+                     "launches": launches["scores_mma"],
+                     "ms": [timing["scores_ms"], timing["scores_again_ms"]]},
+             "scalar": {"source": "praline_tpu_torch/csrc/scores.cu",
+                        "launches": launches["scores_scalar"],
+                        "ms": timing["scores_scalar_ms"]}}},
         {"name": "wavefront_dp", "route": "cuda",
          "source": "praline_tpu_torch/csrc/wavefront_dp.cu",
          "replaces": "praline_tpu/kernels/strip.py:587 (wavefront_dp_strip), "

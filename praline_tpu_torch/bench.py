@@ -34,7 +34,7 @@ from .device import resolve_device
 from .io import builtin_score_matrix
 from .kernels import batch
 from .kernels.batch import ProfileArena, align_pairs_batched, align_tracksets_batched
-from .kernels.fused_scores import fused_skewed_scores
+from .kernels.fused_scores import fused_skewed_scores, tier_of
 from .kernels.probes import HS_BLOCK, NACC, alu_chains, hs_pattern_view, smem_chain, write_blocks
 from .kernels.scan import Recurrence, carries_d1, diagonal_step
 from .kernels.wavefront import wavefront_dp
@@ -270,7 +270,8 @@ def bench_utilization(device="cuda", *, smem_shape=SMEM_SHAPE, smem_links: int =
     alu_ops_per_s = xa.numel() * NACC * alu_links * OPS_PER_LINK / dt_a
 
     ops_per_step_lane = count_step_lane_ops()
-    s = torch.from_numpy(builtin_score_matrix("blosum62").as_f32()).to(dev)
+    s_host = builtin_score_matrix("blosum62").as_f32()
+    s = torch.from_numpy(s_host).to(dev)
     rngu = np.random.default_rng(0)
     sets, cells, slots, out_bytes = [], 0.0, 0.0, 0.0
     for _ in range(2):
@@ -281,10 +282,12 @@ def bench_utilization(device="cuda", *, smem_shape=SMEM_SHAPE, smem_links: int =
         slots += float((lx.astype(np.float64) + ly - 1).sum()) * (L + 1)
         out_bytes += dp_batch * 5 * 4  # score, length, ti, tj, tcode
         ops = [torch.from_numpy(a).to(dev) for a in (cx, ivx, cy, ivy)]
-        sets.append((ops, torch.from_numpy(lx).to(dev), torch.from_numpy(ly).to(dev)))
-    t_prod = device_ms(lambda: [fused_skewed_scores(*ops, s) for ops, _, _ in sets], reps, dev)
-    hss = [fused_skewed_scores(*ops, s) for ops, _, _ in sets]
-    t_dp = device_ms(lambda: [wavefront_dp(hs, lx, ly) for hs, (_, lx, ly) in zip(hss, sets)],
+        tier = tier_of(cx, cy, s_host)
+        sets.append((ops, torch.from_numpy(lx).to(dev), torch.from_numpy(ly).to(dev), tier))
+    t_prod = device_ms(lambda: [fused_skewed_scores(*ops, s, tier=tier)
+                                for ops, _, _, tier in sets], reps, dev)
+    hss = [fused_skewed_scores(*ops, s, tier=tier) for ops, _, _, tier in sets]
+    t_dp = device_ms(lambda: [wavefront_dp(hs, lx, ly) for hs, (_, lx, ly, _) in zip(hss, sets)],
                      reps, dev)
     del hss, sets
     dp_rate = cells / (t_dp / 1e3)
@@ -484,8 +487,9 @@ def bench_wprobe(device="cuda", *, shape=WPROBE_SHAPE, blocks=None, hs_bucket: i
     B0 = hs_batches[0]
     cx, ivx, cy, ivy, _, _ = example_batch(np.random.default_rng(0), B0, hs_bucket, hs_bucket)
     ops = [torch.from_numpy(a).to(dev) for a in (cx, ivx, cy, ivy)]
-    s = torch.from_numpy(builtin_score_matrix("blosum62").as_f32()).to(dev)
-    prod_ms = device_ms(lambda: fused_skewed_scores(*ops, s), reps, dev)
+    s_host = builtin_score_matrix("blosum62").as_f32()
+    s, tier = torch.from_numpy(s_host).to(dev), tier_of(cx, cy, s_host)
+    prod_ms = device_ms(lambda: fused_skewed_scores(*ops, s, tier=tier), reps, dev)
     value = hs_rates[f"B{hs_batches[-1]}"]["bytes_per_s"]
     copy_rate = 2 * nbytes / (copy_ms / 1e3)
     return {
@@ -494,7 +498,7 @@ def bench_wprobe(device="cuda", *, shape=WPROBE_SHAPE, blocks=None, hs_bucket: i
         "vs_baseline": value / copy_rate,
         "blocks": rates,
         "hs_pattern": hs_rates,
-        "producer": {"shape": [D, B0, Lp], "ms": prod_ms,
+        "producer": {"shape": [D, B0, Lp], "tier": tier, "ms": prod_ms,
                      "bytes_per_s": D * B0 * Lp * 4 / (prod_ms / 1e3)},
         "t_plus_s": {"ms": copy_ms, "bytes_per_s": copy_rate},
         "full": {"ms": full_ms, "bytes_per_s": nbytes / (full_ms / 1e3)},

@@ -14,7 +14,7 @@ from .batch import (
     choose_route,
 )
 from .fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
-from .fused_scores import fused_skewed_scores
+from .fused_scores import fused_skewed_scores, score_tier, tensor_core_exact
 from .probes import alu_chains, smem_chain, write_blocks
 from .replay import moves_to_result, replay_moves, replay_moves_plain
 from .scan import wavefront_dp as wavefront_dp_plain
@@ -34,8 +34,10 @@ __all__ = [
     "moves_to_result",
     "replay_moves",
     "replay_moves_plain",
+    "score_tier",
     "skewed_pair_scores",
     "smem_chain",
+    "tensor_core_exact",
     "wavefront_dp",
     "wavefront_dp_fused",
     "wavefront_dp_fused_plain",

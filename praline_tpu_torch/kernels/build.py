@@ -112,6 +112,8 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.praline_skewed_scores.restype = i
         lib.praline_skewed_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.praline_skewed_scores_mma.restype = i
+        lib.praline_skewed_scores_mma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.praline_wavefront_dp.restype = i
         lib.praline_wavefront_dp.argtypes = [
             p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p,

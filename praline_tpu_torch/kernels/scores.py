@@ -26,14 +26,17 @@ def skewed_pair_scores(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
     ``cx f32[B, Lx, A]``, ``inv_x f32[B, Lx]``, ``cy f32[B, Ly, A]``,
     ``inv_y f32[B, Ly]``, ``s f32[A, A]``, all on one device.
     """
-    B, Lx, _ = cx.shape
-    Ly = cy.shape[1]
-    D = Lx + Ly + 1
     t = torch.matmul(cx, s)
     h_int = torch.matmul(t, cy.transpose(1, 2))
     h = (h_int * inv_x[:, :, None]) * inv_y[:, None, :]
+    return skew(h, cx.shape[1], cy.shape[1])
 
-    dev = cx.device
+
+def skew(h, Lx: int, Ly: int) -> torch.Tensor:
+    """``f32[B, Lx, Ly]`` column-pair scores as ``f32[D, B, Lx+1]``:
+    ``hs[d, b, i] = h[b, i-1, d-i-1]`` for interior cells, +0 elsewhere."""
+    D = Lx + Ly + 1
+    dev = h.device
     d_idx = torch.arange(D, device=dev)[:, None]
     i_idx = torch.arange(Lx + 1, device=dev)[None, :]
     j_idx = d_idx - i_idx - 1

@@ -57,14 +57,60 @@ def operands(seed, B, bx, by, device):
     return operands_from_numpy(*side, B62.as_f32(), lx, ly, device)
 
 
+@pytest.mark.parametrize("tier", fused_scores.TIERS)
 @pytest.mark.parametrize("bx,by", [(31, 63), (200, 100), (1023, 1023)])
-def test_producer_matches_plain(cuda, bx, by):
+def test_producer_matches_plain(cuda, bx, by, tier):
     cx, ivx, cy, ivy, s, _, _ = operands(bx + by, 16, bx, by, cuda)
-    before = fused_scores.launches
-    got = fused_scores.fused_skewed_scores(cx, ivx, cy, ivy, s)
+    before = dict(fused_scores.launches)
+    got = fused_scores.fused_skewed_scores(cx, ivx, cy, ivy, s, tier=tier)
     torch.cuda.synchronize()
-    assert fused_scores.launches == before + 1
-    assert torch.equal(got, plain_scores(cx, ivx, cy, ivy, s))
+    assert fused_scores.launches == {**before, tier: before[tier] + 1}
+    assert torch.equal(got.view(torch.int32), plain_scores(cx, ivx, cy, ivy, s).view(torch.int32))
+
+
+@pytest.mark.parametrize("tier", fused_scores.TIERS)
+@pytest.mark.parametrize("B,Lx,Ly,A_", [(3, 300, 200, 4), (1, 130, 70, 32), (2, 64, 1, 23),
+                                        (2, 1, 257, 23)])
+def test_producer_tiers_at_the_predicate_edges(cuda, B, Lx, Ly, A_, tier):
+    """Counts of 255, |T| = 32766 and |H_int| = 32766 * 510 (just under
+    2**15 and 2**24), negative S entries, each output NaN-poisoned first."""
+    rng = np.random.default_rng(B * 1000 + A_)
+    s = rng.integers(-127, 128, size=(A_, A_)).astype(np.float32)
+    s[0, 1] = s[0, 2] = 127
+    cx = rng.multinomial(258, np.ones(A_) / A_, size=(B, Lx)).astype(np.float32)
+    cy = np.zeros((B, Ly, A_), np.float32)
+    np.put_along_axis(cy, np.argsort(rng.random((B, Ly, A_)), axis=-1)[..., :2], 255.0, axis=-1)
+    cx[:, 0] = 0
+    cx[:, 0, 0] = 258
+    cy[:, 0] = 0
+    cy[:, 0, 1] = cy[:, 0, 2] = 255
+    inv = lambda c: (np.float32(1) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+    assert fused_scores.tier_of(cx, cy, s) == "mma"
+    ops = operands_from_numpy(cx, inv(cx), cy, inv(cy), s, [1], [1], cuda)[:5]
+    out = torch.full((Lx + Ly + 1, B, Lx + 1), float("nan"), device=cuda)
+    got = fused_scores.fused_skewed_scores(*ops, tier=tier, out=out)
+    assert got is out
+    assert torch.equal(out.view(torch.int32), plain_scores(*ops).view(torch.int32))
+
+
+def test_batch_driver_takes_the_tier_the_predicate_gives(cuda):
+    """Integer profiles take the tensor-core tier on the card, dyadic ones
+    the scalar tier, each to the CPU's results."""
+    rng = np.random.default_rng(29)
+    profs = []
+    for L in (90, 70, 110):
+        c = rng.integers(0, 3, size=(L, A)).astype(np.float32)
+        c[:, 0] += 1
+        profs.append(Profile(c, np.zeros(L, np.float32), ALPHABET_AA))
+    for scale, tier in ((1.0, "mma"), (0.5, "scalar")):
+        ps = [Profile(p.counts * np.float32(scale), p.gaps, ALPHABET_AA) for p in profs]
+        pairs = [(ps[0], ps[1]), (ps[1], ps[2])]
+        before = dict(fused_scores.launches)
+        got = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device=cuda)
+        assert fused_scores.launches[tier] > before[tier]
+        assert sum(fused_scores.launches.values()) - sum(before.values()) == \
+            fused_scores.launches[tier] - before[tier]
+        assert got == batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu")
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -354,12 +400,14 @@ def test_composites_match_plain_on_both_routes(cuda, monkeypatch, mode, tracebac
         monkeypatch.setattr(wavefront, "MAX_LANES", cap)
         monkeypatch.setattr(tiled_dp, "MAX_TILE_LANES", 64)
         batch.reset_route_counts()
-        before = fused_scores.launches
+        before = dict(fused_scores.launches)
         got = batch.align_tracksets_batched(pairs, mats, w, (11, 1), mode, device=cuda,
                                             traceback=traceback)
         assert batch.route_counts[route] > 0 and sum(batch.route_counts.values()) == \
             batch.route_counts[route]
-        assert fused_scores.launches - before == 2 * batch.route_counts[route]
+        # one-hot tracks: every producer launch on the tensor cores
+        assert fused_scores.launches == {"mma": before["mma"] + 2 * batch.route_counts[route],
+                                         "scalar": before["scalar"]}
         for g, e in zip(got, want):
             if traceback:
                 assert g.score == e.score

@@ -22,6 +22,7 @@ from praline_tpu_torch.io import (
 )
 from praline_tpu_torch.kernels import batch, wavefront
 from praline_tpu_torch.kernels.fused_dp import MAX_LANES_FUSED
+from praline_tpu_torch.kernels.fused_scores import mma_scratch_bytes
 from praline_tpu_torch.msa import msa_align
 
 torch.set_num_threads(1)
@@ -81,7 +82,8 @@ def test_chunk_sizing_counts_what_each_route_allocates():
     two = batch.chunk_problem_bytes("two_kernel", "cuda", 1023, 1023, A, False)
     fused = batch.chunk_problem_bytes("fused", "cuda", 1023, 1023, A, False)
     hs_bytes, tb_bytes = batch.per_problem_bytes(1023, 1023)
-    assert two - fused == hs_bytes - 2046 * 24 * 4
+    # hs and the tensor-core producer's scratch against the fused kernel's T / Cy copies
+    assert two - fused == hs_bytes + mma_scratch_bytes(1, 1023, 1023) - 2046 * 24 * 4
     assert batch.chunk_problem_bytes("fused", "cuda", 1023, 1023, A, True) == fused + 2 * tb_bytes
     # the plain versions build hs on either route
     assert batch.chunk_problem_bytes("fused", "cpu", 1023, 1023, A, False) == fused + hs_bytes

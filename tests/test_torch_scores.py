@@ -123,8 +123,9 @@ def test_wrapper_takes_plain_path_on_cpu():
     rng = np.random.default_rng(6)
     cx, ivx, cy, ivy, _, _ = make_operands(rng, 2, 31, 31)
     ops = operands_from_numpy(cx, ivx, cy, ivy, B62.as_f32(), [1], [1], "cpu")
-    before = fused_scores.launches
-    got = fused_scores.fused_skewed_scores(*ops[:5])
-    assert fused_scores.launches == before  # no kernel launch on the CPU
-    assert torch.equal(got, skewed_pair_scores(*ops[:5]))
+    for tier in fused_scores.TIERS:
+        before = dict(fused_scores.launches)
+        got = fused_scores.fused_skewed_scores(*ops[:5], tier=tier)
+        assert fused_scores.launches == before  # no kernel launch on the CPU
+        assert torch.equal(got, skewed_pair_scores(*ops[:5]))
 

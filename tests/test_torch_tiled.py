@@ -35,6 +35,7 @@ from praline_tpu_torch.io import (
     format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
 )
 from praline_tpu_torch.kernels import batch, fused_dp, tiled_dp, wavefront
+from praline_tpu_torch.kernels.fused_scores import mma_scratch_bytes
 from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
 from praline_tpu_torch.kernels.scores import skewed_pair_scores
 from praline_tpu_torch.msa import msa_align
@@ -150,7 +151,9 @@ def test_chunk_sizing_counts_the_carry_scratch():
     carry = tiled_dp.carry_values(fused_dp.MAX_LEVELS) * 4601 * 4
     operands_bytes = (4600 + 4400) * (A_ + 1) * 4
     got = batch.chunk_problem_bytes("tiled", "cuda", 4600, 4400, A_, True)
-    assert got == operands_bytes + hs_bytes + carry + 2 * tb_bytes
+    # the hs source: hs and the tensor-core producer's scratch
+    scratch = mma_scratch_bytes(1, 4600, 4400)
+    assert got == operands_bytes + hs_bytes + scratch + carry + 2 * tb_bytes
     by = batch.HS_BYTES_BUDGET // (4 * 4601)  # the rows source: no hs on the card
     rows = batch.chunk_problem_bytes("tiled", "cuda", 4600, by, A_, False)
     assert rows == (4600 + by) * (A_ + 1) * 4 + (4600 + by) * 24 * 4 + carry
