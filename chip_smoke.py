@@ -4,53 +4,59 @@
     python3 chip_smoke.py
 
 Builds the seven Hopper kernel sources (the score producer's two tiers,
-tensor-core and scalar, wavefront DP, fused producer + DP, lane-tiled DP,
-traceback walk, and the benchmark's probes) from ``praline_tpu_torch/csrc``
-with nvcc, one process per source, with ``-Xptxas -v`` (registers and
-spills of the producers, the tiled kernel and the probes are printed),
-and holds each kernel against its plain PyTorch version on the card, bit
-for bit: both producer tiers at buckets 1023, 63x127 and 2047 and at the
-tensor-core predicate's edges (alphabets 4, 32 and 23, counts of 255,
-|T| = 32766, |H| just under 2**24, one-hot profiles; each output
-NaN-poisoned first), the other kernels at buckets 1023, 63x127 and 2047, the
-DPs over every mode and three gap series at 63x127, the fused kernel past
-the two-kernel lane cap (3000x3000) and at a long y (600x4000), the tiled
-kernel against its plain version at 4 x 700x600 (every mode, three series,
-both score sources, scores and traceback, two tile widths and two visit
-depths) and, on one 4600x4400 traceback problem, against the plain DP;
-the probes at the benchmark's shapes (K7 f32[256, 1024] through 131072
-links, into the subnormal range; K8 f32[1056, 256], four chains of 131072
-links; K9 at every TPU write block on a small tensor and at the producer's
-block on f32[64, 17408, 1024]).  It times the fused
-kernel beside the two-kernel route and the plain version, the tiled
-kernel beside the fused kernel at 3000x3000 and beside the whole-row DP
-at buckets 1023 and 2047, aligns the committed goldens
-through the CUDA path on both routes, then drives the main paths at full
-size, with the launch counts set to 0 before each and read after its own
-runs: the all-pairs distance stage on 8192 pairs of bucket 1023 (five runs
-on the default two-kernel route), ``msa_align`` on a seeded 128-sequence
-family of lengths 600-1000 (two runs), on a seeded 32-sequence family of
-lengths 1800-2400 (two runs), which needs the fused kernel, and on 8
-members of lengths 4300-5000 (two runs; the size of a dynein heavy
-chain), which needs the tiled kernel; the two-track composite workload of
-``bench.py``'s ``tracks`` config (1024 pairs of one-hot profiles of
-512-1023 residues, BLOSUM62 + PAM250 weighted 1 and 0.5; two runs scores
-only, then one with traceback, each its own path); and the port's
-``utilization`` and ``wprobe`` bench configs, whose rates are printed.
-After them, sampled problems of
-each all-pairs stage and 16 composite problems are held against the plain
-versions, and the
-headline runs four more times forced onto the fused route, counted on
-their own, to the same results.  One more run of each main path under
+tensor-core and scalar, wavefront DP, fused producer + DP on a
+thread-block cluster a problem, lane-tiled DP, traceback walk, and the
+benchmark's probes) from ``praline_tpu_torch/csrc`` with nvcc, one process
+per source, with ``-Xptxas -v`` (registers and spills of the producers,
+the DPs and the probes are printed, and the fused kernel's cluster
+occupancy at every cluster size), and holds each kernel against its plain
+PyTorch version on the card, bit for bit: both producer tiers at buckets
+1023, 63x127 and 2047 and at the tensor-core predicate's edges (alphabets
+4, 32 and 23, counts of 255, |T| = 32766, |H| just under 2**24, one-hot
+profiles; each output NaN-poisoned first), the other kernels at buckets
+1023, 63x127 and 2047, the DPs over every mode and three gap series at
+63x127, the fused kernel on both score tiers (NaN-poisoned outputs) at
+those shapes, past the two-kernel lane cap (3000x3000), at a long y
+(600x4000), at every cluster size (1 to 8 CTAs) and with lx leaving the
+high ranks idle, the tiled kernel against its plain version at 4 x
+700x600 (every mode, three series, both score sources, scores and
+traceback, two tile widths and two visit depths) and, on one 4600x4400
+traceback problem, against the plain DP; the probes at the benchmark's
+shapes (K7 f32[256, 1024] through 131072 links, into the subnormal range;
+K8 f32[1056, 256], four chains of 131072 links; K9 at every
+TPU write block on a small tensor and on f32[64, 17408, 1024], on an
+unaligned strided view with -0.0, and at the producer's block).  It times
+the fused kernel on both tiers beside the two-kernel route, the tiled
+kernel over the producer's hs and the plain version at the headline
+bucket, a merge level and the long family's bucket, the tiled kernel
+beside the fused kernel at 3000x3000 and beside the whole-row DP at
+buckets 1023 and 2047, K9 beside ``torch.full``, aligns the committed
+goldens through the CUDA path on both routes, then drives the main paths
+at full size, with the launch counts set to 0 before each and read after
+its own runs: the all-pairs distance stage on 8192 pairs of bucket 1023
+(five runs on the default two-kernel route), ``msa_align`` on a seeded
+128-sequence family of lengths 600-1000 (two runs), on a seeded
+32-sequence family of lengths 1800-2400 (two runs), which needs the fused
+kernel, and on 8 members of lengths 4300-5000 (two runs; the size of a
+dynein heavy chain), which needs the tiled kernel; the two-track
+composite workload of ``bench.py``'s ``tracks`` config (1024 pairs of
+one-hot profiles of 512-1023 residues, BLOSUM62 + PAM250 weighted 1 and
+0.5; two runs scores only, then one with traceback, each its own path);
+and the port's ``utilization`` and ``wprobe`` bench configs, whose rates
+are printed.  After them, sampled problems of each all-pairs stage and 16
+composite problems are held against the plain versions, and the headline
+runs four more times forced onto the fused route, counted on their own,
+to the same results.  One more run of each main path under
 ``torch.profiler`` gives the device time per kernel and the busy share.
-Every producer launch of every main path must take the tensor-core tier
-(the launches are counted per tier).  Every phase raises on failure.  The
-host layers are reached only through
+Every producer and fused launch of every main path must take the
+tensor-core tier (the launches are counted per tier).  Every phase raises
+on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
 one's bound: the larger of the bytes its function must move over 3.35
-TB/s and its f32 operations over 67 TFLOP/s, the H100 SXM's published
-rates), the card's name and power limit, and ``{"ok": true, ...}``.
+TB/s and its operations over the H100 SXM's published rates, 67 TFLOP/s
+for f32 and 1979 TOP/s for int8 on the tensor cores), the card's name and
+power limit, and ``{"ok": true, ...}``.
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
 """
@@ -102,12 +108,14 @@ TILED_TIMES_SHAPE = (2, 3000, 2500)
 # (B, lanes - 1, shortest length) where the whole-row DP takes the rows at
 # one and at two lanes a thread: the tiled kernel's times beside it.
 TILED_VS_DP_SHAPES = ((64, 1023, 512), (64, 2047, 1024))
-# The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory
-# and f32 outside the tensor cores.  The DP's f32 operations a cell at k =
-# 2: two subtracts, a compare and a length add per gap side, an add and a
-# length add for M, two compares for the best state (selects not counted).
+# The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory,
+# f32 outside the tensor cores and dense int8 on the tensor cores.  The DP's
+# f32 operations a cell at k = 2: two subtracts, a compare and a length add
+# per gap side, an add and a length add for M, two compares for the best
+# state (selects not counted).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 DP_OPS_PER_CELL = 12
 
 
@@ -217,14 +225,20 @@ def phase_build():
         sources=",".join(p.name for p in build.sources()),
         per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
     usage = ptxas_usage("\n".join(build.last_build_log.values()))
-    for kernel in ("tiled_hs_kernel", "tiled_rows_kernel", "wavefront_kernel", "fused_kernel"):
+    kernels = (("tiled_hs_kernel", "Li1E"), ("tiled_rows_kernel", "Li1E"),
+               ("wavefront_kernel", "Li1E"), ("fused_cluster_kernel", "Lb1E"),
+               ("fused_cluster_kernel", "Lb0E"))
+    for kernel, second in kernels:
         found = {}
         for k in (1, 2, 3, 15):
-            key = next((n for n in usage if f"{kernel}ILi{k}ELi1E" in n), None)
+            key = next((n for n in usage if f"{kernel}ILi{k}E{second}" in n), None)
             if key is None:
-                raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, 1>")
+                raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, {second}>")
             found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(*usage[key])
-        say("registers", kernel=kernel, lanes_per_thread=1, **found)
+        tier = {"Lb1E": "mma", "Lb0E": "scalar"}.get(second)
+        say("registers", kernel=kernel, **({"tier": tier} if tier else {}), lanes_per_thread=1,
+            **found)
+    phase_cluster_occupancy()
     probes = {}
     for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel"):
         key = next((n for n in usage if kernel in n), None)
@@ -246,6 +260,33 @@ def phase_build():
         mma_ptxas=repr(smem.group(0).splitlines()[-1].strip()) if smem else "not found")
 
 
+def phase_cluster_occupancy():
+    """The fused kernel's clusters: for R = 1 .. 8 CTAs (at Lp = 512 R) at
+    k = 2 and 15 on each tier, the shared memory a CTA (the kernel's layout
+    and ``fused_geometry``'s, which must agree) and how many clusters the
+    card holds at once (``cudaOccupancyMaxActiveClusters``, which must be
+    at least 1)."""
+    from praline_tpu_torch.kernels import build, fused_dp
+
+    lib = build.load_library()
+    for k in (2, 15):
+        for tier in fused_dp.TIERS:
+            rows = []
+            for R in range(1, fused_dp.MAX_CLUSTER + 1):
+                g = fused_dp.fused_geometry(fused_dp.CTA_LANES * R, k)
+                smem = g.smem_bytes if tier == "mma" else g.smem_scalar_bytes
+                kernel_smem = lib.praline_fused_dp_smem(g.W, g.T, k, fused_dp.TIERS.index(tier))
+                if kernel_smem != smem:
+                    raise AssertionError(f"fused smem W={g.W} T={g.T} k={k} {tier}: kernel "
+                                         f"{kernel_smem} B, fused_geometry {smem} B")
+                clusters = fused_dp.max_active_clusters(k, tier, g)
+                if clusters < 1:
+                    raise AssertionError(f"no cluster of {R} CTAs fits at k={k} on {tier}")
+                rows.append(f"R{R}:W{g.W}:{smem}B:{clusters}")
+            say("clusters", kernel="fused_cluster_kernel", k=k, tier=tier, T=fused_dp.BOX_STEPS,
+                R_W_smem_active_clusters=",".join(rows))
+
+
 def same_outputs(got, want, what) -> float:
     """Raise unless every output tensor is equal; the largest score error."""
     import torch
@@ -259,11 +300,13 @@ def same_outputs(got, want, what) -> float:
     return float((got["score"] - want["score"]).abs().max())
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of ``nbytes`` over
-    its memory rate and ``ops`` f32 operations over its f32 rate."""
+    its memory rate and the operations' time, ``ops`` f32 operations over
+    the f32 rate plus ``int8_ops`` tensor-core operations over the int8
+    rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = (ops / F32_OPS_PER_S + int8_ops / INT8_OPS_PER_S) * 1e3
     return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
             else {"bound_ms": t_ops, "bound_by": "operations"})
 
@@ -292,10 +335,16 @@ def output_bytes(lx, ly, out) -> float:
     return rest + (needed_cells(lx, ly) if "tb" in out else 0.0)
 
 
-def producer_ops(lx, ly, A) -> float:
-    """f32 operations of the scores: T = Cx @ S over the true rows of x,
-    then a dot product of A terms and two scales a needed cell."""
-    return float(lx.double().sum()) * A * A * 2 + needed_cells(lx, ly) * (2 * A + 2)
+def producer_ops(lx, ly, A, tier) -> tuple[float, float]:
+    """(f32, tensor-core int8) operations of the scores on ``tier``: T = Cx
+    @ S over the true rows of x, then a needed cell's dot product of A terms
+    and two scales.  On "mma" the dot product runs on the int8 tensor cores
+    and a cell's f32-rate work is the two scales and the recombination of
+    its two limbs (a multiply and an add)."""
+    t_ops, cells = float(lx.double().sum()) * A * A * 2, needed_cells(lx, ly)
+    if tier == "mma":
+        return t_ops + cells * 4, cells * 2 * A
+    return t_ops + cells * (2 * A + 2), 0.0
 
 
 def dp_bound(lx, ly, out) -> dict:
@@ -305,12 +354,14 @@ def dp_bound(lx, ly, out) -> dict:
     return bound(n * 4 + output_bytes(lx, ly, out), n * DP_OPS_PER_CELL)
 
 
-def fused_bound(ops, out) -> dict:
-    """A DP that computes each score in place: its operands read once, its
-    outputs written once, the producer's and the DP's operations."""
+def fused_bound(ops, out, tier) -> dict:
+    """A DP that computes each score in place on ``tier``: its operands read
+    once, its outputs written once, the producer's and the DP's
+    operations."""
     A, lx, ly = ops[0].shape[2], ops[5], ops[6]
+    f32_ops, int8_ops = producer_ops(lx, ly, A, tier)
     return bound(operand_bytes(lx, ly, A) + output_bytes(lx, ly, out),
-                 producer_ops(lx, ly, A) + needed_cells(lx, ly) * DP_OPS_PER_CELL)
+                 f32_ops + needed_cells(lx, ly) * DP_OPS_PER_CELL, int8_ops)
 
 
 def stacked_operands(rng, dev, s, B, bx, by, lo):
@@ -333,7 +384,6 @@ def phase_kernels_vs_plain(dev):
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
-    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
     from praline_tpu_torch.kernels.replay import replay_moves, replay_moves_plain
     from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
@@ -356,9 +406,8 @@ def phase_kernels_vs_plain(dev):
             want = plain_dp(hs_p, lx, ly, (11, 1), "global", tb)
             dp_err = max(dp_err, same_outputs(wavefront_dp(hs_p, lx, ly, (11, 1), "global", tb),
                                               want, f"DP traceback={tb} B={B} {bx}x{by}"))
-            timing["fused_err"] = max(timing["fused_err"], same_outputs(
-                wavefront_dp_fused(*ops, (11, 1), "global", tb), want,
-                f"fused DP traceback={tb} B={B} {bx}x{by}"))
+            timing["fused_err"] = max(timing["fused_err"], fused_vs_plain(
+                ops, (11, 1), "global", want, f"traceback={tb} B={B} {bx}x{by}"))
         walk_args = (want["tb"], want["ti"], want["tj"], want["tcode"], (11, 1), "global", bx + by)
         moves_k, n_k = replay_moves(*walk_args)
         moves_p, n_p = replay_moves_plain(*walk_args)
@@ -368,14 +417,15 @@ def phase_kernels_vs_plain(dev):
         walk_err = float((moves_k.int() - moves_p.int()).abs().max())
         say("kernel=plain", shape=f"B{B}x{bx}x{by}", producer="bit-equal(mma, scalar; NaN-poisoned)",
             dp_scores="bit-equal", dp_traceback="bit-equal(all tb bytes)",
-            fused_scores_and_traceback="bit-equal", walk="bit-equal(moves, counts)")
+            fused_scores_and_traceback="bit-equal(mma, scalar; NaN-poisoned)",
+            walk="bit-equal(moves, counts)")
         if bx == HEADLINE_BUCKET:
             A = s.shape[0]
             # the walk reads one traceback byte a move and writes the move
             moves_bytes = 2 * float(n_k.sum()) + nbytes(n_k)
             timing.update({
                 "scores_bound": bound(operand_bytes(lx, ly, A) + needed_cells(lx, ly) * 4,
-                                      producer_ops(lx, ly, A)),
+                                      *producer_ops(lx, ly, A, "mma")),
                 "dp_bound": dp_bound(lx, ly, plain_dp(hs_p, lx, ly, (11, 1), "global")),
                 "walk_bound": bound(moves_bytes, 0.0),
                 # the library yardstick of the producer: H = (Cx @ S) @ Cy^T, unskewed
@@ -389,6 +439,7 @@ def phase_kernels_vs_plain(dev):
                     lambda: fused_skewed_scores(cx, ivx, cy, ivy, s, tier="mma"), 10),
                 # the store pattern alone (K9 at csrc/scores.cu's blocks) on the same hs shape
                 "scores_hs_pattern_ms": hs_pattern_ms(hs_p),
+                "scores_hs_pattern_512_ms": hs_pattern_ms(hs_p, 512),
                 "scores_plain_ms": cuda_ms(lambda: plain_scores(cx, ivx, cy, ivy, s), 3),
                 "dp_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global"), 10),
                 "dp_plain_ms": cuda_ms(lambda: plain_dp(hs_p, lx, ly, (11, 1), "global"), 1,
@@ -415,11 +466,12 @@ def phase_kernels_vs_plain(dev):
                 want = plain_dp(hs_p, ops[5], ops[6], series, mode, tb)
                 what = f"{mode} {series} traceback={tb} B{B}x{bx}x{by}"
                 same_outputs(wavefront_dp(hs_p, ops[5], ops[6], series, mode, tb), want, "DP " + what)
-                timing["fused_err"] = max(timing["fused_err"], same_outputs(
-                    wavefront_dp_fused(*ops, series, mode, tb), want, "fused " + what))
+                timing["fused_err"] = max(timing["fused_err"],
+                                          fused_vs_plain(ops, series, mode, want, what))
     say("kernel=plain-modes", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
         series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), traceback="both",
-        dp="bit-equal", fused="bit-equal", seconds=round(time.perf_counter() - t0, 3))
+        dp="bit-equal", fused="bit-equal(mma, scalar; NaN-poisoned)",
+        seconds=round(time.perf_counter() - t0, 3))
     return timing
 
 
@@ -448,17 +500,19 @@ def producer_vs_plain(ops, want, tier, what) -> float:
     return bit_equal(out, want, f"producer {tier} at {what}")
 
 
-def hs_pattern_ms(hs) -> float:
-    """The scalar producer's store pattern alone (K9 ``write_blocks`` at
-    ``csrc/scores.cu``'s blocks of 128 lanes x 128 diagonals) over a tensor
-    of ``hs``'s shape."""
+def hs_pattern_ms(hs, diagonals=128) -> float:
+    """The producers' store pattern alone (K9 ``write_blocks`` at blocks of
+    128 lanes x ``diagonals`` diagonals of a problem: 128 is the blocks of
+    ``csrc/scores.cu`` and of ``csrc/scores_mma.cu``) over a tensor of
+    ``hs``'s shape."""
     import torch
 
     from praline_tpu_torch.kernels import probes
 
     out = torch.empty_like(hs)
     xv = torch.tensor([[1.5]], device=hs.device)
-    return cuda_ms(lambda: probes.write_blocks(xv, block=probes.HS_BLOCK,
+    block = (1, diagonals, probes.HS_BLOCK[2])
+    return cuda_ms(lambda: probes.write_blocks(xv, block=block,
                                                out=probes.hs_pattern_view(out)), 10)
 
 
@@ -613,14 +667,25 @@ def phase_probes_vs_plain(dev) -> dict:
     for block in (*bench.WPROBE_BLOCKS.values(), (3, 100, 77)):
         for value in (-0.0, 2.5):
             xv = torch.tensor([[value]], device=dev)
-            bit_equal(probes.write_blocks(xv, small, block),
-                      probes.write_blocks_plain(xv, torch.empty(small, device=dev)),
-                      f"write_blocks {block}")
+            want = probes.write_blocks_plain(xv, torch.empty(small, device=dev))
+            bit_equal(probes.write_blocks(xv, small, block), want, f"write_blocks {block}")
     hs = torch.empty((2 * 300 + 1, 5, 301), device=dev)
     xv = torch.tensor([[2.5]], device=dev)
     bit_equal(probes.write_blocks(xv, block=probes.HS_BLOCK, out=probes.hs_pattern_view(hs)),
               torch.full(hs.shape, 2.5, device=dev).permute(1, 0, 2), "write_blocks hs pattern")
     del hs
+    # An unaligned strided view (rows start 12 bytes past a 16-byte
+    # boundary, ragged heads and tails), -0.0, every TPU block and a ragged
+    # one: the view written, nothing around it.
+    base = torch.full((7, 303, 517), float("nan"), device=dev)
+    xv = torch.tensor([[-0.0]], device=dev)
+    want = base.clone()
+    want[1:6, 2:300, 3:514] = -0.0
+    for block in (*bench.WPROBE_BLOCKS.values(), (2, 37, 101)):
+        base.fill_(float("nan"))
+        probes.write_blocks(xv, block=block, out=base[1:6, 2:300, 3:514])
+        bit_equal(base, want, f"write_blocks {block} on an unaligned view")
+    del base, want
     # The wprobe path's own shapes: every TPU block on its full tensor and
     # the producer's pattern at B64 (the path holds its headline chunk
     # itself, bench.assert_filled), each output poisoned first.
@@ -635,18 +700,21 @@ def phase_probes_vs_plain(dev) -> dict:
         times[name] = cuda_ms(lambda: probes.write_blocks(xv, block=block, out=big), 5)
         err = bit_equal(big, ref, f"write_blocks {name} on {shape}")
     del ref
-    library_ms = cuda_ms(lambda: torch.full(shape, 1.5, device=dev), 3)
+    library_ms = cuda_ms(lambda: torch.full(shape, 1.5, device=dev), 5)
+    again_ms = cuda_ms(lambda: probes.write_blocks(xv, block=(16, 128, 128), out=big), 5)
     del big
     hs = torch.full((2 * HEADLINE_BUCKET + 1, 64, HEADLINE_BUCKET + 1), float("nan"), device=dev)
     probes.write_blocks(xv, block=probes.HS_BLOCK, out=probes.hs_pattern_view(hs))
     bit_equal(hs, probes.write_blocks_plain(xv, torch.empty_like(hs)), "write_blocks hs pattern B64")
     del hs
-    out["write_blocks"] = {"err": err, "ms": times["16x128x128"], "plain_ms": plain_ms,
-                           "library_ms": library_ms, **bound(4 + 4 * float(np.prod(shape)), 0.0)}
+    out["write_blocks"] = {"err": err, "ms": times["16x128x128"], "again_ms": again_ms,
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           **bound(4 + 4 * float(np.prod(shape)), 0.0)}
     say("probe=plain", kernel="write_blocks", small=list(small),
         blocks="|".join(bench.WPROBE_BLOCKS) + "|3x100x77", full_shape=list(shape),
         full_blocks_ms=",".join(f"{k}:{v:.4f}" for k, v in times.items()),
-        hs_pattern=f"B5x301,B64x{HEADLINE_BUCKET}", result="bit-equal",
+        hs_pattern=f"B5x301,B64x{HEADLINE_BUCKET}", unaligned_view="7x303x517[1:6,2:300,3:514]",
+        values="-0.0,2.5,1.5", result="bit-equal",
         seconds=round(time.perf_counter() - t0, 3),
         **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out["write_blocks"].items()})
     return out
@@ -748,7 +816,7 @@ def phase_fused_long(dev, timing):
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
-    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+    from praline_tpu_torch.kernels.fused_dp import fused_geometry, wavefront_dp_fused_plain
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     rng = np.random.default_rng(SEED + 2)
@@ -756,42 +824,141 @@ def phase_fused_long(dev, timing):
         t0 = time.perf_counter()
         ops = stacked_operands(rng, dev, s, B, bx, by, lo)
         want = wavefront_dp_fused_plain(*ops, (11, 1), mode, True)
-        timing["fused_err"] = max(timing["fused_err"], same_outputs(
-            wavefront_dp_fused(*ops, (11, 1), mode, True), want,
-            f"fused {mode} traceback B{B}x{bx}x{by}"))
-        say("fused=plain", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1,
-            traceback="bit-equal(all tb bytes)", seconds=round(time.perf_counter() - t0, 3))
+        what = f"{mode} B{B}x{bx}x{by}"
+        for w in (want, scores_only(want)):
+            timing["fused_err"] = max(timing["fused_err"], fused_vs_plain(ops, (11, 1), mode, w, what))
+        g = fused_geometry(bx + 1, 2)
+        say("fused=plain", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1, ctas=g.R, cta_lanes=g.W,
+            tiers="mma,scalar", result="bit-equal(scores, all tb bytes; NaN-poisoned)",
+            seconds=round(time.perf_counter() - t0, 3))
+
+
+# (B, Lx, Ly, mode, series) of the fused kernel at each cluster size R = 1
+# .. 8: Lx + 1 = 512 R lanes, every CTA full.
+FUSED_CLUSTER_SHAPES = tuple((2, 512 * R - 1, 150, MODES[R % 3], SWEEP_SERIES[R % 3])
+                             for R in range(1, 9))
+# Scores mode with lx <= 700 at 2048 lanes: ranks 2 and 3 of 4 have no lane
+# to compute and run only the barriers.
+FUSED_IDLE_RANKS = (4, 2047, 300, 700)
+
+
+def phase_fused_clusters(dev, timing):
+    """The fused kernel at every cluster size against the plain version,
+    scores and traceback, both tiers, NaN-poisoned; and in scores mode with
+    lx leaving the high ranks no lanes, every mode."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import fused_geometry, wavefront_dp_fused_plain
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 14)
+    t0, sizes = time.perf_counter(), []
+    for B, bx, by, mode, series in FUSED_CLUSTER_SHAPES:
+        ops = stacked_operands(rng, dev, s, B, bx, by, 1)
+        want = wavefront_dp_fused_plain(*ops, series, mode, True)
+        for w in (want, scores_only(want)):
+            timing["fused_err"] = max(timing["fused_err"], fused_vs_plain(
+                ops, series, mode, w, f"{mode} {series} B{B}x{bx}x{by}"))
+        g = fused_geometry(bx + 1, len(series))
+        sizes.append(f"R{g.R}:{bx}x{by}:{mode}:{','.join(map(str, series))}")
+    B, bx, by, cap = FUSED_IDLE_RANKS
+    ops = list(stacked_operands(rng, dev, s, B, bx, by, 1))
+    ops[5] = torch.clamp(ops[5], max=cap)
+    for mode in MODES:
+        want = wavefront_dp_fused_plain(*ops, (11, 1), mode)
+        timing["fused_err"] = max(timing["fused_err"], fused_vs_plain(
+            ops, (11, 1), mode, want, f"{mode} lx<={cap} B{B}x{bx}x{by}"))
+    g = fused_geometry(bx + 1, 2)
+    say("fused=plain-clusters", shapes="|".join(sizes), tiers="mma,scalar",
+        idle_ranks=f"B{B}x{bx}x{by} lx<={cap}: ranks {-(-(cap + 1) // g.W)}-{g.R - 1} of {g.R} "
+                   f"idle, {','.join(MODES)} scores",
+        result="bit-equal(scores, all tb bytes; NaN-poisoned)",
+        seconds=round(time.perf_counter() - t0, 3))
+
+
+def scores_only(want: dict) -> dict:
+    """A plain traceback run's terminals: the scores-only run's outputs
+    (the plain DP's terminals do not depend on its traceback flag)."""
+    return {k: v for k, v in want.items() if k != "tb"}
+
+
+def fused_vs_plain(ops, series, mode, want, what) -> float:
+    """The fused kernel on both score tiers, each into NaN-poisoned outputs
+    (traceback where ``want`` has ``tb``), held bit for bit against the
+    plain version's ``want``; the largest score difference (0.0)."""
+    import torch
+
+    from praline_tpu_torch.kernels import fused_dp
+
+    err = 0.0
+    for tier in fused_dp.TIERS:
+        out = {k: torch.full_like(v, float("nan") if v.is_floating_point()
+                                  else 0xAB if v.dtype == torch.uint8 else -7)
+               for k, v in want.items()}
+        before = fused_dp.launches[tier]
+        fused_dp.wavefront_dp_fused(*ops, series, mode, "tb" in want, tier=tier, out=out)
+        if fused_dp.launches[tier] != before + 1:
+            raise AssertionError(f"fused {tier}: no launch counted")
+        err = max(err, same_outputs(out, want, f"fused {tier} {what}"))
+    return err
+
+
+# (B, bucket, shortest length, traceback runs) of the fused kernel's times:
+# the headline chunk, a merge level past the two-kernel lane cap, and the
+# long32 family's all-pairs bucket (lengths 1800-2397 take the stepped
+# buckets 2047 .. 2431; 2303 holds the middle of them).
+FUSED_TIMES = ((64, 1023, 512, (False, True)), (2, 2047, 1024, (True,)),
+               (32, 2303, 1800, (False,)))
 
 
 def phase_fused_times(dev):
-    """Fused kernel, two-kernel route (producer + DP) and plain composition
-    at the headline shape in both modes and at a merge level's shape."""
+    """The fused kernel on both tiers (in turns: mma, scalar, mma) beside
+    the two-kernel route (producer + DP) where it takes the rows, the
+    tiled kernel over the producer's hs, and, at the two smaller shapes,
+    the plain composition, at FUSED_TIMES."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
-    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+    from praline_tpu_torch.kernels import wavefront
+    from praline_tpu_torch.kernels.fused_dp import (
+        fused_geometry, wavefront_dp_fused, wavefront_dp_fused_plain,
+    )
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
-    from praline_tpu_torch.kernels.wavefront import wavefront_dp
+    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     rng = np.random.default_rng(SEED + 3)
     out = {}
-    for B, bx, lo, modes in ((64, 1023, 512, (False, True)), (2, 2047, 1024, (True,))):
+    for B, bx, lo, modes in FUSED_TIMES:
         t0 = time.perf_counter()
         ops = stacked_operands(rng, dev, s, B, bx, bx, lo)
         tier = producer_tier(ops)
+        if tier != "mma":
+            raise AssertionError(f"the tensor-core predicate refused B{B}x{bx}")
+        g = fused_geometry(bx + 1, 2)
         for tb in modes:
             tag = f"B{B}x{bx}x{bx}_{'traceback' if tb else 'scores'}"
-            fused = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
-            two = cuda_ms(lambda: wavefront_dp(fused_skewed_scores(*ops[:5], tier=tier), ops[5], ops[6],
-                                               (11, 1), "global", tb), 5)
-            fused_again = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
-            plain = cuda_ms(lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", tb), 1,
-                            warm_up=False)
-            out[tag] = {"fused_ms": fused, "fused_again_ms": fused_again,
-                        "two_kernel_ms": two, "plain_ms": plain}
-            out[tag].update(fused_bound(ops, wavefront_dp_fused(*ops, (11, 1), "global", tb)))
+            args = (ops[5], ops[6], (11, 1), "global", tb)
+            def fused(score_tier):
+                return wavefront_dp_fused(*ops, (11, 1), "global", tb, tier=score_tier)
+
+            d = out[tag] = {"ctas": g.R, "cta_lanes": g.W, "fused_ms": cuda_ms(lambda: fused("mma"), 5),
+                            "fused_scalar_ms": cuda_ms(lambda: fused("scalar"), 5)}
+            if bx + 1 <= wavefront.MAX_LANES:
+                d["two_kernel_ms"] = cuda_ms(lambda: wavefront.wavefront_dp(
+                    fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
+            d["producer_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(
+                fused_skewed_scores(*ops[:5], tier=tier), *args), 3)
+            d["fused_again_ms"] = cuda_ms(lambda: fused("mma"), 5)
+            if B * bx <= 64 * 1023:
+                d["plain_ms"] = cuda_ms(lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", tb),
+                                        1, warm_up=False)
+            d.update(fused_bound(ops, fused("mma"), "mma"))
+            d["scalar_bound_ms"] = fused_bound(ops, fused("scalar"), "scalar")["bound_ms"]
         say("fused-times", shape=f"B{B}x{bx}x{bx}", seconds=round(time.perf_counter() - t0, 3),
             **{f"{t}_{k}": (round(v, 4) if isinstance(v, float) else v)
                for t, d in out.items() if t.startswith(f"B{B}x") for k, v in d.items()})
@@ -897,7 +1064,10 @@ def phase_tiled_times(dev):
         out[f"{tag}_producer_tiled_ms"] = cuda_ms(
             lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
         out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
-        out[f"{tag}_fused_ms"] = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb), 5)
+        out[f"{tag}_fused_ms"] = cuda_ms(
+            lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="mma"), 5)
+        out[f"{tag}_fused_scalar_ms"] = cuda_ms(
+            lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="scalar"), 5)
         out[f"{tag}_tiled_again_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
     out["traceback_plain_ms"] = cuda_ms(
         lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", True), 1, warm_up=False)
@@ -930,8 +1100,8 @@ def phase_goldens(dev):
 
     td = ROOT / "testdata"
     for knob in ("1", "0"):
-        before = (fused_dp.launches, sum(fused_scores.launches.values()), wavefront.launches,
-                  replay.launches)
+        before = (sum(fused_dp.launches.values()), sum(fused_scores.launches.values()),
+                  wavefront.launches, replay.launches)
         t0 = time.perf_counter()
         with route_knob(knob):
             for family, tag, mname, kw in GOLDENS:
@@ -943,8 +1113,8 @@ def phase_goldens(dev):
                 if format_alignment_clustal(aln) != (td / f"{family}.{tag}.golden.aln").read_text():
                     raise AssertionError(f"{family}.{tag} (knob {knob}): CLUSTAL differs from the golden")
         fused, scores, dp, walk = (a > b for a, b in zip(
-            (fused_dp.launches, sum(fused_scores.launches.values()), wavefront.launches,
-             replay.launches), before))
+            (sum(fused_dp.launches.values()), sum(fused_scores.launches.values()),
+             wavefront.launches, replay.launches), before))
         if knob == "1" and not (fused and walk):
             raise AssertionError("goldens under PRALINE_FUSED_DP=1 did not launch the fused kernel")
         if knob == "0" and (fused or not (scores and dp and walk)):
@@ -1196,16 +1366,16 @@ def phase_profile(name, fn):
              for e in top]))
 
 
-KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "tiled", "walk", "alu_chains",
-           "smem_chain", "write_blocks")
+KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "tiled",
+           "walk", "alu_chains", "smem_chain", "write_blocks")
 # The kernels each main path must launch: the all-pairs headline on its
 # default route (two-kernel) and forced onto the fused route, the three
 # msa_align runs, the composites (the producer at least twice a chunk: see
 # main), and the utilization and wprobe configs.  Only long8 has rows past
 # the fused kernel's lanes; every other path must keep off the tiled kernel.
 # Every path's profiles are integer counts the tensor-core predicate
-# admits, so every producer launch of a path takes the "mma" tier; the
-# scalar tier is launched and checked by the producer phases alone.
+# admits, so every producer and fused launch of a path takes the "mma"
+# tier; the scalar tiers are launched and checked by the kernel phases alone.
 PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
                 "msa128": ("scores_mma", "dp", "walk"), "long-family": ("fused", "walk"),
                 "long8": ("scores_mma", "tiled", "walk"), "tracks": ("scores_mma", "dp"),
@@ -1218,20 +1388,23 @@ def counted(name, phase):
     its result and the counts read just after."""
     from praline_tpu_torch.kernels import fused_dp, fused_scores, probes, replay, tiled_dp, wavefront
 
-    modules = dict(zip(("dp", "fused", "tiled", "walk"), (wavefront, fused_dp, tiled_dp, replay)))
-    for m in (*modules.values(), fused_scores, probes):
+    modules = dict(zip(("dp", "tiled", "walk"), (wavefront, tiled_dp, replay)))
+    for m in (*modules.values(), fused_dp, fused_scores, probes):
         m.reset_launches()
     result = phase()
     counts = ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
+              | {"fused": sum(fused_dp.launches.values())}
+              | {f"fused_{k}": v for k, v in fused_dp.launches.items()}
               | {k: m.launches for k, m in modules.items()} | probes.launches)
     say("launches", path=name, **counts)
     missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
-    if counts["scores_scalar"]:
-        raise AssertionError(f"{name}: {counts['scores_scalar']} of "
-                             f"{counts['scores_scalar'] + counts['scores_mma']} producer launches "
-                             "left the tensor-core tier")
+    for kernel in ("scores", "fused"):
+        if counts[f"{kernel}_scalar"]:
+            raise AssertionError(f"{name}: {counts[f'{kernel}_scalar']} of "
+                                 f"{counts[f'{kernel}_scalar'] + counts[f'{kernel}_mma']} {kernel} "
+                                 "launches left the tensor-core tier")
     if name != "long8" and counts["tiled"]:
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
     return result, counts
@@ -1248,6 +1421,7 @@ def main() -> int:
     phase_build()
     timing = phase_kernels_vs_plain(dev)
     phase_fused_long(dev, timing)
+    phase_fused_clusters(dev, timing)
     fused_times = phase_fused_times(dev)
     tiled_err = phase_tiled_vs_plain(dev)
     tiled_long = phase_tiled_long(dev)
@@ -1299,6 +1473,7 @@ def main() -> int:
         raise AssertionError(f"JAX or the JAX package was imported: {foreign[:5]}")
 
     headline = fused_times[f"B64x{HEADLINE_BUCKET}x{HEADLINE_BUCKET}_scores"]
+    long32 = fused_times["B32x2303x2303_scores"]
     kernels = [
         {"name": "skewed_scores", "route": "cuda",
          "source": "praline_tpu_torch/csrc/scores_mma.cu",
@@ -1309,6 +1484,7 @@ def main() -> int:
          "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"],
          **timing["scores_bound"], "library_ms": timing["scores_library_ms"],
          "hs_pattern_ms": timing["scores_hs_pattern_ms"],
+         "hs_pattern_512_ms": timing["scores_hs_pattern_512_ms"],
          "variants": {
              "mma": {"source": "praline_tpu_torch/csrc/scores_mma.cu",
                      "launches": launches["scores_mma"],
@@ -1336,7 +1512,18 @@ def main() -> int:
                      "praline_tpu/kernels/scan.py:106 (wavefront_dp_streamed)",
          "launches": launches["fused"], "max_abs_err": timing["fused_err"],
          "ms": headline["fused_ms"], "plain_ms": headline["plain_ms"],
-         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"], "library_ms": None},
+         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"], "library_ms": None,
+         "two_kernel_ms": headline["two_kernel_ms"],
+         "producer_tiled_ms": headline["producer_tiled_ms"],
+         "variants": {
+             "mma": {"launches": launches["fused_mma"],
+                     "ms": [headline["fused_ms"], headline["fused_again_ms"]]},
+             "scalar": {"launches": launches["fused_scalar"], "ms": headline["fused_scalar_ms"],
+                        "bound_ms": headline["scalar_bound_ms"]}},
+         "long32_bucket": {"shape": "B32x2303x2303", "ms": long32["fused_ms"],
+                           "scalar_ms": long32["fused_scalar_ms"],
+                           "producer_tiled_ms": long32["producer_tiled_ms"],
+                           "bound_ms": long32["bound_ms"], "bound_by": long32["bound_by"]}},
         {"name": "wavefront_dp_tiled", "route": "cuda",
          "source": "praline_tpu_torch/csrc/tiled_dp.cu",
          "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled)",

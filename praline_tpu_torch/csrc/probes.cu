@@ -34,12 +34,17 @@
 //                a dependent chain through shared memory runs, the Hopper
 //                counterpart of a VMEM round trip.
 //   write_blocks bytes: the output is written once and nothing is read but
-//                one float.  A block owns one write block and its threads
-//                store consecutive floats of each of its rows, the
-//                instruction pattern of csrc/scores.cu (one f32 store a
-//                thread, 128 threads along the lanes); the caller picks the
-//                block shape, and strides let a view of the port's hs layout
-//                f32[D, B, Lp] be walked as scores.cu walks it.
+//                one float.  A block owns one write block (the blocks in
+//                the order of the grid, the store pattern the probe
+//                measures); each of its 16 warps writes whole rows of it,
+//                16 bytes a thread (st.global.v4: 512 contiguous bytes a
+//                warp instruction), with scalar stores only for the floats
+//                before a row's first 16-byte boundary and after its last.
+//                Sixteen warps a block rather than four keep more blocks'
+//                stores in flight at the grid's ragged last wave.  The
+//                caller picks the block shape, and strides let a view of
+//                the port's hs layout f32[D, B, Lp] be walked as the
+//                producers walk it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,7 +54,7 @@ namespace {
 constexpr int NACC = 4;
 constexpr int ALU_THREADS = 256;
 constexpr int SMEM_THREADS = 256;
-constexpr int WRITE_THREADS = 128;  // scores.cu's TI
+constexpr int WRITE_THREADS = 512;  // 16 warps, each writing whole rows
 
 __device__ __forceinline__ float chain_link(float v) {
   return fmaxf(__fmul_rn(v, 0.999f), __fsub_rn(v, 1.0f));
@@ -91,12 +96,15 @@ __global__ void __launch_bounds__(SMEM_THREADS)
 
 // Axis 2 is contiguous; block q = (q0, q1, q2) of the grid g0 x g1 x g2
 // (q2 fastest, as csrc/scores.cu's grid runs x fastest) writes the elements
-// [q0*b0, +b0) x [q1*b1, +b1) x [q2*b2, +b2), clipped at the edges.
+// [q0*b0, +b0) x [q1*b1, +b1) x [q2*b2, +b2), clipped at the edges: warp w
+// its rows w, w + 16, ..., each as a ragged head, float4 stores and a
+// ragged tail.
 __global__ void __launch_bounds__(WRITE_THREADS)
     write_blocks_kernel(const float* __restrict__ x, float* __restrict__ out,
                         int n0, int n1, int n2, long long s0, long long s1,
                         int b0, int b1, int b2, int g1, int g2) {
   const float v = x[0];
+  const float4 v4 = make_float4(v, v, v, v);
   long long q = blockIdx.x;
   const int q2 = (int)(q % g2);
   q /= g2;
@@ -104,11 +112,18 @@ __global__ void __launch_bounds__(WRITE_THREADS)
   const int q0 = (int)(q / g1);
   const int i0 = q0 * b0, i1 = q1 * b1, i2 = q2 * b2;
   const int e0 = min(b0, n0 - i0), e1 = min(b1, n1 - i1), e2 = min(b2, n2 - i2);
-  for (int a = 0; a < e0; ++a) {
-    for (int r = 0; r < e1; ++r) {
-      float* row = out + (i0 + a) * s0 + (i1 + r) * s1 + i2;
-      for (int l = threadIdx.x; l < e2; l += WRITE_THREADS) row[l] = v;
-    }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int row = warp; row < e0 * e1; row += WRITE_THREADS / 32) {
+    const int a = row / e1, r = row - a * e1;
+    float* p = out + (i0 + a) * s0 + (i1 + r) * s1 + i2;
+    // floats before the first 16-byte boundary (0 to 3)
+    const int head = min(e2, (int)((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 4);
+    if (lane < head) p[lane] = v;
+    const int n4 = (e2 - head) / 4;
+    float4* p4 = reinterpret_cast<float4*>(p + head);
+    for (int c = lane; c < n4; c += 32) p4[c] = v4;
+    const int tail = head + 4 * n4;
+    if (tail + lane < e2) p[tail + lane] = v;
   }
 }
 

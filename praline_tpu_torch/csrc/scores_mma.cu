@@ -10,7 +10,8 @@
 // for 1 <= i <= Lx, 0 <= d-i-1 < Ly, and +0 elsewhere; hs is f32[D, B, Lx+1]
 // with D = Lx + Ly + 1 (kernels/scores.py::skewed_pair_scores).
 //
-// Design.  Two kernels on one stream.
+// Design.  Two kernels on one stream (both, and the tile code of step 2,
+// are in csrc/score_box.cuh, which csrc/fused_dp.cu shares).
 //   prep: one thread a row of Cx or Cy.  A row of x becomes T = Cx @ S,
 //      exact in int32, split into limbs T = 256 * T_hi + T_lo with
 //      T_hi = T >> 8 (s8) and T_lo = T & 255 (u8), 32 bytes each (the
@@ -93,17 +94,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "score_box.cuh"
+
 namespace {
 
-constexpr int MAXA = 32;            // largest alphabet: one k-step of 32 bytes
+constexpr int MAXA = BOX_MAXA;      // largest alphabet: one k-step of 32 bytes
 constexpr int TI = 128;             // lanes a block
 constexpr int TD = 64;              // diagonals a box
 constexpr int CHUNKS = 2;           // boxes a block
 constexpr int NT = 256;             // threads a block: warp w owns rows 16w..16w+15
 constexpr int W = TI + TD;          // band columns (TI + TD - 1 used), 24 n-tiles
 constexpr int SS = TI + 4;          // row stride of the staged box, in floats
-constexpr int KW = MAXA / 4;        // 32-bit words of one 32-byte operand row
-constexpr int PREP_NT = 128;        // threads a block of the prep kernel
 static_assert(SS % 32 == 4, "conflict-free fragment stores, 16-byte rows");
 static_assert(NT / 32 * 16 == TI, "one 16-row m-tile a warp");
 static_assert(W % 8 == 0 && TI == 32 * 4, "whole n-tiles; one warp of float4 a diagonal");
@@ -115,139 +116,6 @@ struct Smem {
   uint32_t band[2][W * KW];    // Cy band, u8, 32 bytes a column; two buffers
   float ivy[2][W];
 };
-
-__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%10,%10,%10};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
-}
-
-__device__ __forceinline__ void mma_u8u8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%10,%10,%10};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
-}
-
-// cp.async of `bytes` (4 or 16) from global to shared; where `valid` is
-// false nothing is read (src-size 0: the destination is zero-filled).
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// The A fragment of m16n8k32 (8-bit, row major) for rows m0..m0+15 of a
-// 32-byte-row operand: a0 row g bytes 4t.., a1 row g+8, a2 row g bytes
-// 16+4t.., a3 row g+8.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* op, int m0, int g,
-                                       int t) {
-  a[0] = op[(m0 + g) * KW + t];
-  a[1] = op[(m0 + g + 8) * KW + t];
-  a[2] = op[(m0 + g) * KW + 4 + t];
-  a[3] = op[(m0 + g + 8) * KW + 4 + t];
-}
-
-// One thread a row: rows of x (item < B * Lx) to T's limbs and flag, rows
-// of y to u8 counts.
-__global__ void __launch_bounds__(PREP_NT) skewed_scores_mma_prep_kernel(
-    const float* __restrict__ cx, const float* __restrict__ cy, const float* __restrict__ s,
-    uint4* __restrict__ xlo, uint4* __restrict__ xhi, unsigned char* __restrict__ xwide,
-    uint4* __restrict__ ybytes, long long nx, long long ny, int A) {
-  // S as int32, zero padded to MAXA x MAXA: row a is 8 int4 (broadcast reads)
-  __shared__ int4 s_sh[MAXA * MAXA / 4];
-  int* s_int = reinterpret_cast<int*>(s_sh);
-  for (int idx = threadIdx.x; idx < MAXA * MAXA; idx += PREP_NT) {
-    const int a = idx / MAXA, col = idx % MAXA;
-    s_int[idx] = a < A && col < A ? __float2int_rn(s[a * A + col]) : 0;
-  }
-  __syncthreads();
-  const long long item = (long long)blockIdx.x * PREP_NT + threadIdx.x;
-  if (item < nx) {
-    const float* row = cx + item * A;
-    // T's row, a row of S at a time: A x (8 loads, 32 multiply-adds)
-    int t[MAXA];
-#pragma unroll
-    for (int col = 0; col < MAXA; ++col) t[col] = 0;
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (a >= A) break;  // uniform
-      const int c = __float2int_rn(row[a]);
-#pragma unroll
-      for (int q = 0; q < MAXA / 4; ++q) {
-        const int4 sv = s_sh[a * (MAXA / 4) + q];
-        t[4 * q] += c * sv.x;
-        t[4 * q + 1] += c * sv.y;
-        t[4 * q + 2] += c * sv.z;
-        t[4 * q + 3] += c * sv.w;
-      }
-    }
-    uint32_t lo[KW], hi[KW];
-    bool wide = false;
-#pragma unroll
-    for (int w = 0; w < KW; ++w) {
-      lo[w] = 0;
-      hi[w] = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int v = t[4 * w + k];
-        wide |= v > 127 || v < -127;
-        lo[w] |= ((uint32_t)v & 0xffu) << (8 * k);
-        hi[w] |= ((uint32_t)(v >> 8) & 0xffu) << (8 * k);
-      }
-    }
-    xlo[2 * item] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    xlo[2 * item + 1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    xhi[2 * item] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    xhi[2 * item + 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-    xwide[item] = wide;
-  } else if (item < nx + ny) {
-    const long long j = item - nx;
-    const float* row = cy + j * A;
-    uint32_t v[KW];
-#pragma unroll
-    for (int w = 0; w < KW; ++w) {
-      v[w] = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (4 * w + k < A) v[w] |= (__float2uint_rn(row[4 * w + k]) & 0xffu) << (8 * k);
-    }
-    ybytes[2 * j] = make_uint4(v[0], v[1], v[2], v[3]);
-    ybytes[2 * j + 1] = make_uint4(v[4], v[5], v[6], v[7]);
-  }
-}
-
-// Start the copy of one box's band: columns j = jbase .. jbase + W - 1 of
-// problem b (u8 rows of 32 bytes, two 16-byte pieces a column) and their
-// inverses; columns off the problem are zero-filled (their cells are +0).
-__device__ __forceinline__ void start_band(Smem& sm, int buf, const uint4* __restrict__ yb,
-                                           const float* __restrict__ ivyb, int jbase, int Ly,
-                                           int tid) {
-  for (int p = tid; p < 2 * W; p += NT) {
-    const int j = jbase + p / 2;
-    const bool ok = j >= 0 && j < Ly;
-    copy_async<16>(&sm.band[buf][4 * p], ok ? yb + 2 * j + p % 2 : yb, ok);
-  }
-  for (int r = tid; r < W; r += NT) {
-    const int j = jbase + r;
-    const bool ok = j >= 0 && j < Ly;
-    copy_async<4>(&sm.ivy[buf][r], ok ? ivyb + j : ivyb, ok);
-  }
-  copy_commit();
-}
 
 __global__ void __launch_bounds__(NT, 4) skewed_scores_mma_kernel(
     const unsigned char* __restrict__ scratch_x, const float* __restrict__ inv_x,
@@ -284,7 +152,7 @@ __global__ void __launch_bounds__(NT, 4) skewed_scores_mma_kernel(
     copy_async<16>(&sm.a_hi[4 * p], xhi + 2 * row + p % 2, ok);
     if (p % 2 == 0 && ok) wide |= xwide[row] != 0;
   }
-  start_band(sm, 0, yb, ivyb, dfirst + jshift, Ly, tid);
+  start_band(sm.band[0], sm.ivy[0], yb, ivyb, dfirst + jshift, W, Ly, tid, NT);
 
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -299,12 +167,8 @@ __global__ void __launch_bounds__(NT, 4) skewed_scores_mma_kernel(
     row_ok[k] = i >= 1 && i <= Lx;
     ivx[k] = row_ok[k] ? inv_x[(size_t)b * Lx + i - 1] : 1.0f;
   }
-  // The n-tiles whose columns hold cells of the box for rows m0..m0+15:
-  // c in [TI - 16 - m0, TI - 1 - m0 + TD).
-  const int ntile_lo = (TI - 16 - m0) / 8;
   const bool rows_all = i0 + m0 >= 1 && i0 + m0 + 15 <= Lx;
   const bool rows_none = i0 + m0 + 15 < 1 || i0 + m0 > Lx;
-  const int ntile_hi = min(W / 8, (TI - 1 - m0 + TD + 7) / 8);
 
   copy_wait_all();
   const bool two_pass = __syncthreads_or(wide);
@@ -321,58 +185,12 @@ __global__ void __launch_bounds__(NT, 4) skewed_scores_mma_kernel(
       __syncthreads();  // the band has landed, and the copy of hk is done
     }
     // 1. The next box's band into the other buffer, in flight meanwhile.
-    if (chunk + 1 < CHUNKS && d0 + TD < D) start_band(sm, buf ^ 1, yb, ivyb, d0 + TD + jshift, Ly, tid);
+    if (chunk + 1 < CHUNKS && d0 + TD < D)
+      start_band(sm.band[buf ^ 1], sm.ivy[buf ^ 1], yb, ivyb, d0 + TD + jshift, W, Ly, tid, NT);
     // 2. The rectangle's tiles on the tensor cores, each element scaled
     //    into its place in hk.
-    const int jbase = d0 + jshift;
-    const uint32_t* band = sm.band[buf];
-    const float* ivy = sm.ivy[buf];
-    for (int n = ntile_lo; n < ntile_hi; ++n) {
-      const int n0 = n * 8;
-      const int jlo = jbase + n0;  // the tile's columns are j = jlo .. jlo + 7
-      // Warp-uniform classes: no cell of the problem (every value +0, no
-      // product), every element a cell of the problem, or a mix.
-      const bool none = rows_none || jlo + 7 < 0 || jlo >= Ly;
-      const bool all = rows_all && jlo >= 0 && jlo + 7 < Ly;
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (!none) {
-        const uint32_t b0 = band[(n0 + g) * KW + t4];
-        const uint32_t b1 = band[(n0 + g) * KW + 4 + t4];
-        int h[4];
-        if (two_pass) {
-          int ph[4], pl[4];
-          mma_s8u8(ph, ahi, b0, b1);
-          mma_u8u8(pl, alo, b0, b1);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) h[k] = ph[k] * 256 + pl[k];
-        } else {
-          mma_s8u8(h, alo, b0, b1);
-        }
-        // c0, c1: row g, columns 2t, 2t+1; c2, c3: row g+8.
-        const float2 iv = *reinterpret_cast<const float2*>(&ivy[n0 + 2 * t4]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int j = jlo + 2 * t4 + (k % 2);
-          if (all || (row_ok[k / 2] && j >= 0 && j < Ly))
-            v[k] = __fmul_rn(__fmul_rn(__int2float_rn(h[k]), ivx[k / 2]), k % 2 ? iv.y : iv.x);
-        }
-      }
-      // element (m, c) to cell (dd = c + m - TI + 1, lane m) where dd is in the box
-      const int dd0 = n0 + 2 * t4 + m0 + g - TI + 1;  // of element k = 0
-      float* dst = &sm.hk[dd0 * SS + m0 + g];
-      if (n0 + m0 - TI + 1 >= 0 && n0 + m0 - TI + 1 + 22 < TD) {  // the whole tile in the box
-        dst[0] = v[0];
-        dst[SS] = v[1];
-        dst[8 * SS + 8] = v[2];
-        dst[9 * SS + 8] = v[3];
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int dd = dd0 + (k % 2) + 8 * (k / 2);
-          if (dd >= 0 && dd < TD) dst[(k % 2) * SS + (k / 2) * (8 * SS + 8)] = v[k];
-        }
-      }
-    }
+    box_rows(sm.hk, SS, TI, TD, sm.band[buf], sm.ivy[buf], alo, ahi, two_pass, m0, g, t4, ivx,
+             row_ok, rows_all, rows_none, d0 + jshift, Ly);
     __syncthreads();
     // 3. The box to hs: warp w stores diagonals w, w + 8, ...
     const int dmax = min(TD, D - d0);
@@ -412,16 +230,8 @@ extern "C" int praline_skewed_scores_mma(const float* cx, const float* inv_x,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // scratch: y's u8 rows, then x's low limbs, high limbs and flags
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  uint4* ybytes = reinterpret_cast<uint4*>(base);
-  unsigned char* xs = base + 32LL * B * Ly;
-  uint4* xlo = reinterpret_cast<uint4*>(xs);
-  uint4* xhi = xlo + 2LL * B * Lx;
-  unsigned char* xwide = xs + 64LL * B * Lx;
-  const long long nx = (long long)B * Lx, ny = (long long)B * Ly;
-  skewed_scores_mma_prep_kernel<<<(unsigned)((nx + ny + PREP_NT - 1) / PREP_NT), PREP_NT, 0,
-                                  st>>>(cx, cy, s, xlo, xhi, xwide, ybytes, nx, ny, A);
-  cudaError_t err = cudaGetLastError();
+  const MmaOperands op = mma_operands(scratch, B, Lx, Ly);
+  cudaError_t err = (cudaError_t)launch_mma_prep(cx, cy, s, op, B, Lx, Ly, A, st);
   if (err != cudaSuccess) return (int)err;
 
   const int smem = (int)sizeof(Smem);
@@ -434,7 +244,7 @@ extern "C" int praline_skewed_scores_mma(const float* cx, const float* inv_x,
   const int D = Lx + Ly + 1;
   if ((D + TD * CHUNKS - 1) / (TD * CHUNKS) > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((Lp + TI - 1) / TI, (D + TD * CHUNKS - 1) / (TD * CHUNKS), B);
-  skewed_scores_mma_kernel<<<grid, NT, smem, st>>>(xs, inv_x, ybytes, inv_y, hs, B, Lx, Ly,
-                                                    vec);
+  skewed_scores_mma_kernel<<<grid, NT, smem, st>>>(
+      reinterpret_cast<const unsigned char*>(op.xlo), inv_x, op.ybytes, inv_y, hs, B, Lx, Ly, vec);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // The anti-diagonal M/Ix/Iy recurrence of the Hopper DP kernels, written
 // once and included by all of them: csrc/wavefront_dp.cu reads each cell's
-// score from the skewed tensor hs, csrc/fused_dp.cu computes it in place,
-// and csrc/tiled_dp.cu walks the same recurrence one lane tile at a time
-// with either source.  The score source is a functor `score(d, i)` giving
+// score from the skewed tensor hs, csrc/tiled_dp.cu walks the same
+// recurrence one lane tile at a time with hs or scores computed in place,
+// and csrc/fused_dp.cu walks it in lane tiles on a thread-block cluster,
+// its scores computed on chip.  The score source is a functor `score(d, i)` giving
 // cell (i, d - i)'s entry of hs[d, b, i] (kernels/scores.py::
 // skewed_pair_scores); everything else is this file.
 //
@@ -19,7 +20,8 @@
 //                   to lane i + 1 (export_x, shfl_in) and one diagonal step
 //                   (step) that takes the left neighbour's NX values;
 //   Border          the border run cost of a diagonal, summed in f32;
-//   reduce_terminal the block-wide pick of the semiglobal / local terminal.
+//   block_best      the block-wide pick of the semiglobal / local terminal
+//                   candidate, and reduce_terminal, which writes it.
 //
 // wavefront_block (below) is the whole-row walk: one thread block per
 // problem; lane i of a diagonal (cell (i, d - i)) belongs to thread i % nt,
@@ -30,7 +32,7 @@
 // stay bit): they move by __shfl_up_sync inside a warp, and the one lane at
 // each warp's edge reads them from a double-buffered shared-memory slot
 // written before the diagonal's single __syncthreads.  All per-lane state
-// stays in registers (deep series and Q = 4 spill to local memory).
+// stays in registers (deep series spill to local memory).
 //
 // In scores mode the walk stops at diagonal lx + ly and lanes past lx are
 // not computed: neither can reach a terminal
@@ -449,12 +451,11 @@ struct Carries {
   }
 };
 
-// Block-wide terminal reduction of the semiglobal / local candidates (each
+// Block-wide pick of the semiglobal / local terminal candidates (each
 // candidate cell is unique, so the lexicographic best does not depend on the
-// order in which the threads met them).  Every thread of the block calls it.
-__device__ __forceinline__ void reduce_terminal(Cand best, int mode, int b, const Outs& out,
-                                                Cand* red) {
-  const bool local = mode == LOCAL;
+// order in which the threads met them); the block's best in thread 0.  Every
+// thread of the block calls it; red holds a candidate a warp.
+__device__ __forceinline__ Cand block_best(Cand best, bool local, Cand* red) {
   const int t = threadIdx.x, warp = t >> 5, wl = t & 31, nw = blockDim.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -468,15 +469,27 @@ __device__ __forceinline__ void reduce_terminal(Cand best, int mode, int b, cons
   }
   if (wl == 0) red[warp] = best;
   __syncthreads();
-  if (t == 0) {
+  if (t == 0)
     for (int w = 1; w < nw; ++w)
       if (beats(red[w], best, local)) best = red[w];
-    out.score[b] = best.v;
-    out.length[b] = best.l;
-    out.ti[b] = best.i;
-    out.tj[b] = best.j;
-    out.tcode[b] = best.c;
-  }
+  return best;
+}
+
+// The problem's terminal, written by one thread.
+__device__ __forceinline__ void write_terminal(const Cand& best, int b, const Outs& out) {
+  out.score[b] = best.v;
+  out.length[b] = best.l;
+  out.ti[b] = best.i;
+  out.tj[b] = best.j;
+  out.tcode[b] = best.c;
+}
+
+// Block-wide terminal reduction: block_best, written by thread 0.  Every
+// thread of the block calls it.
+__device__ __forceinline__ void reduce_terminal(Cand best, int mode, int b, const Outs& out,
+                                                Cand* red) {
+  best = block_best(best, mode == LOCAL, red);
+  if (threadIdx.x == 0) write_terminal(best, b, out);
 }
 
 // The DP of problem b on one block of blockDim.x threads (Q lanes each).
@@ -539,8 +552,8 @@ __device__ __forceinline__ void wavefront_block(
 }
 
 // Instantiates `Kernel::launch<K, Q>` for the runtime level count k
-// (K = 1 .. MAXK) and lanes per thread q (Q = 1, 2 or, where the kernel
-// takes it, 4).
+// (K = 1 .. MAXK) and lanes per thread q (Q = 1 or, where the kernel takes
+// it, 2).
 template <class Kernel, int K = 1>
 int launch_levels(int k, int q, const typename Kernel::Args& a) {
   if constexpr (K < MAXK) {
@@ -550,7 +563,6 @@ int launch_levels(int k, int q, const typename Kernel::Args& a) {
   if constexpr (Kernel::MAXQ >= 2) {
     if (q == 2) return Kernel::template launch<K, 2>(a);
   }
-  if constexpr (Kernel::MAXQ >= 4) return Kernel::template launch<K, 4>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -119,9 +119,11 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p,
         ]
         lib.praline_fused_dp.restype = i
-        lib.praline_fused_dp.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p,
-        ]
+        lib.praline_fused_dp.argtypes = [*[p] * 8, *[i] * 11, *[p] * 8]
+        lib.praline_fused_dp_clusters.restype = i
+        lib.praline_fused_dp_clusters.argtypes = [i, i, i, i, i, p]
+        lib.praline_fused_dp_smem.restype = i
+        lib.praline_fused_dp_smem.argtypes = [i, i, i, i]
         lib.praline_tiled_dp_hs.restype = i
         lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 8, *[p] * 8]
         lib.praline_tiled_dp_rows.restype = i

@@ -16,10 +16,12 @@ Replace the TPU kernels of the repository's benchmark:
   so its rate is what a dependent chain through shared memory sustains.
 - :func:`write_blocks` for ``tools/onchip_wprobe.py::make_writer`` (K9):
   every element of ``out`` set to ``x[0, 0]``, one write block
-  ``block = (pb, rows, lanes)`` a CUDA block.  Bound: bytes (the output
-  written once).  ``out`` may be a strided view whose last axis is
-  contiguous, so that a view of the port's ``hs`` layout ``f32[D, B, Lp]``
-  is written as ``csrc/scores.cu`` writes it (:func:`hs_pattern_view`).
+  ``block = (pb, rows, lanes)`` a CUDA block, in the grid's order.  Bound:
+  bytes (the output written once).  ``out`` may be a strided view whose
+  last axis is contiguous, so that a view of the port's ``hs`` layout
+  ``f32[D, B, Lp]`` is written as the producers write it
+  (:func:`hs_pattern_view`).  Each warp writes whole rows, 16 bytes a
+  thread.
 
 The TPU kernels' blocking (one VMEM-resident block, the grid steps) is not
 carried over: each kernel takes any shape and its own grid.  The plain
@@ -133,8 +135,8 @@ def smem_chain(x: torch.Tensor, links: int) -> torch.Tensor:
 def write_blocks(x: torch.Tensor, shape=None, block=(16, 128, 128), *, out=None) -> torch.Tensor:
     """Every element of a 3-d f32 tensor set to ``x[0, 0]``: ``out``
     (a view whose last axis is contiguous), or a new tensor of ``shape``.
-    On the card each block of 128 threads writes one ``block = (pb, rows,
-    lanes)`` write block, clipped at the edges."""
+    On the card each CUDA block writes one ``block = (pb, rows, lanes)``
+    write block, clipped at the edges."""
     if out is None:
         out = torch.empty(tuple(shape), dtype=torch.float32, device=x.device)
     if out.dim() != 3 or out.dtype != torch.float32 or out.device != x.device:

@@ -237,14 +237,14 @@ def msa_align(
             f"backend {config.backend!r} is the JAX package's; the PyTorch port "
             "runs backend 'auto' (or 'oracle')"
         )
-    if config.mesh_shape:
-        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md, port queue)")
     if not sequences:
         raise ValueError("no sequences")
     if len(sequences) == 1:
         return Alignment.single(sequences[0])
     if config.backend == "oracle":
         return oracle_msa(sequences, matrix, config, extra_slaves=extra_slaves, on_tree=on_tree)
+    if config.mesh_shape:
+        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md, port queue)")
 
     dev = resolve_device(device)
     ckpt = None

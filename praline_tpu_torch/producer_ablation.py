@@ -50,7 +50,7 @@ VARIANTS = {
     "kernel": [],
     "no_store": [("    if (vec) {", "    if (Lp < 0) {"),
                  ("    } else {\n      for (int dd = warp;", "    } else if (Lp < 0) {\n      for (int dd = warp;")],
-    "no_mma": [("for (int n = ntile_lo; n < ntile_hi; ++n) {", "for (int n = ntile_lo; n < ntile_lo; ++n) {")],
+    "no_mma": [("    box_rows(sm.hk, SS, TI, TD,", "    if (Lp < 0) box_rows(sm.hk, SS, TI, TD,")],
     "prep_only": [("  skewed_scores_mma_kernel<<<", "  if (B < 0) skewed_scores_mma_kernel<<<")],
     **{f"boxes_{n}": [(CHUNKS_LINE, f"constexpr int CHUNKS = {n};")] for n in (1, 4, 8)},
 }
@@ -75,8 +75,8 @@ def build_variants() -> dict:
         src = OUT_DIR / f"{name}.cu"
         src.write_text(variant_source(VARIANTS[name]))
         so = OUT_DIR / f"{name}.so"
-        res = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so),
-                              str(src)], capture_output=True, text=True)
+        res = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                              "-shared", "-o", str(so), str(src)], capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{res.stderr}")
         lib = ctypes.CDLL(str(so))

@@ -199,15 +199,18 @@ def test_batched_aligner_cuda_equals_cpu(cuda, traceback):
 
 
 def fused_vs_plain(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode, traceback):
-    before = fused_dp.launches
-    got = fused_dp.wavefront_dp_fused(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode, traceback)
-    torch.cuda.synchronize()
-    assert fused_dp.launches == before + 1
+    """The cluster kernel on both score tiers against the plain version."""
     want = fused_dp.wavefront_dp_fused_plain(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode,
                                              traceback)
-    assert set(got) == set(want)
-    for key in want:
-        assert torch.equal(got[key], want[key]), key
+    for tier in fused_dp.TIERS:
+        before = dict(fused_dp.launches)
+        got = fused_dp.wavefront_dp_fused(cx, ivx, cy, ivy, s, lx, ly, gap_series, mode,
+                                          traceback, tier=tier)
+        torch.cuda.synchronize()
+        assert fused_dp.launches[tier] == before[tier] + 1
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (tier, key)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -222,7 +225,7 @@ def test_fused_matches_plain(cuda, mode, gap_series, traceback):
 @pytest.mark.parametrize("bx,by,mode", [(3000, 300, "global"), (3000, 300, "local"),
                                         (4095, 200, "semiglobal")])
 def test_fused_rows_past_the_two_kernel_cap(cuda, bx, by, mode):
-    """Lp 3001 and 4096: three and four lanes per thread."""
+    """Lp 3001 and 4096: clusters of six and eight CTAs."""
     ops = operands(bx + by, 2, bx, by, cuda)
     for traceback in (False, True):
         fused_vs_plain(*ops, (11, 1), mode, traceback)
@@ -238,7 +241,7 @@ def test_fused_long_y(cuda):
 def test_fused_refuses_past_its_lane_cap(cuda):
     ops = operands(4096, 1, 4096, 31, cuda)
     with pytest.raises(NotImplementedError):
-        fused_dp.wavefront_dp_fused(*ops, (11, 1), "global")
+        fused_dp.wavefront_dp_fused(*ops, (11, 1), "global", tier="mma")
 
 
 @pytest.mark.parametrize("traceback", [False, True])

@@ -13,6 +13,12 @@ DP).  It is held against the three JAX functions the Hopper kernel
   long ``Ly``, its per-chunk traceback bytes joined;
 - ``wavefront_dp_streamed``.
 
+On the card the kernel runs a problem on a thread-block cluster whose
+schedule is the tiled walk's (``kernels/fused_dp.py::fused_geometry``):
+its plain twin, ``wavefront_dp_tiled_plain`` over the in-place rows at a
+scaled-down geometry, is held against JAX ``wavefront_dp_fused`` too, and
+the geometry against its bounds at every lane count and series.
+
 Tolerance 0.  The CUDA kernel is held against the plain version in
 ``test_torch_cuda.py``.
 """
@@ -29,6 +35,7 @@ from praline_tpu.kernels.chunked import wavefront_dp_chunked as jax_chunked
 from praline_tpu.kernels.fused_dp import wavefront_dp_fused as jax_fused
 from praline_tpu.kernels.scan import wavefront_dp_streamed as jax_streamed
 from praline_tpu_torch.kernels import fused_dp
+from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled_plain
 
 torch.set_num_threads(1)
 
@@ -60,9 +67,10 @@ def operands(seed, B, Lx, Ly):
     return cx, ivx, cy, ivy, B62.as_f32(), lx, ly
 
 
-def port(ops, gap_series, mode, traceback):
-    before = fused_dp.launches
-    out = fused_dp.wavefront_dp_fused(*map(torch.from_numpy, ops), gap_series, mode, traceback)
+def port(ops, gap_series, mode, traceback, tier="mma"):
+    before = dict(fused_dp.launches)
+    out = fused_dp.wavefront_dp_fused(*map(torch.from_numpy, ops), gap_series, mode, traceback,
+                                      tier=tier)
     assert fused_dp.launches == before  # CPU tensors take the plain version
     return {k: v.numpy() for k, v in out.items()}
 
@@ -117,8 +125,64 @@ def test_plain_matches_jax_streamed_scan(mode, gap_series):
 
 
 def test_lane_cap_is_the_kernels_block():
-    assert fused_dp.MAX_LANES_FUSED == fused_dp.THREADS * fused_dp.LANES_PER_THREAD == 4096
+    assert fused_dp.MAX_LANES_FUSED == fused_dp.CTA_LANES * fused_dp.MAX_CLUSTER == 4096
     assert [fused_dp.padded_alphabet(a) for a in (4, 5, 23, 24, 32)] == [4, 8, 24, 24, 32]
+
+
+def test_geometry_fits_the_card_at_every_lane_count():
+    """Every Lp the kernel takes, at every series: a portable cluster (at
+    most 8 CTAs) of warp-wide CTAs of at most 512 lanes that covers the
+    row with lanes in every CTA, boxes of at most 32 diagonals, and
+    shared memory within the H100's 232,448 bytes a CTA on both tiers."""
+    for k in range(1, fused_dp.MAX_LEVELS + 1):
+        for Lp in range(2, fused_dp.MAX_LANES_FUSED + 1):
+            g = fused_dp.fused_geometry(Lp, k)
+            assert 1 <= g.R <= 8 and g.R * g.W >= Lp > (g.R - 1) * g.W
+            assert g.W % 32 == 0 and 32 <= g.W <= fused_dp.CTA_LANES
+            assert 8 <= g.T <= 32 and g.T % 8 == 0
+            assert g.smem_scalar_bytes <= g.smem_bytes <= fused_dp.SMEM_PER_CTA
+    for Lp, k, want in ((1024, 2, (512, 2, 32)), (4096, 15, (512, 8, 32)), (600, 1, (320, 2, 32))):
+        g = fused_dp.fused_geometry(Lp, k)
+        assert (g.W, g.R, g.T) == want
+    with pytest.raises(ValueError):
+        fused_dp.fused_geometry(fused_dp.MAX_LANES_FUSED + 1, 2)
+
+
+@pytest.mark.parametrize("mode,gap_series", [("global", (11, 1)), ("semiglobal", (13, 7, 1)),
+                                             ("local", (5,))])
+@pytest.mark.parametrize("traceback", [False, True])
+def test_cluster_schedule_twin_matches_jax_fused_kernel(mode, gap_series, traceback):
+    """The kernel's schedule scaled down: three CTAs of 32 lanes (Lp =
+    81), boxes of 8 diagonals, the edge handed from tile to tile, against
+    K5 in interpret mode."""
+    ops = operands(seed_of("cluster", mode, gap_series), 2, 80, 50)
+    want = jax_fused(*map(jnp.asarray, ops), gap_series=gap_series, mode=mode,
+                     lengths=True, traceback=traceback, interpret=True)
+    t = tuple(map(torch.from_numpy, ops))
+    got = wavefront_dp_tiled_plain(t[:5], t[5], t[6], gap_series, mode, traceback,
+                                   tile_lanes=32, steps_per_visit=8)
+    got = {k: v.numpy() for k, v in got.items()}
+    assert_same(got, want, TERMINALS + (("tcode",) if traceback else ()))
+    if traceback:
+        T, B, Lp = got["tb"].shape
+        assert -(-Lp // 32) == 3
+        assert np.array_equal(got["tb"], np.asarray(want["tb"])[:T, :B, :Lp])
+
+
+def test_tiers_and_outputs_on_the_plain_path():
+    """Both tiers give the plain version's outputs on CPU tensors, into
+    ``out`` where it is given; an unknown tier raises."""
+    ops = operands(seed_of("tiers"), 2, 9, 12)
+    want = port(ops, (11, 1), "local", True, "scalar")
+    assert_same(port(ops, (11, 1), "local", True, "mma"), want, list(want))
+    t = tuple(map(torch.from_numpy, ops))
+    out = {k: torch.from_numpy(np.full_like(v, -7)) for k, v in want.items()}
+    got = fused_dp.wavefront_dp_fused(*t, (11, 1), "local", True, tier="mma", out=out)
+    assert got is out
+    assert_same({k: v.numpy() for k, v in out.items()}, want, list(want))
+    with pytest.raises(ValueError, match="tier"):
+        fused_dp.wavefront_dp_fused(*t, (11, 1), "local", tier="fast")
+    assert set(fused_dp.launches) == {"mma", "scalar"}
 
 
 def test_wrapper_refuses_modes_on_the_plain_path_too():

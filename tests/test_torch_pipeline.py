@@ -102,3 +102,31 @@ def test_msa_align_refuses_jax_backends_and_meshes():
         msa_align(seqs, m, PralineConfig(backend="xla"), device="cpu")
     with pytest.raises(NotImplementedError):
         msa_align(seqs, m, PralineConfig(mesh_shape=(2,)), device="cpu")
+
+
+def test_msa_align_with_a_mesh_checks_its_input_first(tmp_path):
+    """With ``mesh_shape`` set, the empty-input check, the one-sequence
+    return and the oracle backend come before the mesh, as in the JAX
+    package's ``msa_align``: both raise ValueError on no sequences and
+    return the same bytes for one sequence and under backend "oracle"."""
+    import praline_tpu as jax_pkg
+    from praline_tpu.msa import msa_align as jax_msa_align
+
+    fasta = tmp_path / "in.fasta"
+    fasta.write_text(">a\nMKVLAWGYPVED\n>b\nMKVLAWGYPED\n>c\nMKVINWGYPVED\n")
+    seqs = load_sequence_fasta(fasta, ALPHABET_AA)
+    jseqs = jax_pkg.load_sequence_fasta(fasta, jax_pkg.ALPHABET_AA)
+    m, jm = builtin_score_matrix("blosum62"), jax_pkg.builtin_score_matrix("blosum62")
+    cfg = PralineConfig(mesh_shape=(2,))
+    jcfg = jax_pkg.PralineConfig(mesh_shape=(2,))
+    with pytest.raises(ValueError, match="no sequences"):
+        msa_align([], m, cfg, device="cpu")
+    with pytest.raises(ValueError, match="no sequences"):
+        jax_msa_align([], jm, jcfg)
+    one = msa_align(seqs[:1], m, cfg, device="cpu")
+    assert format_alignment_fasta(one) == jax_pkg.format_alignment_fasta(
+        jax_msa_align(jseqs[:1], jm, jcfg))
+    oracle = PralineConfig(mesh_shape=(2,), backend="oracle")
+    joracle = jax_pkg.PralineConfig(mesh_shape=(2,), backend="oracle")
+    assert format_alignment_fasta(msa_align(seqs, m, oracle, device="cpu")) == \
+        jax_pkg.format_alignment_fasta(jax_msa_align(jseqs, jm, joracle))

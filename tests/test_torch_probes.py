@@ -172,3 +172,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         probes.write_blocks(x, (2, 2))
     probes.reset_launches()
     assert probes.launches == {"alu_chains": 0, "smem_chain": 0, "write_blocks": 0}
+
+
+def test_write_blocks_checks_its_arguments_and_writes_only_the_view():
+    """The wrapper's checks, and its plain version on an unaligned strided
+    view: every element of the view becomes ``x[0, 0]`` (-0.0 stays -0.0),
+    nothing around it changes."""
+    one = torch.ones(1, 1)
+    with pytest.raises(ValueError, match="f32"):
+        probes.write_blocks(torch.ones(1, 1, dtype=torch.float64), (2, 2, 2))
+    with pytest.raises(ValueError, match="non-empty"):
+        probes.write_blocks(torch.ones(0), (2, 2, 2))
+    with pytest.raises(ValueError, match="3-d"):
+        probes.write_blocks(one, out=torch.empty(2, 2, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="block"):
+        probes.write_blocks(one, (2, 2, 2), (2, 2))
+    base = torch.full((7, 30, 51), float("nan"))
+    view = base[1:6, 2:29, 3:50]
+    assert view.data_ptr() % 16 != 0 and view.stride() == (1530, 51, 1)
+    assert probes.write_blocks(torch.tensor([[-0.0]]), block=(2, 7, 11), out=view) is view
+    inside = torch.zeros(base.shape, dtype=torch.bool)
+    inside[1:6, 2:29, 3:50] = True
+    assert torch.equal(base[inside].view(torch.int32),
+                       torch.full((5 * 27 * 47,), -0.0).view(torch.int32))
+    assert bool(base[~inside].isnan().all())
+    assert probes.launches["write_blocks"] == 0

@@ -317,3 +317,13 @@ def test_composites_route_each_track_by_the_predicate(tiers_seen):
     batch.align_tracksets_batched(pairs, [B62, PAM250], (1.0, 0.5), (11, 1), "global",
                                   device="cpu", bucket_sizes=(63,))
     assert tiers_seen == ["mma", "scalar"]
+
+
+def test_producer_ablation_variants_apply_to_the_kernel_source():
+    """Each variant of ``producer_ablation`` is a textual edit of
+    ``csrc/scores_mma.cu``: every one of them still finds its text."""
+    from praline_tpu_torch import producer_ablation
+
+    for name, subs in producer_ablation.VARIANTS.items():
+        text = producer_ablation.variant_source(subs)
+        assert (text == producer_ablation.SOURCE.read_text()) == (not subs), name

@@ -184,7 +184,7 @@ def test_validation_and_exactness_errors():
     with pytest.raises(ValueError) as jax_err:
         jax_tracksets(pairs, [jb62, jpam], (1.0, 1.0), (11, 1), "global")
     assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="dist/ on torch.distributed"):
         batch.align_tracksets_batched([], [b62], (1.0,), (11, 1), "global", device="cpu",
                                       mesh=object())
 
@@ -217,7 +217,7 @@ def test_composite_route_and_chunk_bytes():
         assert batch.composite_route(dev, cap - 1, 500, True) == "two_kernel"
         assert batch.composite_route(dev, cap, 500, True) == "tiled"
     by = batch.HS_BYTES_BUDGET // (4 * 5001)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="composites past the budgets"):
         batch.composite_route("cuda", 5000, by, False)
     assert batch.composite_route("cpu", 5000, by, False) == "tiled"
     hs_bytes, _ = batch.per_problem_bytes(1023, 700)
