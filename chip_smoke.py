@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the seven Hopper kernel sources (the score producer's two tiers,
-tensor-core and scalar, wavefront DP, fused producer + DP on a
-thread-block cluster a problem, lane-tiled DP, traceback walk, and the
+tensor-core and scalar, wavefront DP, fused producer + DP and lane-tiled
+DP, each on a thread-block cluster a problem, traceback walk, and the
 benchmark's probes) from ``praline_tpu_torch/csrc`` with nvcc, one process
 per source, with ``-Xptxas -v`` (registers and spills of the producers,
-the DPs and the probes are printed, and the fused kernel's cluster
-occupancy at every cluster size), and holds each kernel against its plain
+the DPs and the probes are printed, and the fused and tiled kernels'
+cluster occupancy at every cluster size), and holds each kernel against its plain
 PyTorch version on the card, bit for bit: both producer tiers at buckets
 1023, 63x127 and 2047 and at the tensor-core predicate's edges (alphabets
 4, 32 and 23, counts of 255, |T| = 32766, |H| just under 2**24, one-hot
@@ -19,9 +19,11 @@ profiles; each output NaN-poisoned first), the other kernels at buckets
 those shapes, past the two-kernel lane cap (3000x3000), at a long y
 (600x4000), at every cluster size (1 to 8 CTAs) and with lx leaving the
 high ranks idle, the tiled kernel against its plain version at 4 x
-700x600 (every mode, three series, both score sources, scores and
-traceback, two tile widths and two visit depths) and, on one 4600x4400
-traceback problem, against the plain DP; the probes at the benchmark's
+700x600 (every mode, four series of 1, 2, 3 and 15 levels, both score
+sources, scores and traceback, NaN-poisoned, at every cluster size from 1
+to 16 CTAs with 1, 2 or 3 tiles a CTA) and, on one 4600x4400 traceback
+problem (at its default and three other geometries) and one 9000x500
+problem in place, against the plain DP; the probes at the benchmark's
 shapes (K7 f32[256, 1024] through 131072 links, into the subnormal range;
 K8 f32[1056, 256], four chains of 131072 links; K9 at every
 TPU write block on a small tensor and on f32[64, 17408, 1024], on an
@@ -29,8 +31,9 @@ unaligned strided view with -0.0, and at the producer's block).  It times
 the fused kernel on both tiers beside the two-kernel route, the tiled
 kernel over the producer's hs and the plain version at the headline
 bucket, a merge level and the long family's bucket, the tiled kernel
-beside the fused kernel at 3000x3000 and beside the whole-row DP at
-buckets 1023 and 2047, K9 beside ``torch.full``, aligns the committed
+beside the fused kernel at 3000x3000 and 2303x2303 and beside the
+whole-row DP and the fused kernel at buckets 1023 and 2047, K9 beside
+``torch.full``, aligns the committed
 goldens through the CUDA path on both routes, then drives the main paths
 at full size, with the launch counts set to 0 before each and read after
 its own runs: the all-pairs distance stage on 8192 pairs of bucket 1023
@@ -95,18 +98,31 @@ SWEEP_SERIES = ((11, 1), (13, 7, 1), (5,))
 # are kept to two; global past 2048 lanes is held by the long family's
 # sampled problems.
 FUSED_LONG_SHAPES = ((2, 3000, 3000, 2500, "local"), (2, 600, 4000, 500, "semiglobal"))
-# The tiled kernel against its plain version: (B, Lx, Ly, shortest length),
-# and the (tile lanes, diagonals a visit) it runs at.  1299 steps: 3 divides
-# them, 32 does not.
+# The tiled kernel against its plain version: (B, Lx, Ly, shortest length)
+# (701 lanes: every tile width below leaves a ragged last tile), the gap
+# series (k = 2, 3, 1 and 15), and the cluster sizes R = 1 .. 16, each with
+# 1, 2 or 3 tiles a CTA (m = R % 3 + 1) and boxes of 32, 7 or 3 diagonals.
 TILED_SHAPE = (4, 700, 600, 1)
-TILED_CONFIGS = ((128, 3), (256, 32))
-# One long traceback problem against the plain DP (rows past 4096 lanes).
+TILED_SERIES = ((11, 1), (13, 7, 1), (5,), tuple(range(30, 0, -2)))
+TILED_GEOMETRIES = tuple((R, min(512, -(-(-(-701 // (R * (R % 3 + 1)))) // 32) * 32),
+                          (32, 7, 3)[R // 3 % 3]) for R in range(1, 17))
+# One long traceback problem against the plain DP (rows past 4096 lanes),
+# and the geometries timed beside the default there (CTAs, tile lanes): the
+# portable cluster spread over 8 CTAs of two tiles, and the fewest CTAs of
+# at most 512 lanes on a portable (5 CTAs of two tiles) and a non-portable
+# cluster (10 CTAs of one tile).
 TILED_LONG = (1, 4600, 4400, 4000, "local")
+TILED_LONG_GEOMETRIES = ((8, 288), (5, 480), (10, 480))
+# Scores mode past 8192 lanes on the rows source, against the plain DP:
+# (B, Lx, Ly, shortest length, mode); two tiles a CTA.
+TILED_PAST_8192 = (1, 9000, 500, 400, "global")
 # (B, lanes - 1 = Lx = Ly, shortest length) where both the fused and the
-# tiled kernel take the rows: their times side by side.
-TILED_TIMES_SHAPE = (2, 3000, 2500)
+# tiled kernel take the rows: their times side by side (3000: past the
+# whole-row DP's lanes; 2303: the long32 family's all-pairs bucket).
+TILED_TIMES_SHAPES = ((2, 3000, 2500), (32, 2303, 1800))
 # (B, lanes - 1, shortest length) where the whole-row DP takes the rows at
-# one and at two lanes a thread: the tiled kernel's times beside it.
+# one and at two lanes a thread: the tiled and the fused kernels' times
+# beside it.
 TILED_VS_DP_SHAPES = ((64, 1023, 512), (64, 2047, 1024))
 # The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory,
 # f32 outside the tensor cores and dense int8 on the tensor cores.  The DP's
@@ -225,20 +241,20 @@ def phase_build():
         sources=",".join(p.name for p in build.sources()),
         per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
     usage = ptxas_usage("\n".join(build.last_build_log.values()))
-    kernels = (("tiled_hs_kernel", "Li1E"), ("tiled_rows_kernel", "Li1E"),
-               ("wavefront_kernel", "Li1E"), ("fused_cluster_kernel", "Lb1E"),
-               ("fused_cluster_kernel", "Lb0E"))
-    for kernel, second in kernels:
+    kernels = (("tiled_cluster_kernel", "Lb1E", "source", "hs"),
+               ("tiled_cluster_kernel", "Lb0E", "source", "rows"),
+               ("wavefront_kernel", "Li1E", None, None),
+               ("fused_cluster_kernel", "Lb1E", "tier", "mma"),
+               ("fused_cluster_kernel", "Lb0E", "tier", "scalar"))
+    for kernel, second, what, which in kernels:
         found = {}
         for k in (1, 2, 3, 15):
-            key = next((n for n in usage if f"{kernel}ILi{k}E{second}" in n), None)
-            if key is None:
-                raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, {second}>")
-            found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(*usage[key])
-        tier = {"Lb1E": "mma", "Lb0E": "scalar"}.get(second)
-        say("registers", kernel=kernel, **({"tier": tier} if tier else {}), lanes_per_thread=1,
+            found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
+                *kernel_usage(usage, kernel, k, second))
+        say("registers", kernel=kernel, **({what: which} if what else {}), lanes_per_thread=1,
             **found)
     phase_cluster_occupancy()
+    return usage
     probes = {}
     for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel"):
         key = next((n for n in usage if kernel in n), None)
@@ -260,13 +276,24 @@ def phase_build():
         mma_ptxas=repr(smem.group(0).splitlines()[-1].strip()) if smem else "not found")
 
 
+def kernel_usage(usage, kernel, k, second) -> tuple[int, int, int]:
+    """(registers, spill store bytes, spill load bytes) of ``kernel<k,
+    second>`` from the build's ``-Xptxas -v`` lines."""
+    key = next((n for n in usage if f"{kernel}ILi{k}E{second}" in n), None)
+    if key is None:
+        raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, {second}>")
+    return usage[key]
+
+
 def phase_cluster_occupancy():
-    """The fused kernel's clusters: for R = 1 .. 8 CTAs (at Lp = 512 R) at
-    k = 2 and 15 on each tier, the shared memory a CTA (the kernel's layout
-    and ``fused_geometry``'s, which must agree) and how many clusters the
-    card holds at once (``cudaOccupancyMaxActiveClusters``, which must be
-    at least 1)."""
-    from praline_tpu_torch.kernels import build, fused_dp
+    """The fused and the tiled kernels' clusters: for the fused kernel at R
+    = 1 .. 8 CTAs (at Lp = 512 R), for the tiled kernel at R = 1 .. 16 CTAs
+    (at Lp = 320 R, one tile of 320 lanes a CTA, and at Lp = 1024 R, two of
+    512), at k = 2 and 15 on each tier or source, the shared
+    memory a CTA (the kernel's layout and the Python geometry's, which must
+    agree) and how many clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, which must be at least 1)."""
+    from praline_tpu_torch.kernels import build, fused_dp, tiled_dp
 
     lib = build.load_library()
     for k in (2, 15):
@@ -285,6 +312,23 @@ def phase_cluster_occupancy():
                 rows.append(f"R{R}:W{g.W}:{smem}B:{clusters}")
             say("clusters", kernel="fused_cluster_kernel", k=k, tier=tier, T=fused_dp.BOX_STEPS,
                 R_W_smem_active_clusters=",".join(rows))
+    for k in (2, 15):
+        for source in tiled_dp.SOURCES:
+            rows = []
+            for R in range(1, tiled_dp.MAX_CTAS + 1):
+                for lanes in (320, 1024):
+                    g = tiled_dp.tiled_geometry(lanes * R, k, source, ctas=R)
+                    kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, int(source == "hs"))
+                    if kernel_smem != g.smem_bytes:
+                        raise AssertionError(f"tiled smem {g} k={k} {source}: kernel "
+                                             f"{kernel_smem} B")
+                    clusters = tiled_dp.max_active_clusters(k, source, g)
+                    if clusters < 1:
+                        raise AssertionError(f"no cluster of {g} fits at k={k} on {source}")
+                    rows.append(f"R{g.R}:m{g.m}:W{g.W}:{g.smem_bytes}B:"
+                                f"{'L2' if g.carry_scratch else 'smem'}:{clusters}")
+            say("clusters", kernel="tiled_cluster_kernel", k=k, source=source,
+                T=tiled_dp.MAX_STEPS, R_m_W_smem_carries_active_clusters=",".join(rows))
 
 
 def same_outputs(got, want, what) -> float:
@@ -965,55 +1009,85 @@ def phase_fused_times(dev):
     return out
 
 
+def tiled_vs_plain(source, lx, ly, series, mode, want, what, **geometry) -> float:
+    """The tiled kernel into NaN-poisoned outputs (traceback where ``want``
+    has ``tb``), held bit for bit against the plain version's ``want``; the
+    largest score difference (0.0)."""
+    import torch
+
+    from praline_tpu_torch.kernels import tiled_dp
+
+    out = {k: torch.full_like(v, float("nan") if v.is_floating_point()
+                              else 0xAB if v.dtype == torch.uint8 else -7)
+           for k, v in want.items()}
+    before = tiled_dp.launches
+    tiled_dp.wavefront_dp_tiled(source, lx, ly, series, mode, "tb" in want, out=out, **geometry)
+    if tiled_dp.launches != before + 1:
+        raise AssertionError("tiled: no launch counted")
+    return same_outputs(out, want, f"tiled {what}")
+
+
 def phase_tiled_vs_plain(dev) -> float:
     """The tiled kernel against its plain version at TILED_SHAPE: every
-    mode, SWEEP_SERIES, both score sources (hs from the producer, and in
-    place), scores and traceback, at each of TILED_CONFIGS.  The plain
-    version's result does not depend on the tiling, so it runs once a case
-    (256-lane tiles, 32 diagonals a visit)."""
+    mode, TILED_SERIES, both score sources (hs from the producer, and in
+    place), scores and traceback, at each of TILED_GEOMETRIES, each output
+    NaN-poisoned.  The plain version's result does not depend on the
+    geometry, so it runs once a case (256-lane tiles, 32 diagonals a box)."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
-    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled, wavefront_dp_tiled_plain
+    from praline_tpu_torch.kernels.tiled_dp import tiled_geometry, wavefront_dp_tiled_plain
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     rng = np.random.default_rng(SEED + 6)
     B, bx, by, lo = TILED_SHAPE
-    err, t0 = 0.0, time.perf_counter()
+    err, t0, shapes, carries = 0.0, time.perf_counter(), set(), set()
     for mode in MODES:
-        for series in SWEEP_SERIES:
+        for series in TILED_SERIES:
             ops = stacked_operands(rng, dev, s, B, bx, by, lo)
-            hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
-            for tb in (False, True):
-                want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, tb,
-                                                tile_lanes=256, steps_per_visit=32)
-                for w, t in TILED_CONFIGS:
-                    for name, source in (("hs", hs), ("in-place", ops[:5])):
-                        got = wavefront_dp_tiled(source, ops[5], ops[6], series, mode, tb,
-                                                 tile_lanes=w, steps_per_visit=t)
-                        err = max(err, same_outputs(
-                            got, want, f"tiled {name} {mode} {series} traceback={tb} "
-                                       f"tile={w} T={t} B{B}x{bx}x{by}"))
-    say("tiled=plain", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
-        series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES), sources="hs,in-place",
-        tile_lanes_and_T="|".join(f"{w},{t}" for w, t in TILED_CONFIGS), traceback="both",
-        result="bit-equal(all outputs, all tb bytes)", seconds=round(time.perf_counter() - t0, 3))
+            sources = (("hs", fused_skewed_scores(*ops[:5], tier=producer_tier(ops))),
+                       ("rows", ops[:5]))
+            want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, True,
+                                            tile_lanes=256, steps_per_visit=32)
+            for R, W, T in TILED_GEOMETRIES:
+                for name, source in sources:
+                    g = tiled_geometry(bx + 1, len(series), name, ctas=R, tile_lanes=W, steps=T)
+                    shapes.add((g.R, g.m, g.W, g.T))
+                    carries.add("L2" if g.carry_scratch else "smem" if g.m > 1 else "registers")
+                    for w in (want, scores_only(want)):
+                        err = max(err, tiled_vs_plain(
+                            source, ops[5], ops[6], series, mode, w,
+                            f"{name} {mode} {series} traceback={'tb' in w} R={R} W={W} T={T} "
+                            f"B{B}x{bx}x{by}", ctas=R, tile_lanes=W, steps_per_visit=T))
+    if {R for R, *_ in shapes} != set(range(1, 17)) or {m for _, m, *_ in shapes} != {1, 2, 3} \
+            or carries != {"registers", "smem", "L2"}:
+        raise AssertionError(f"tiled=plain missed a cluster size, a tile count or a carry "
+                             f"store: {sorted(shapes)} {carries}")
+    say("tiled=plain", shape=f"B{B}x{bx}x{by}", lanes=bx + 1, modes=",".join(MODES),
+        series="|".join(",".join(map(str, g)) for g in TILED_SERIES), sources="hs,rows",
+        R_m_W_T="|".join(",".join(map(str, g)) for g in sorted(shapes)),
+        carries=",".join(sorted(carries)), traceback="both",
+        result="bit-equal(all outputs, all tb bytes; NaN-poisoned)",
+        seconds=round(time.perf_counter() - t0, 3))
     return err
 
 
-def phase_tiled_long(dev) -> dict:
+def phase_tiled_long(dev, usage) -> dict:
     """One problem past the fused kernel's 4096 lanes, with traceback: the
-    tiled kernel (default tiles, hs source) against the plain DP, each
-    timed."""
+    tiled kernel (default geometry, hs source) against the plain DP, timed
+    beside TILED_LONG_GEOMETRIES (each held to the same bits) and the rows
+    source; then scores mode past 8192 lanes on the rows source
+    (TILED_PAST_8192) against the plain DP."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused_plain
     from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
     from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
-    from praline_tpu_torch.kernels.tiled_dp import tile_width, wavefront_dp_tiled
+    from praline_tpu_torch.kernels.tiled_dp import tiled_geometry, wavefront_dp_tiled
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     B, bx, by, lo, mode = TILED_LONG
@@ -1023,56 +1097,95 @@ def phase_tiled_long(dev) -> dict:
     plain = []
     plain_ms = cuda_ms(lambda: plain.append(plain_dp(hs, ops[5], ops[6], (11, 1), mode, True)),
                        1, warm_up=False)
-    got = wavefront_dp_tiled(hs, ops[5], ops[6], (11, 1), mode, True)
-    err = same_outputs(got, plain[0], f"tiled {mode} traceback B{B}x{bx}x{by}")
-    ms = cuda_ms(lambda: wavefront_dp_tiled(hs, ops[5], ops[6], (11, 1), mode, True), 3)
-    out = {"err": err, "ms": ms, "plain_ms": plain_ms, **dp_bound(ops[5], ops[6], got)}
-    W = tile_width(bx + 1)
-    say("tiled-long", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1, tile_lanes=W,
-        tiles=-(-(bx + 1) // W), traceback="bit-equal to the plain DP (all tb bytes)",
+    want = plain[0]
+
+    def tiled(source=hs, **geometry):
+        return wavefront_dp_tiled(source, ops[5], ops[6], (11, 1), mode, True, **geometry)
+
+    err = tiled_vs_plain(hs, ops[5], ops[6], (11, 1), mode, want, f"{mode} B{B}x{bx}x{by}")
+    ms = cuda_ms(tiled, 5)
+    others = {}
+    for R, W in TILED_LONG_GEOMETRIES:
+        g = tiled_geometry(bx + 1, 2, ctas=R, tile_lanes=W)
+        tiled_vs_plain(hs, ops[5], ops[6], (11, 1), mode, want, f"{mode} R={R} W={W}",
+                       ctas=R, tile_lanes=W)
+        others[f"R{g.R}_m{g.m}_W{g.W}_ms"] = cuda_ms(lambda: tiled(ctas=R, tile_lanes=W), 5)
+    others["again_ms"] = cuda_ms(tiled, 5)
+    tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want, f"rows {mode} B{B}x{bx}x{by}")
+    others["rows_ms"] = cuda_ms(lambda: tiled(ops[:5]), 3)
+    out = {"err": err, "ms": ms, "plain_ms": plain_ms, **dp_bound(ops[5], ops[6], want)}
+    g = tiled_geometry(bx + 1, 2)
+    regs, spill_st, spill_ld = kernel_usage(usage, "tiled_cluster_kernel", 2, "Lb1E")
+    out["geometry"] = {"R": g.R, "m": g.m, "W": g.W, "T": g.T, "smem_bytes": g.smem_bytes,
+                       "registers": regs, "spill_stores": spill_st, "spill_loads": spill_ld}
+    out["variants"] = others
+    say("tiled-long", shape=f"B{B}x{bx}x{by}", mode=mode, lanes=bx + 1, R=g.R, m=g.m, W=g.W,
+        T=g.T, registers=regs, spill_stores_B=spill_st, spill_loads_B=spill_ld,
+        smem_B=g.smem_bytes, traceback="bit-equal to the plain DP (all tb bytes)",
         tiled_ms=round(ms, 4), plain_dp_ms=round(plain_ms, 4),
         bound_ms=round(out["bound_ms"], 4), bound_by=out["bound_by"],
+        **{k: round(v, 4) for k, v in others.items()}, seconds=round(time.perf_counter() - t0, 3))
+    del hs, plain, want
+
+    B, bx, by, lo, mode = TILED_PAST_8192
+    t0 = time.perf_counter()
+    ops = stacked_operands(np.random.default_rng(SEED + 15), dev, s, B, bx, by, lo)
+    want = wavefront_dp_fused_plain(*ops, (11, 1), mode)
+    out["err"] = max(out["err"], tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want,
+                                                f"rows {mode} B{B}x{bx}x{by}"))
+    g = tiled_geometry(bx + 1, 2, "rows")
+    past = out["past_8192"] = {
+        "shape": f"B{B}x{bx}x{by}", "R": g.R, "m": g.m, "W": g.W,
+        "ms": cuda_ms(lambda: wavefront_dp_tiled(ops[:5], ops[5], ops[6], (11, 1), mode), 3)}
+    say("tiled-long", shape=past["shape"], mode=mode, lanes=bx + 1, source="rows",
+        R=g.R, m=g.m, W=g.W, scores="bit-equal to the plain DP", tiled_ms=round(past["ms"], 4),
         seconds=round(time.perf_counter() - t0, 3))
     return out
 
 
 def phase_tiled_times(dev):
     """The tiled kernel (hs source: alone, and after the producer that
-    feeds it; in place), the fused kernel and the plain composition at
-    B2 x 3000 x 3000, where both kernels take the rows; then the tiled
-    kernel beside the whole-row DP at TILED_VS_DP_SHAPES."""
+    feeds it; in place), the fused kernel on both tiers and, at 3000, the
+    plain composition, at TILED_TIMES_SHAPES, where both kernels take the
+    rows; then the tiled and the fused kernels beside the whole-row DP at
+    TILED_VS_DP_SHAPES."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
     from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
-    from praline_tpu_torch.kernels.tiled_dp import tile_width, wavefront_dp_tiled
+    from praline_tpu_torch.kernels.tiled_dp import tiled_geometry, wavefront_dp_tiled
     from praline_tpu_torch.kernels.wavefront import wavefront_dp
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
-    B, bx, lo = TILED_TIMES_SHAPE
-    t0 = time.perf_counter()
-    ops = stacked_operands(np.random.default_rng(SEED + 9), dev, s, B, bx, bx, lo)
-    tier = producer_tier(ops)
-    hs = fused_skewed_scores(*ops[:5], tier=tier)
-    out = {}
-    for tb in (False, True):
-        tag = "traceback" if tb else "scores"
-        args = (ops[5], ops[6], (11, 1), "global", tb)
-        out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
-        out[f"{tag}_producer_tiled_ms"] = cuda_ms(
-            lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
-        out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
-        out[f"{tag}_fused_ms"] = cuda_ms(
-            lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="mma"), 5)
-        out[f"{tag}_fused_scalar_ms"] = cuda_ms(
-            lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="scalar"), 5)
-        out[f"{tag}_tiled_again_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
-    out["traceback_plain_ms"] = cuda_ms(
-        lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", True), 1, warm_up=False)
-    say("tiled-times", shape=f"B{B}x{bx}x{bx}", mode="global", seconds=round(time.perf_counter() - t0, 3),
-        **{k: round(v, 4) for k, v in out.items()})
+    results = {}
+    for B, bx, lo in TILED_TIMES_SHAPES:
+        t0 = time.perf_counter()
+        ops = stacked_operands(np.random.default_rng(SEED + 9), dev, s, B, bx, bx, lo)
+        tier = producer_tier(ops)
+        hs = fused_skewed_scores(*ops[:5], tier=tier)
+        out = {}
+        for tb in (False, True) if B <= 2 else (False,):
+            tag = "traceback" if tb else "scores"
+            args = (ops[5], ops[6], (11, 1), "global", tb)
+            out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+            out[f"{tag}_producer_tiled_ms"] = cuda_ms(
+                lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
+            out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
+            out[f"{tag}_fused_ms"] = cuda_ms(
+                lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="mma"), 5)
+            out[f"{tag}_fused_scalar_ms"] = cuda_ms(
+                lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="scalar"), 5)
+            out[f"{tag}_tiled_again_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+        if B <= 2:
+            out["traceback_plain_ms"] = cuda_ms(
+                lambda: wavefront_dp_fused_plain(*ops, (11, 1), "global", True), 1, warm_up=False)
+        g = tiled_geometry(bx + 1, 2)
+        say("tiled-times", shape=f"B{B}x{bx}x{bx}", mode="global", R=g.R, m=g.m, W=g.W,
+            seconds=round(time.perf_counter() - t0, 3), **{k: round(v, 4) for k, v in out.items()})
+        results[f"B{B}x{bx}"] = out
+        del hs
     for B, bx, lo in TILED_VS_DP_SHAPES:
         t0 = time.perf_counter()
         ops = stacked_operands(np.random.default_rng(SEED + 10), dev, s, B, bx, bx, lo)
@@ -1083,10 +1196,15 @@ def phase_tiled_times(dev):
             args = (ops[5], ops[6], (11, 1), "global", tb)
             out[f"{tag}_dp_ms"] = cuda_ms(lambda: wavefront_dp(hs, *args), 5)
             out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
+            out[f"{tag}_fused_ms"] = cuda_ms(
+                lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="mma"), 5)
             out[f"{tag}_dp_again_ms"] = cuda_ms(lambda: wavefront_dp(hs, *args), 5)
-        say("tiled-vs-dp", shape=f"B{B}x{bx}x{bx}", mode="global", tile_lanes=tile_width(bx + 1),
+        g = tiled_geometry(bx + 1, 2)
+        say("tiled-vs-dp", shape=f"B{B}x{bx}x{bx}", mode="global", R=g.R, m=g.m, W=g.W,
             seconds=round(time.perf_counter() - t0, 3), **{k: round(v, 4) for k, v in out.items()})
+        results[f"B{B}x{bx}"] = out
         del hs
+    return results
 
 
 def phase_goldens(dev):
@@ -1418,14 +1536,14 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     os.environ.pop("PRALINE_FUSED_DP", None)  # the default routes, whatever the caller's
-    phase_build()
+    usage = phase_build()
     timing = phase_kernels_vs_plain(dev)
     phase_fused_long(dev, timing)
     phase_fused_clusters(dev, timing)
     fused_times = phase_fused_times(dev)
     tiled_err = phase_tiled_vs_plain(dev)
-    tiled_long = phase_tiled_long(dev)
-    phase_tiled_times(dev)
+    tiled_long = phase_tiled_long(dev, usage)
+    tiled_times = phase_tiled_times(dev)
     phase_goldens(dev)
     probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
@@ -1530,7 +1648,12 @@ def main() -> int:
          "launches": launches["tiled"], "max_abs_err": max(tiled_err, tiled_long["err"]),
          "ms": tiled_long["ms"], "plain_ms": tiled_long["plain_ms"],
          "bound_ms": tiled_long["bound_ms"], "bound_by": tiled_long["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "shape": "B1x4600x4400 local traceback",
+         "geometry": tiled_long["geometry"], "variants": tiled_long["variants"],
+         "past_8192": tiled_long["past_8192"],
+         # beside the fused kernel (K5) and the whole-row DP (K2), scores mode
+         "beside": {shape: {k: v for k, v in t.items() if k.startswith("scores_")}
+                    for shape, t in tiled_times.items()}},
     ]
     for name, replaces in (("smem_chain", "bench.py:224 (bench_utilization.run_vmem)"),
                            ("alu_chains", "bench.py:256 (bench_utilization.run_alu)"),

@@ -21,23 +21,17 @@
 // into R <= 8 CTAs of W <= 512 lanes, one lane a thread (so
 // __launch_bounds__(512, 1) leaves 128 registers for one lane's carries),
 // launched as one cluster of R CTAs (cudaLaunchKernelEx with a cluster
-// dimension) on R neighbouring SMs.  The diagonals are walked in boxes of T
-// (<= 32): in phase p, rank r runs box p - r, and one cluster barrier closes
-// each phase, so rank r runs box k right after rank r - 1 ran it.  The left
-// neighbour of rank r's first lane at step s of a box is rank r - 1's last
-// lane before its own step s: that lane writes its NX values into rank r's
-// edge ring, in distributed shared memory, while it runs the box, and rank
-// r reads them in the next phase; the ring is double-buffered by box
-// parity.  This is the hand-off csrc/tiled_dp.cu makes in time on one SM,
-// made across SMs, so the plain twin of the schedule is
+// dimension) on R neighbouring SMs, one tile a CTA.  The walk is
+// csrc/cluster_walk.cuh's, shared with the tiled kernel (csrc/tiled_dp.cu,
+// which gives each CTA m tiles): the diagonals go in boxes of T (<= 32), in
+// phase p rank r runs box p - r, one cluster barrier closes each phase, the
+// tile edge goes from CTA to CTA through a double-buffered ring in
+// distributed shared memory, and rank 0 picks the semiglobal or local
+// terminal among the CTAs' candidates.  The plain twin of the schedule is
 // kernels/tiled_dp.py::wavefront_dp_tiled_plain(rows, tile_lanes=W,
-// steps_per_visit=T).  Inside a CTA lanes cross warps as in
-// csrc/wavefront.cuh.  Semiglobal and local terminals: each CTA picks its
-// best candidate (block_best), and after a last cluster barrier rank 0 picks
-// among the R through distributed shared memory (candidates are unique
-// cells, so the order is free).  Scores mode stops at diagonal lx + ly and
-// skips lanes past lx, so high ranks may have nothing to do but the
-// barriers.
+// steps_per_visit=T).  Scores mode stops at diagonal lx + ly and skips
+// lanes past lx, so high ranks may have nothing to do but the barriers.
+// This file sets up each box's scores (FusedVisits).
 //
 // Two score tiers, chosen per chunk by the caller from a proved predicate
 // (kernels/fused_scores.py::tensor_core_exact), the same bits either way:
@@ -59,13 +53,9 @@
 // carries the operands once (and, with traceback, one byte a cell).
 // Memory is O(B * (Lx + Ly) * A), so Ly is unbounded.
 
-#include <cooperative_groups.h>
-
+#include "cluster_walk.cuh"
 #include "fused_rows.cuh"
 #include "score_box.cuh"
-#include "wavefront.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,8 +77,6 @@ struct FusedArgs {
   int mode, traceback, B, Lx, Ly, AP, W, R, T;
   Outs out;
 };
-
-__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 
 // Byte offsets of the dynamic shared memory: the cross-warp exchange
 // xbuf[2][W / 32][NX], the edge ring[2][T][NX], the candidates red[W / 32
@@ -174,22 +162,37 @@ struct BoxProducer {
   }
 };
 
+// The score source of the walk (csrc/cluster_walk.cuh) on either tier:
+// "mma" fills the box of each visit on the tensor cores (BoxProducer) and
+// reads it back; "scalar" computes each score in place.
+template <bool MMA>
+struct FusedVisits {
+  BoxProducer box;
+  FusedRows rows;
+  int W, T;
+
+  __device__ __forceinline__ auto prepare(int d0, int i0, int nd0, int) const {
+    if constexpr (MMA) {
+      box.fill((d0 - 2) / T, d0, nd0 >= 0);
+      return BoxScores{box.hk, W + 4, d0, i0};
+    } else {
+      return rows;
+    }
+  }
+};
+
 template <int K, bool MMA>
 __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
-  using C = Carries<K, 1>;
-  constexpr int NX = C::NX;
+  constexpr int NX = Carries<K, 1>::NX;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L(a.W, a.T, NX, MMA);
-  float* xbuf = reinterpret_cast<float*>(smem + L.xbuf);
-  float* ring = reinterpret_cast<float*>(smem + L.ring);
-  Cand* red = reinterpret_cast<Cand*>(smem + L.red);
 
   const int W = a.W, T = a.T, R = a.R;
-  const int t = threadIdx.x, nw = W >> 5, warp = t >> 5, wl = t & 31;
+  const int t = threadIdx.x;
   const int r = (int)cluster.block_rank();
   const int b = blockIdx.x / R;
-  const int i0 = r * W, i = i0 + t;
+  const int i0 = r * W;
   const int lx = a.lx[b], ly = a.ly[b], Lp = a.Lx + 1, D = a.Lx + a.Ly + 1;
   const Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
   // Scores mode stops at the last diagonal that can hold a terminal and
@@ -197,11 +200,12 @@ __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
   const int dend = a.traceback ? D - 1 : min(D - 1, lx + ly);
   const int lane_end = a.traceback ? Lp - 1 : min(Lp - 1, lx);
   const bool active = i0 <= lane_end;  // uniform over the CTA
-  const int nbox = (dend - 2) / T + 1;
-  float* next_ring = r + 1 < R ? cluster.map_shared_rank(ring, r + 1) : nullptr;
 
-  BoxProducer box{};
+  FusedVisits<MMA> visits{};
+  visits.W = W;
+  visits.T = T;
   if constexpr (MMA) {
+    BoxProducer& box = visits.box;
     box.hk = reinterpret_cast<float*>(smem + L.hk);
     box.a_lo = reinterpret_cast<const uint32_t*>(smem + L.a_lo);
     box.a_hi = reinterpret_cast<const uint32_t*>(smem + L.a_hi);
@@ -236,65 +240,15 @@ __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
       start_band(box.band, box.ivy, box.yb, box.ivyb, box.jbase(2), W + T, a.Ly, t, W);
     }
     box.two_pass = __syncthreads_or(wide);
-  }
-  const FusedRows rows = fused_rows(a.t, a.cyp, a.ivx, a.ivy, b, a.Lx, a.Ly, a.AP);
-
-  C c;
-  c.init(0, i, a.mode, a.gaps.g[0]);
-  Cand best = first_candidate<K>(a.mode, i == 0, lx, ly);
-  Border<K> border(a.gaps);
-  cluster.sync();  // every CTA of the cluster runs before any writes another's ring
-
-  for (int ph = 0; ph < nbox + R - 1; ++ph) {
-    const int k = ph - r;
-    if (active && k >= 0 && k < nbox) {  // uniform over the CTA
-      const int d0 = 2 + k * T, d1 = min(d0 + T - 1, dend);
-      const float* edge = ring + (k & 1) * T * NX;
-      float* out_edge = next_ring ? next_ring + (k & 1) * T * NX : nullptr;
-      if constexpr (MMA) box.fill(k, d0, k + 1 < nbox);
-      const BoxScores boxed{box.hk, W + 4, d0, i0};
-      for (int d = d0; d <= d1; ++d) {
-        const int s = d - d0, buf = d & 1;
-        float sh[NX];
-        c.shfl_in(0, sh);
-        if (wl == 31) c.export_x(0, xbuf + (buf * nw + warp) * NX);
-        // this lane's values before step s, for rank r + 1's first lane
-        if (t == W - 1 && out_edge) c.export_x(0, out_edge + s * NX);
-        __syncthreads();
-        if (wl == 0) {
-          const float* x = warp > 0 ? xbuf + (buf * nw + warp - 1) * NX
-                                    : (r > 0 ? edge + s * NX : nullptr);
-          if (x) {
-#pragma unroll
-            for (int v = 0; v < NX; ++v) sh[v] = x[v];
-          }
-        }
-        if (i == 0) C::border_x(sh);
-        border.next(a.gaps, d);
-        if (i <= lane_end) {
-          if constexpr (MMA) c.step(0, i, d, sh, border.cum, boxed, a.gaps, p, a.out, best);
-          else c.step(0, i, d, sh, border.cum, rows, a.gaps, p, a.out, best);
-        }
-      }
-    }
-    cluster.sync();  // the ring writes of this phase are visible to the next
+  } else {
+    visits.rows = fused_rows(a.t, a.cyp, a.ivx, a.ivy, b, a.Lx, a.Ly, a.AP);
   }
 
-  if (a.mode != GLOBAL) {
-    const bool local = a.mode == LOCAL;
-    const Cand cta = block_best(best, local, red);
-    if (t == 0) red[nw] = cta;
-    cluster.sync();
-    if (r == 0 && t == 0) {
-      Cand pick = cta;
-      for (int q = 1; q < R; ++q) {
-        const Cand o = *cluster.map_shared_rank(red + nw, q);
-        if (beats(o, pick, local)) pick = o;
-      }
-      write_terminal(pick, b, a.out);
-    }
-    cluster.sync();  // no CTA leaves while rank 0 reads its candidate
-  }
+  const WalkSmem sm = {reinterpret_cast<float*>(smem + L.xbuf),
+                       reinterpret_cast<float*>(smem + L.ring), nullptr,
+                       reinterpret_cast<Cand*>(smem + L.red)};
+  cluster_walk<K, false>(cluster, sm, WalkShape{R, 1, W, T}, p, a.gaps, a.out, dend, lane_end,
+                         CarryStore{}, visits);
 }
 
 cudaLaunchConfig_t launch_config(const FusedArgs& a, int smem, cudaStream_t st,

@@ -16,12 +16,15 @@
 // is in csrc/scores_mma.cu.
 //
 // Also here: the prep kernel that writes the operands (T's limbs and a
-// one-pass flag a row of x, u8 counts a row of y) and the cp.async helpers.
+// one-pass flag a row of x, u8 counts a row of y); the cp.async helpers are
+// csrc/async_copy.cuh.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -46,22 +49,6 @@ __device__ __forceinline__ void mma_u8u8(int (&d)[4], const uint32_t (&a)[4], ui
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
 }
-
-// cp.async of `bytes` (4 or 16) from global to shared; where `valid` is
-// false nothing is read (src-size 0: the destination is zero-filled).
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // The A fragment of m16n8k32 (8-bit, row major) for rows m0..m0+15 of a
 // 32-byte-row operand: a0 row g bytes 4t.., a1 row g+8, a2 row g bytes

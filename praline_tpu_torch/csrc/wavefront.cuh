@@ -1,9 +1,9 @@
 // The anti-diagonal M/Ix/Iy recurrence of the Hopper DP kernels, written
 // once and included by all of them: csrc/wavefront_dp.cu reads each cell's
-// score from the skewed tensor hs, csrc/tiled_dp.cu walks the same
-// recurrence one lane tile at a time with hs or scores computed in place,
-// and csrc/fused_dp.cu walks it in lane tiles on a thread-block cluster,
-// its scores computed on chip.  The score source is a functor `score(d, i)` giving
+// score from the skewed tensor hs, and csrc/fused_dp.cu (scores computed on
+// chip) and csrc/tiled_dp.cu (hs or scores computed in place, rows of any
+// length) walk it in lane tiles on a thread-block cluster
+// (csrc/cluster_walk.cuh).  The score source is a functor `score(d, i)` giving
 // cell (i, d - i)'s entry of hs[d, b, i] (kernels/scores.py::
 // skewed_pair_scores); everything else is this file.
 //

@@ -125,9 +125,13 @@ def load_library() -> ctypes.CDLL:
         lib.praline_fused_dp_smem.restype = i
         lib.praline_fused_dp_smem.argtypes = [i, i, i, i]
         lib.praline_tiled_dp_hs.restype = i
-        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 8, *[p] * 8]
+        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 10, *[p] * 8]
         lib.praline_tiled_dp_rows.restype = i
-        lib.praline_tiled_dp_rows.argtypes = [*[p] * 8, *[i] * 9, *[p] * 10]
+        lib.praline_tiled_dp_rows.argtypes = [*[p] * 8, *[i] * 11, *[p] * 10]
+        lib.praline_tiled_dp_clusters.restype = i
+        lib.praline_tiled_dp_clusters.argtypes = [i, i, i, i, i, i, p]
+        lib.praline_tiled_dp_smem.restype = i
+        lib.praline_tiled_dp_smem.argtypes = [i, i, i, i, i]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
         ll = ctypes.c_longlong

@@ -51,7 +51,7 @@ BOX_STEPS = 32  # T: diagonals a box (csrc/fused_dp.cu MAX_T)
 MAX_LANES_FUSED = CTA_LANES * MAX_CLUSTER
 # Shared memory a CTA may use on the H100.
 SMEM_PER_CTA = 232_448
-_CAND_BYTES = 20  # csrc/wavefront.cuh Cand
+CAND_BYTES = 20  # csrc/wavefront.cuh Cand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,7 @@ class FusedGeometry:
     smem_scalar_bytes: int
 
 
-def _round16(n: int) -> int:
+def round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
@@ -77,11 +77,11 @@ def smem_bytes(W: int, T: int, k: int, tier: str) -> int:
     "mma" tier, the score box, the rows' limbs and inverses and two bands."""
     nx = 6 + 2 * (1 if k == 2 else k)
     nw, cols = W // 32, W + T
-    total = (_round16(2 * nw * nx * 4) + _round16(2 * T * nx * 4)
-             + _round16((nw + 1) * _CAND_BYTES))
+    total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4)
+             + round16((nw + 1) * CAND_BYTES))
     if tier == "mma":
-        total += (_round16(T * (W + 4) * 4) + 2 * W * 32 + 2 * cols * 32
-                  + _round16(2 * cols * 4) + _round16(W * 4))
+        total += (round16(T * (W + 4) * 4) + 2 * W * 32 + 2 * cols * 32
+                  + round16(2 * cols * 4) + round16(W * 4))
     return total
 
 
@@ -166,7 +166,7 @@ def max_active_clusters(k: int, tier: str, geometry: FusedGeometry) -> int:
     return n
 
 
-_OUT_KEYS = (("score", torch.float32), ("length", torch.float32), ("ti", torch.int32),
+OUT_KEYS = (("score", torch.float32), ("length", torch.float32), ("ti", torch.int32),
              ("tj", torch.int32), ("tcode", torch.int32))
 
 
@@ -188,7 +188,7 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
                                        traceback)
         if out is None:
             return got
-        _check_out(out, *cx.shape[:2], cy.shape[1], traceback, cx.device)
+        check_out(out, *cx.shape[:2], cy.shape[1], traceback, cx.device)
         for key, t in out.items():
             t.copy_(got[key])
         return out
@@ -212,10 +212,8 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
         scratch_bytes = B * (Lx + Ly) * padded_alphabet(A) * 4
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     if out is None:
-        out = {key: torch.empty(B, dtype=dtype, device=dev) for key, dtype in _OUT_KEYS}
-        if traceback:
-            out["tb"] = torch.empty((Lx + Ly - 1, B, Lp), dtype=torch.uint8, device=dev)
-    _check_out(out, B, Lx, Ly, traceback, dev)
+        out = empty_outputs(B, Lx, Ly, traceback, dev)
+    check_out(out, B, Lx, Ly, traceback, dev)
     tb = out.get("tb")
     lib = build.load_library()
     with torch.cuda.device(dev):
@@ -234,10 +232,19 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
     return out
 
 
-def _check_out(out, B, Lx, Ly, traceback, dev) -> None:
+def empty_outputs(B, Lx, Ly, traceback, dev) -> dict:
+    """The output tensors of a DP of B problems of Lx x Ly (``tb`` with
+    traceback)."""
+    out = {key: torch.empty(B, dtype=dtype, device=dev) for key, dtype in OUT_KEYS}
+    if traceback:
+        out["tb"] = torch.empty((Lx + Ly - 1, B, Lx + 1), dtype=torch.uint8, device=dev)
+    return out
+
+
+def check_out(out, B, Lx, Ly, traceback, dev) -> None:
     """Raise unless ``out`` holds exactly the kernel's outputs, contiguous,
     of their shapes and types on ``dev``."""
-    want = {key: ((B,), dtype) for key, dtype in _OUT_KEYS}
+    want = {key: ((B,), dtype) for key, dtype in OUT_KEYS}
     if traceback:
         want["tb"] = ((Lx + Ly - 1, B, Lx + 1), torch.uint8)
     if set(out) != set(want):

@@ -3,14 +3,15 @@ its wrapper.
 
 Replaces the TPU kernel ``praline_tpu/kernels/pallas_dp_tiled.py::
 wavefront_dp_tiled`` (K6): the same DP as the whole-row kernels, walked
-one lane tile at a time.  For each block of ``steps_per_visit`` (T)
-diagonals the walk visits the tiles of ``tile_lanes`` (W) lanes from left
-to right; a visit loads the tile's carries, runs T diagonals and stores
-them back, and the left neighbour of a tile's first lane at step t is the
-previous tile's last lane before its own step t, handed over through an
-edge buffer of T entries.  Only one tile's carries are live at a time, so
-on the card a row of any length fits one block's registers: this is the
-route for rows past the fused kernel's 4096 lanes
+one lane tile at a time.  The row is cut into tiles of ``tile_lanes`` (W)
+lanes and the diagonals into boxes of ``steps_per_visit`` (T); a visit
+runs one box on one tile, and the left neighbour of a tile's first lane
+at step t is the previous tile's last lane before its own step t, handed
+over through an edge buffer of T entries.  On the card a problem runs on
+a thread-block cluster of ``R`` CTAs of ``m`` tiles each
+(:func:`tiled_geometry`): in phase p, CTA r visits box p - r on its m
+tiles, so a row of any length takes ``(boxes + R - 1) * m * T`` steps in
+sequence; this is the route for rows past the fused kernel's 4096 lanes
 (``kernels/batch.py::choose_route``).  The contract is that of the plain
 DP ``kernels/scan.py::wavefront_dp``, bit for bit: ``score``, ``length``,
 ``ti``, ``tj``, ``tcode`` and, with traceback, ``tb uint8[D-2, B, Lp]``.
@@ -19,35 +20,48 @@ every mode, 1 to 15 gap levels and two score sources: ``hs f32[D, B, Lp]``
 (from the producer) or, computed in place, the counts, inverses and
 matrix ``(cx, inv_x, cy, inv_y, s)``.
 
-:func:`wavefront_dp_tiled_plain` walks the same (diagonal block, tile,
-step) order with the same edge hand-off over the pieces of
-``kernels/scan.py``; the wrapper takes it for CPU tensors and launches the
-kernel (or raises) for CUDA tensors.
+:func:`wavefront_dp_tiled_plain` walks the same visits box by box over
+the pieces of ``kernels/scan.py``: each visit comes after the same tile's
+visit of the box before and after the previous tile's visit of the same
+box, as in the cluster's phase order, so both give the same bits.  The
+wrapper takes it for CPU tensors and launches the kernel (or raises) for
+CUDA tensors.
 
-Bound on the H100: the chain of diagonals, ``n_tiles`` times as long (a
-problem runs ``D * n_tiles`` tile steps in sequence), plus one round trip
-of the carries through L2 per T diagonals; see the source.
+Bound on the H100: the chain of dependent diagonals, ``m`` times as long
+as one tile's, plus ``R - 1`` boxes to fill the cluster; see the source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import build
-from .fused_dp import check_rows, check_series, padded_alphabet
+from .fused_dp import (
+    CAND_BYTES, SMEM_PER_CTA, check_out, check_rows, check_series, empty_outputs,
+    padded_alphabet, round16,
+)
 from .scan import MODES, Recurrence, Terminals, carries_d1, diagonal_step, edge_of
 from .scores import skewed_pair_scores
 from .wavefront import check_hs
 
 launches = 0  # kernel launches by wavefront_dp_tiled (not by the plain path)
 
-MAX_TILE_LANES = 1024  # threads a block (csrc/wavefront.cuh MAXT)
-# Diagonals a visit: the default and the most the kernel takes
-# (csrc/tiled_dp.cu MAX_STEPS, the edge buffer's depth).
+MAX_TILE_LANES = 512  # W at most: lanes (= threads) of a CTA (csrc/tiled_dp.cu MAX_W)
+# R at most: the H100's non-portable cluster size (csrc/tiled_dp.cu MAX_R),
+# and the default geometry's R: a row spread over more CTAs of narrower
+# tiles takes fewer steps or cheaper ones (PERF.md, Findings: the tiled
+# kernel's geometries at 4600 x 4400).
+MAX_CTAS = 16
+# W at least in the default geometry, so that short rows take fewer SMs.
+MIN_SPREAD_LANES = 256
+# Diagonals a box: the default and the most the kernel takes
+# (csrc/tiled_dp.cu MAX_STEPS).
 MAX_STEPS = 32
+SOURCES = ("hs", "rows")
 
 
 def reset_launches() -> None:
@@ -61,29 +75,79 @@ def carry_values(k: int) -> int:
     return 10 + 4 * (1 if k == 2 else k)
 
 
-def tile_width(Lp: int, tile_lanes: int | None = None) -> int:
-    """Lanes a tile: ``tile_lanes``, or by default the row cut into the
-    fewest tiles of at most :data:`MAX_TILE_LANES`, of equal width rounded
-    up to a warp."""
-    if tile_lanes is not None:
-        return tile_lanes
-    n = -(-Lp // MAX_TILE_LANES)
-    per_tile = -(-Lp // n)
-    return -(-per_tile // 32) * 32
+def smem_layout(W: int, T: int, m: int, k: int, source: str) -> tuple[int, bool]:
+    """Dynamic shared memory of a CTA (``csrc/tiled_dp.cu`` ``Layout``) and
+    whether the carries of its ``m`` tiles are in it: the walk's
+    exchange, ring, edge and candidates; on the hs source two boxes of
+    scores; with m > 1 the carries where the whole fits in
+    :data:`SMEM_PER_CTA` (else they go to a device-memory scratch)."""
+    kc = 1 if k == 2 else k
+    nx, nw = 6 + 2 * kc, W // 32
+    total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4) + round16(T * nx * 4)
+             + round16((nw + 1) * CAND_BYTES) + (2 * T * W * 4 if source == "hs" else 0))
+    carries = carry_values(k) * m * W * 4
+    if m > 1 and total + carries <= SMEM_PER_CTA:
+        return total + carries, True
+    return total, False
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledGeometry:
+    """A problem's cluster: ``R`` CTAs of ``m`` tiles of ``W`` lanes, boxes
+    of ``T`` diagonals, each CTA's dynamic shared memory (``smem_bytes``)
+    and whether the carries need the device-memory scratch
+    (``carry_scratch``: m > 1 and they do not fit in shared memory)."""
+
+    R: int
+    m: int
+    W: int
+    T: int
+    smem_bytes: int
+    carry_scratch: bool
+
+
+def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = None,
+                   tile_lanes: int | None = None, steps: int = MAX_STEPS) -> TiledGeometry:
+    """The cluster of a problem of ``Lp`` lanes at ``k`` gap levels on
+    ``source``.  By default: the fewest tiles a CTA (m) that a cluster of
+    :data:`MAX_CTAS` CTAs of at most :data:`MAX_TILE_LANES` lanes allows,
+    then the row spread over that many CTAs in tiles of equal width
+    rounded up to a warp, but no narrower than :data:`MIN_SPREAD_LANES`
+    (or the lane cap, where it is lower), and the fewest CTAs of m such
+    tiles.  ``tile_lanes`` fixes W and ``ctas`` fixes R (then m is the
+    fewest that covers the row)."""
+    if source not in SOURCES:
+        raise ValueError(f"source must be one of {SOURCES}, got {source!r}")
+    if Lp < 1:
+        raise ValueError(f"the tiled DP takes Lp >= 1, got {Lp}")
+    cap = ctas or MAX_CTAS
+    if tile_lanes is None:
+        m = -(-Lp // (cap * MAX_TILE_LANES))
+        W = -(-(-(-Lp // (cap * m))) // 32) * 32
+        if ctas is None:
+            W = max(W, min(MIN_SPREAD_LANES, MAX_TILE_LANES))
+    else:
+        W = tile_lanes
+        m = -(-Lp // (cap * W))
+    R = ctas or -(-Lp // (m * W))
+    smem, carries_in_smem = smem_layout(W, steps, m, k, source)
+    return TiledGeometry(R, m, W, steps, smem, m > 1 and not carries_in_smem)
 
 
 def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
-                             traceback=False, *, tile_lanes=None,
+                             traceback=False, *, tile_lanes=None, ctas=None,
                              steps_per_visit=MAX_STEPS):
-    """The plain version: the kernel's walk over ``kernels/scan.py``'s
-    recurrence.  ``source`` is ``hs f32[D, B, Lp]`` or the tuple
+    """The plain version: the kernel's visits over ``kernels/scan.py``'s
+    recurrence, at the tile width of :func:`tiled_geometry` (``tile_lanes``
+    and ``ctas`` as there).  ``source`` is ``hs f32[D, B, Lp]`` or the tuple
     ``(cx, inv_x, cy, inv_y, s)``, whose ``hs`` it builds first."""
     hs = source if isinstance(source, torch.Tensor) else skewed_pair_scores(*source)
     D, B, Lp = hs.shape
-    W = tile_width(Lp, tile_lanes)
     T = steps_per_visit
-    if W < 1 or T < 1:
-        raise ValueError(f"tile_lanes {W} and steps_per_visit {T} must be positive")
+    if (tile_lanes is not None and tile_lanes < 1) or (ctas is not None and ctas < 1) or T < 1:
+        raise ValueError(f"tile_lanes {tile_lanes}, ctas {ctas} and steps_per_visit {T} "
+                         "must be positive")
+    W = tiled_geometry(Lp, len(gap_series), ctas=ctas, tile_lanes=tile_lanes, steps=T).W
     rec = Recurrence(gap_series, mode, traceback, D)
     dev = hs.device
     lx = lx.to(dev, torch.int32)
@@ -119,20 +183,60 @@ def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
     return out
 
 
+_clusters: dict[tuple, int] = {}
+
+
+def max_active_clusters(k: int, source: str, geometry: TiledGeometry) -> int:
+    """Clusters of this geometry the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
+    g = geometry
+    key = (k, source, g.R, g.m, g.W, g.T)
+    n = _clusters.get(key)
+    if n is None:
+        got = ctypes.c_int(0)
+        rc = build.load_library().praline_tiled_dp_clusters(
+            k, int(source == "hs"), g.W, g.R, g.m, g.T, ctypes.byref(got))
+        build.check(rc, "praline_tiled_dp_clusters")
+        n = _clusters[key] = got.value
+    return n
+
+
+def check_geometry(g: TiledGeometry, Lp: int) -> None:
+    """Raise for a geometry the kernel does not take."""
+    if not (32 <= g.W <= MAX_TILE_LANES and g.W % 32 == 0):
+        raise ValueError(f"tile_lanes must be a multiple of 32 from 32 to {MAX_TILE_LANES}, "
+                         f"got {g.W}")
+    if not 1 <= g.R <= MAX_CTAS:
+        raise ValueError(f"ctas must be 1 to {MAX_CTAS}, got {g.R}")
+    if not 1 <= g.T <= MAX_STEPS:
+        raise ValueError(f"steps_per_visit must be 1 to {MAX_STEPS}, got {g.T}")
+    if g.R * g.m * g.W < Lp or g.smem_bytes > SMEM_PER_CTA:
+        raise ValueError(f"geometry {g} does not cover {Lp} lanes within the shared memory")
+
+
 def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceback=False,
-                       *, tile_lanes=None, steps_per_visit=MAX_STEPS):
+                       *, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS, out=None):
     """Batched DP of ``source`` (``hs f32[D, B, Lp]``, or ``(cx f32[B, Lx,
     A], inv_x f32[B, Lx], cy f32[B, Ly, A], inv_y f32[B, Ly], s f32[A, A])``
-    with ``Lp = Lx + 1``) with true lengths ``lx, ly int32[B]``, ``W =
-    tile_lanes`` lanes a tile (on the card a multiple of 32 up to 1024;
-    default :func:`tile_width`) and ``T = steps_per_visit`` diagonals a
-    visit (1 to 32).  Same outputs as :func:`wavefront_dp_tiled_plain` and
-    ``kernels.scan.wavefront_dp``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+    with ``Lp = Lx + 1``) with true lengths ``lx, ly int32[B]``, on the
+    cluster of :func:`tiled_geometry` (``tile_lanes`` W a multiple of 32 up
+    to 512, ``ctas`` R from 1 to 16, ``steps_per_visit`` T from 1 to 32).
+    Same outputs as :func:`wavefront_dp_tiled_plain` and
+    ``kernels.scan.wavefront_dp``; ``out``, where given, is the dict of
+    output tensors written (as ``fused_dp.wavefront_dp_fused``'s).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, or
+    raise where the card cannot hold one cluster of the geometry."""
     from_hs = isinstance(source, torch.Tensor)
     if (source if from_hs else source[0]).device.type == "cpu":
-        return wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
-                                        tile_lanes=tile_lanes, steps_per_visit=steps_per_visit)
+        got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
+                                       tile_lanes=tile_lanes, ctas=ctas,
+                                       steps_per_visit=steps_per_visit)
+        if out is None:
+            return got
+        check_out(out, *_problem_shape(source), traceback, got["score"].device)
+        for key, t in out.items():
+            t.copy_(got[key])
+        return out
     global launches
     k = check_series(gap_series, mode)
     if from_hs:
@@ -142,44 +246,46 @@ def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceb
         B, Lx, Ly, A = check_rows(*source, lx, ly)
         D, Lp = Lx + Ly + 1, Lx + 1
         dev = source[0].device
-    W = tile_width(Lp, tile_lanes)
-    T = steps_per_visit
-    if not (32 <= W <= MAX_TILE_LANES and W % 32 == 0):
-        raise ValueError(f"tile_lanes must be a multiple of 32 from 32 to {MAX_TILE_LANES}, got {W}")
-    if not 1 <= T <= MAX_STEPS:
-        raise ValueError(f"steps_per_visit must be 1 to {MAX_STEPS}, got {T}")
+    kind = "hs" if from_hs else "rows"
+    g = tiled_geometry(Lp, k, kind, ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit)
+    check_geometry(g, Lp)
+    if max_active_clusters(k, kind, g) < 1:
+        raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} threads "
+                           f"and {g.smem_bytes} B of shared memory at k={k} on the {kind} source")
     gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
     f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    carry = torch.empty((B, carry_values(k), Lp), **f32)
-    out = {
-        "score": torch.empty(B, **f32),
-        "length": torch.empty(B, **f32),
-        "ti": torch.empty(B, **i32),
-        "tj": torch.empty(B, **i32),
-        "tcode": torch.empty(B, **i32),
-    }
-    tb = torch.empty((D - 2, B, Lp), dtype=torch.uint8, device=dev) if traceback else None
-    outs = (carry.data_ptr(), out["score"].data_ptr(), out["length"].data_ptr(),
-            out["ti"].data_ptr(), out["tj"].data_ptr(), out["tcode"].data_ptr(),
-            tb.data_ptr() if traceback else None)
+    carry = torch.empty((B, carry_values(k), Lp), **f32) if g.carry_scratch else None
+    if out is None:
+        out = empty_outputs(B, Lp - 1, D - Lp, traceback, dev)
+    check_out(out, B, Lp - 1, D - Lp, traceback, dev)
+    tb = out.get("tb")
+    outs = (carry.data_ptr() if carry is not None else None, out["score"].data_ptr(),
+            out["length"].data_ptr(), out["ti"].data_ptr(), out["tj"].data_ptr(),
+            out["tcode"].data_ptr(), tb.data_ptr() if traceback else None)
     series = (gaps.ctypes.data_as(ctypes.c_void_p), k, MODES.index(mode), int(traceback))
+    shape = (g.W, g.R, g.m, g.T)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if from_hs:
             rc = lib.praline_tiled_dp_hs(source.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-                                         *series, D, B, Lp, W, T, *outs, stream)
+                                         *series, D, B, Lp, *shape, *outs, stream)
         else:
             AP = padded_alphabet(A)
             t_rows = torch.empty((B, Lx, AP), **f32)
             cy_rows = torch.empty((B, Ly, AP), **f32)
             rc = lib.praline_tiled_dp_rows(*(t.data_ptr() for t in source), lx.data_ptr(),
-                                           ly.data_ptr(), *series, B, Lx, Ly, A, W, T,
+                                           ly.data_ptr(), *series, B, Lx, Ly, A, *shape,
                                            t_rows.data_ptr(), cy_rows.data_ptr(), *outs,
                                            stream)
     build.check(rc, "praline_tiled_dp_hs" if from_hs else "praline_tiled_dp_rows")
     launches += 1
-    if traceback:
-        out["tb"] = tb
     return out
+
+
+def _problem_shape(source) -> tuple[int, int, int]:
+    """``(B, Lx, Ly)`` of a score source."""
+    if isinstance(source, torch.Tensor):
+        D, B, Lp = source.shape
+        return B, Lp - 1, D - Lp
+    return source[0].shape[0], source[0].shape[1], source[2].shape[1]

@@ -294,9 +294,28 @@ def test_tiled_matches_plain(cuda, mode, gap_series, traceback):
                    tile_lanes=128, steps_per_visit=32)
 
 
+@pytest.mark.parametrize("R", range(1, tiled_dp.MAX_CTAS + 1))
+def test_tiled_cluster_sizes_match_plain(cuda, R):
+    """Every cluster size, with 1, 2 or 3 tiles a CTA (Lp 701: ragged last
+    tiles; tiles sized for R % 3 + 1 tiles a CTA, which warp-wide tiles do
+    not allow at every R), both sources, every mode, scores and
+    traceback."""
+    W = min(tiled_dp.MAX_TILE_LANES, -(-(-(-701 // (R * (R % 3 + 1)))) // 32) * 32)
+    assert 1 <= tiled_dp.tiled_geometry(701, 2, ctas=R, tile_lanes=W).m <= 3
+    ops = operands(700 + R, 3, 700, 90, cuda)
+    hs = plain_scores(*ops[:5])
+    for mode in MODES:
+        for traceback in (False, True):
+            want = plain_dp(hs, ops[5], ops[6], (11, 1), mode, traceback)
+            for source in (hs, ops[:5]):
+                tiled_vs_plain(source, ops[5], ops[6], (11, 1), mode, traceback, want,
+                               ctas=R, tile_lanes=W, steps_per_visit=(32, 7, 3)[R % 3])
+
+
 @pytest.mark.parametrize("mode", ["global", "local"])
 def test_tiled_rows_past_the_fused_cap(cuda, mode):
-    """Lp 4201, the default tiles (5 of 864 lanes), both sources."""
+    """Lp 4201, the default geometry (15 CTAs of one 288-lane tile), both
+    sources."""
     ops = operands(4200 + len(mode), 1, 4200, 300, cuda)
     hs = plain_scores(*ops[:5])
     for traceback in (False, True):
@@ -305,11 +324,20 @@ def test_tiled_rows_past_the_fused_cap(cuda, mode):
         tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, traceback, want)
 
 
-def test_tiled_refuses_what_it_does_not_take(cuda):
+def test_tiled_refuses_what_it_does_not_take(cuda, monkeypatch):
+    """Geometries the kernel does not take raise, and so does one the card
+    cannot hold: no launch, no other kernel in its place."""
     ops = operands(5, 1, 100, 50, cuda)
-    for kw in (dict(tile_lanes=48), dict(tile_lanes=2048), dict(steps_per_visit=33)):
+    for kw in (dict(tile_lanes=48), dict(tile_lanes=1024), dict(steps_per_visit=33),
+               dict(ctas=17)):
         with pytest.raises(ValueError):
             tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], **kw)
+    monkeypatch.setattr(tiled_dp, "max_active_clusters", lambda *args: 0)
+    before = (tiled_dp.launches, wavefront.launches, dict(fused_dp.launches))
+    for source in (plain_scores(*ops[:5]), ops[:5]):
+        with pytest.raises(RuntimeError, match="cannot hold one cluster"):
+            tiled_dp.wavefront_dp_tiled(source, ops[5], ops[6], ctas=16)
+    assert (tiled_dp.launches, wavefront.launches, dict(fused_dp.launches)) == before
 
 
 def test_batched_aligner_routes_rows_past_4096_to_the_tiled_kernel(cuda):

@@ -8,17 +8,19 @@ tile, step) order with its edge hand-off.  It is held bit for bit against:
   the same seeded scores in K6's body layout;
 - the port's plain whole-row DP ``kernels/scan.py::wavefront_dp`` over
   modes x gap series x tile widths x diagonals a visit, with both score
-  sources;
+  sources, and at the tile widths the kernel runs on long rows;
 - the 8 goldens, aligned through the tiled route with the two-kernel and
   fused lane caps lowered to 64 lanes and the tile cap lowered so that
   each golden's widest DP walks two tiles.
 
-Tolerance 0.  The CUDA kernel is held against the plain version in
-``test_torch_cuda.py``.
+It also holds the kernel's default geometry (``tiled_geometry``) to the
+card's limits at every lane count.  Tolerance 0.  The CUDA kernel is held
+against the plain version in ``test_torch_cuda.py``.
 """
 
 import itertools
 import zlib
+from dataclasses import astuple
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -119,10 +121,94 @@ def test_plain_matches_whole_row_plain_dp(mode, gap_series, traceback):
 
 
 def test_default_tiles_are_balanced_and_warp_wide():
-    assert tiled_dp.tile_width(200, 48) == 48
-    assert [tiled_dp.tile_width(Lp) for Lp in (2, 1024, 1025, 4097, 4601)] == [
-        32, 1024, 544, 832, 928]
+    """The default cluster spreads a row over up to 16 CTAs of one tile
+    where it can (no narrower than 256 lanes), then takes tiles of 512."""
+    geo = lambda Lp, **kw: astuple(tiled_dp.tiled_geometry(Lp, 2, **kw))[:3]
+    assert geo(200, tile_lanes=48) == (5, 1, 48)
+    assert geo(200, ctas=3) == (3, 1, 96)
+    assert [geo(Lp) for Lp in (2, 1024, 1025, 4097, 4601, 4957, 8192, 8193, 40000)] == [
+        (1, 1, 256), (4, 1, 256), (5, 1, 256), (15, 1, 288), (16, 1, 288), (16, 1, 320),
+        (16, 1, 512), (15, 2, 288), (16, 5, 512)]
     assert [tiled_dp.carry_values(k) for k in (1, 2, 3, 15)] == [14, 14, 22, 70]
+
+
+EDGES = sorted({e for R in range(1, 17) for m in (1, 2, 3)
+                for e in (512 * R * m, 512 * R * m + 1, 256 * R, 256 * R + 1)})
+
+
+@pytest.mark.parametrize("source", tiled_dp.SOURCES)
+@pytest.mark.parametrize("k", [1, 2, 3, 15])
+def test_geometry_fits_the_card_at_every_lane_count(k, source):
+    """Lp from 2 to 40,000 (sampled, with the edges 512 R m and 256 R and
+    one past each): a cluster of at most 16 CTAs of warp-wide tiles of at
+    most 512 lanes covering the row, no CTA without lanes, two CTAs or more
+    past 512 lanes, boxes of 32 diagonals, and shared memory within the
+    H100's 232,448 bytes a CTA, with the carries in it where they fit."""
+    for Lp in sorted(set(range(2, 40_001, 97)) | set(EDGES)):
+        g = tiled_dp.tiled_geometry(Lp, k, source)
+        assert 1 <= g.R <= tiled_dp.MAX_CTAS and g.m >= 1 and g.T == 32
+        assert g.W % 32 == 0 and 32 <= g.W <= tiled_dp.MAX_TILE_LANES
+        assert g.R * g.m * g.W >= Lp > (g.R - 1) * g.m * g.W
+        assert g.R >= 2 or Lp <= 512
+        assert g.m == -(-Lp // (tiled_dp.MAX_CTAS * tiled_dp.MAX_TILE_LANES))
+        assert g.smem_bytes <= tiled_dp.SMEM_PER_CTA
+        base, in_smem = tiled_dp.smem_layout(g.W, g.T, 1, k, source)
+        carries = tiled_dp.carry_values(k) * g.m * g.W * 4
+        assert g.carry_scratch == (g.m > 1 and base + carries > tiled_dp.SMEM_PER_CTA)
+        assert g.smem_bytes == base + (carries if g.m > 1 and not g.carry_scratch else 0)
+    with pytest.raises(ValueError):
+        tiled_dp.tiled_geometry(10, k, "both")
+
+
+@pytest.mark.parametrize("W,Lx,mode,traceback", [(320, 700, "local", True),
+                                                 (496, 1020, "semiglobal", False)])
+def test_plain_at_the_card_tile_widths_matches_jax_and_whole_row(W, Lx, mode, traceback):
+    """The tile widths the kernel runs on long rows (320 and 496 lanes),
+    each with a ragged last tile, against K6 in interpret mode and the
+    whole-row plain DP."""
+    ops = operands(seed_of("card widths", W), 2, Lx, 30)
+    hs = skewed_pair_scores(*ops[:5])
+    D, B, Lp = hs.shape
+    assert Lp % W and Lp // W >= 2  # ragged, past one tile
+    body = np.zeros((-(-(D - 2) // 128) * 128, B, -(-Lp // 128) * 128), np.float32)
+    body[: D - 2, :, :Lp] = hs.numpy()[2:]
+    jax_want = jax_tiled(jnp.asarray(body), jnp.asarray(ops[5].numpy()),
+                         jnp.asarray(ops[6].numpy()), gap_series=(11, 1), mode=mode,
+                         traceback=traceback, steps_per_visit=8, total_d=D, interpret=True)
+    want = plain_dp(hs, ops[5], ops[6], (11, 1), mode, traceback)
+    for source in (hs, ops[:5]):
+        got = tiled(source, ops[5], ops[6], (11, 1), mode, traceback, tile_lanes=W)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+        for key in ("score", "ti", "tj") + (("tcode",) if traceback else ("length",)):
+            assert np.array_equal(got[key].numpy(), np.asarray(jax_want[key])), key
+        if traceback:
+            assert np.array_equal(got["tb"].numpy(), np.asarray(jax_want["tb"])[: D - 2, :, :Lp])
+
+
+def test_tiled_ablation_variant_applies_to_the_kernel_source():
+    """``tiled_ablation``'s "direct" variant replaces the hs visits (and
+    nothing else) of ``csrc/tiled_dp.cu``; "kernel" is the source as is."""
+    from praline_tpu_torch import tiled_ablation
+
+    source = tiled_ablation.SOURCE.read_text()
+    assert tiled_ablation.variant_source("kernel") == source
+    direct = tiled_ablation.variant_source("direct")
+    assert direct.count("struct HsVisits {") == 1 and tiled_ablation.DIRECT_VISITS in direct
+    assert "copy_wait_group<1>" in source and "copy_wait_group<1>" not in direct
+    assert direct.split("struct HsVisits {")[0] == source.split("struct HsVisits {")[0]
+
+
+def test_outputs_into_out_on_the_plain_path():
+    ops = operands(seed_of("out"), 2, 40, 30)
+    want = plain_dp(skewed_pair_scores(*ops[:5]), ops[5], ops[6], (11, 1), "local", True)
+    out = {k: torch.full_like(v, -7) for k, v in want.items()}
+    got = tiled(ops[:5], ops[5], ops[6], (11, 1), "local", True, out=out, ctas=2)
+    assert got is out
+    for key in want:
+        assert torch.equal(out[key], want[key]), key
+    with pytest.raises(ValueError, match="out must hold"):
+        tiled(ops[:5], ops[5], ops[6], (11, 1), "local", False, out=out)
 
 
 @pytest.mark.parametrize("traceback", [False, True])
