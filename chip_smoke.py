@@ -33,7 +33,17 @@ kernel over the producer's hs and the plain version at the headline
 bucket, a merge level and the long family's bucket, the tiled kernel
 beside the fused kernel at 3000x3000 and 2303x2303 and beside the
 whole-row DP and the fused kernel at buckets 1023 and 2047, K9 beside
-``torch.full``, aligns the committed
+``torch.full``.  The DP over hs (K2/K4) is held against the plain DP on
+both its geometries (throughput, built for four and for five CTAs an SM,
+and latency) at the three buckets in every
+mode at 1, 2, 3 and 15 gap levels, scores and traceback, NaN-poisoned, and
+on problems at the band's edges; ``[dp-times]`` times it on its default
+geometry and six others beside the tiled kernel over the same hs at the
+headline chunk (2945 x 1023), B64 at buckets 1023 and 2047, the tracks
+traceback chunk (256) and merge levels of 4 and 1 problems
+and holds the lane slots the kernel counts as it runs against their model
+(``python3 chip_smoke.py dp-times DIR`` runs that phase alone on the tree
+at DIR, so that the parent's DP is timed in the same call).  It aligns the committed
 goldens through the CUDA path on both routes, then drives the main paths
 at full size, with the launch counts set to 0 before each and read after
 its own runs: the all-pairs distance stage on 8192 pairs of bucket 1023
@@ -87,8 +97,8 @@ FAMILY_SIZE = 128
 LONG_FAMILY_SIZE = 32
 LONG8_SIZE = 8
 # (B, bucket_x, bucket_y, shortest length) of the kernel = plain checks:
-# the headline bucket, a small ragged pair, and bucket 2047, where the DP
-# gives each thread two lanes (the merge levels of the msa run take it).
+# the headline bucket, a small ragged pair, and bucket 2047, the DP's
+# widest rows (16 tiles; the merge levels of the msa run take it).
 KERNEL_SHAPES = ((64, 1023, 1023, 512), (16, 63, 127, 1), (8, 2047, 2047, 1024))
 MODES = ("global", "semiglobal", "local")
 SWEEP_SERIES = ((11, 1), (13, 7, 1), (5,))
@@ -241,17 +251,18 @@ def phase_build():
         sources=",".join(p.name for p in build.sources()),
         per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
     usage = ptxas_usage("\n".join(build.last_build_log.values()))
-    kernels = (("tiled_cluster_kernel", "Lb1E", "source", "hs"),
-               ("tiled_cluster_kernel", "Lb0E", "source", "rows"),
-               ("wavefront_kernel", "Li1E", None, None),
-               ("fused_cluster_kernel", "Lb1E", "tier", "mma"),
-               ("fused_cluster_kernel", "Lb0E", "tier", "scalar"))
-    for kernel, second, what, which in kernels:
+    kernels = (("walk_kernel", "tiled_dp", "source", "hs", TILED_HS),
+               ("walk_kernel", "tiled_dp", "source", "rows", TILED_ROWS),
+               ("walk_kernel", "wavefront_dp", "min_blocks", 4, DP_WALK.format(n=4, k="{k}")),
+               ("walk_kernel", "wavefront_dp", "min_blocks", 5, DP_WALK.format(n=5, k="{k}")),
+               ("fused_cluster_kernel", "fused_dp", "tier", "mma", FUSED_MMA),
+               ("fused_cluster_kernel", "fused_dp", "tier", "scalar", FUSED_SCALAR))
+    for kernel, source, what, which, pattern in kernels:
         found = {}
         for k in (1, 2, 3, 15):
             found[f"K{k}"] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
-                *kernel_usage(usage, kernel, k, second))
-        say("registers", kernel=kernel, **({what: which} if what else {}), lanes_per_thread=1,
+                *kernel_usage(usage, pattern.format(k=k)))
+        say("registers", kernel=kernel, file=source, **{what: which}, lanes_per_thread=1,
             **found)
     phase_cluster_occupancy()
     return usage
@@ -276,13 +287,25 @@ def phase_build():
         mma_ptxas=repr(smem.group(0).splitlines()[-1].strip()) if smem else "not found")
 
 
-def kernel_usage(usage, kernel, k, second) -> tuple[int, int, int]:
-    """(registers, spill store bytes, spill load bytes) of ``kernel<k,
-    second>`` from the build's ``-Xptxas -v`` lines."""
-    key = next((n for n in usage if f"{kernel}ILi{k}E{second}" in n), None)
-    if key is None:
-        raise AssertionError(f"build: no -Xptxas -v line for {kernel}<{k}, {second}>")
-    return usage[key]
+# Mangled names of the DP kernels at k = {k} levels: the fused kernel on
+# either tier, csrc/cluster_walk.cuh's walk_kernel<Src, K, BAND, MAXW, MINB>
+# as the tiled kernel (on hs or in place, 512 threads) and as the DP over
+# hs (the band on, 128 threads, at least {n} CTAs an SM).
+FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1E"
+FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0E"
+TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1E"
+TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1E"
+DP_WALK = r"walk_kernelI.*HsSourceELi{k}ELb1ELi128ELi{n}E"
+
+
+def kernel_usage(usage, pattern) -> tuple[int, int, int]:
+    """(registers, spill store bytes, spill load bytes) of the one kernel
+    whose mangled name matches ``pattern``, from the build's ``-Xptxas
+    -v`` lines."""
+    keys = [n for n in usage if re.search(pattern, n)]
+    if len(keys) != 1:
+        raise AssertionError(f"build: {len(keys)} -Xptxas -v lines for {pattern}")
+    return usage[keys[0]]
 
 
 def phase_cluster_occupancy():
@@ -327,7 +350,7 @@ def phase_cluster_occupancy():
                         raise AssertionError(f"no cluster of {g} fits at k={k} on {source}")
                     rows.append(f"R{g.R}:m{g.m}:W{g.W}:{g.smem_bytes}B:"
                                 f"{'L2' if g.carry_scratch else 'smem'}:{clusters}")
-            say("clusters", kernel="tiled_cluster_kernel", k=k, source=source,
+            say("clusters", kernel="walk_kernel", source_file="tiled_dp", k=k, score_source=source,
                 T=tiled_dp.MAX_STEPS, R_m_W_smem_carries_active_clusters=",".join(rows))
 
 
@@ -1115,7 +1138,7 @@ def phase_tiled_long(dev, usage) -> dict:
     others["rows_ms"] = cuda_ms(lambda: tiled(ops[:5]), 3)
     out = {"err": err, "ms": ms, "plain_ms": plain_ms, **dp_bound(ops[5], ops[6], want)}
     g = tiled_geometry(bx + 1, 2)
-    regs, spill_st, spill_ld = kernel_usage(usage, "tiled_cluster_kernel", 2, "Lb1E")
+    regs, spill_st, spill_ld = kernel_usage(usage, TILED_HS.format(k=2))
     out["geometry"] = {"R": g.R, "m": g.m, "W": g.W, "T": g.T, "smem_bytes": g.smem_bytes,
                        "registers": regs, "spill_stores": spill_st, "spill_loads": spill_ld}
     out["variants"] = others
@@ -1204,6 +1227,197 @@ def phase_tiled_times(dev):
             seconds=round(time.perf_counter() - t0, 3), **{k: round(v, 4) for k, v in out.items()})
         results[f"B{B}x{bx}"] = out
         del hs
+    return results
+
+
+# The whole-row DP (K2/K4) against its plain version: the gap series of its
+# checks (k = 2, 3, 1 and 15) and, at bucket 1023, problems at the band's
+# edges (lx, ly): both lengths 1, lx << ly and lx >> ly, lx = Lp - 1, and ly
+# = 34, 162 and 290 (2 mod 32), with which every full tile of 128 lanes
+# leaves the band at the first diagonal of a box of 32 (ie + ly + 1 = 2 mod
+# 32), so that the next tile's first lane enters the last column there.
+DP_SERIES = ((11, 1), (13, 7, 1), (5,), tuple(range(30, 0, -2)))
+DP_EDGES = ((1, 1), (1, 1023), (1023, 1), (3, 900), (1000, 5), (1023, 1023), (700, 34),
+            (500, 162), (1023, 290), (128, 1), (129, 34))
+# (B, bucket, shortest length, traceback) of the [dp-times] phase: the
+# headline chunk (the batch driver's chunk of the 8192 headline pairs on an
+# 80 GB card), the kernel phases' B64, bucket 2047, the tracks workload's
+# traceback chunk, and merge levels of one and four problems.
+DP_TIMES = ((2945, 1023, 512, False), (64, 1023, 512, False), (64, 1023, 512, True),
+            (64, 2047, 1024, False), (64, 2047, 1024, True), (256, 1023, 512, True),
+            (4, 1023, 512, True), (1, 1023, 512, True))
+# Geometries timed beside the default at each DP_TIMES shape: (kind, CTAs a
+# problem (None: the kind's), the kernel's launch bound of CTAs an SM).
+DP_VARIANTS = (("throughput", None, 4), ("throughput", None, 5), ("latency", 2, 4),
+               ("latency", 4, 4), ("latency", None, 4), ("latency", None, 5))
+
+
+def poisoned(want: dict) -> dict:
+    """Output tensors shaped as ``want``, filled with NaN (floats), 0xAB
+    (traceback bytes) or -7 (integers)."""
+    import torch
+
+    return {k: torch.full_like(v, float("nan") if v.is_floating_point()
+                               else 0xAB if v.dtype == torch.uint8 else -7)
+            for k, v in want.items()}
+
+
+def dp_vs_plain(hs, lx, ly, series, mode, want, what, geometry) -> float:
+    """The whole-row DP on ``geometry`` into NaN-poisoned outputs
+    (traceback where ``want`` has ``tb``), held bit for bit against the
+    plain DP's ``want``."""
+    from praline_tpu_torch.kernels import wavefront
+
+    out = poisoned(want)
+    before = wavefront.launches
+    wavefront.wavefront_dp(hs, lx, ly, series, mode, "tb" in want, geometry=geometry, out=out)
+    if wavefront.launches != before + 1:
+        raise AssertionError("dp: no launch counted")
+    return same_outputs(out, want, f"dp {what} {geometry}")
+
+
+def phase_dp_vs_plain(dev) -> dict:
+    """K2 against the plain DP at KERNEL_SHAPES in every mode, DP_SERIES,
+    scores and traceback, on both geometries (the throughput one built for
+    four and for five CTAs an SM), each output NaN-poisoned; then the band's
+    edges (DP_EDGES) at bucket 1023 in every mode, scores and traceback.
+    The geometry the batch driver takes for each shape is printed, with the
+    cluster occupancy and the registers of each level count."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import build, wavefront
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 11)
+    err, t0, seen = 0.0, time.perf_counter(), set()
+    for B, bx, by, lo in KERNEL_SHAPES:
+        for mode in MODES:
+            for series in DP_SERIES:
+                ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+                hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
+                k = len(series)
+                want = plain_dp(hs, ops[5], ops[6], series, mode, True)
+                geometries = (wavefront.geometry("throughput", bx + 1, k),
+                              wavefront.geometry("throughput", bx + 1, k, min_blocks=5),
+                              wavefront.geometry("latency", bx + 1, k, ctas=3),
+                              wavefront.geometry("latency", bx + 1, k))
+                for g in geometries:
+                    seen.add((g.kind, g.R, g.m, g.W, g.min_blocks, carries_of(g)))
+                    for w in (want, scores_only(want)):
+                        err = max(err, dp_vs_plain(hs, ops[5], ops[6], series, mode, w,
+                                                   f"{mode} {series} B{B}x{bx}x{by}", g))
+                del hs, want
+        say("dp=plain", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
+            series="|".join(",".join(map(str, g)) for g in DP_SERIES), traceback="both",
+            geometries="throughput(min_blocks=4,5),latency(R=3,R=tiles)",
+            default_geometry=repr(wavefront.dp_geometry(B, bx + 1, 2, False)),
+            default_geometry_traceback=repr(wavefront.dp_geometry(B, bx + 1, 2, True)),
+            result="bit-equal(all outputs, all tb bytes; NaN-poisoned)")
+    lx = torch.tensor([a for a, _ in DP_EDGES], dtype=torch.int32, device=dev)
+    ly = torch.tensor([b for _, b in DP_EDGES], dtype=torch.int32, device=dev)
+    B, L = len(DP_EDGES), HEADLINE_BUCKET
+    hs = torch.from_numpy(rng.normal(0.0, 4.0, size=(2 * L + 1, B, L + 1)).astype(np.float32)).to(dev)
+    for mode in MODES:
+        for series in DP_SERIES[:2]:
+            want = plain_dp(hs, lx, ly, series, mode, True)
+            for g in (wavefront.geometry("throughput", L + 1, len(series)),
+                      wavefront.geometry("latency", L + 1, len(series), ctas=3),
+                      wavefront.geometry("latency", L + 1, len(series))):
+                for w in (want, scores_only(want)):
+                    err = max(err, dp_vs_plain(hs, lx, ly, series, mode, w, f"edges {mode}", g))
+    say("dp=plain-edges", bucket=L, lx_ly=";".join(f"{a},{b}" for a, b in DP_EDGES),
+        modes=",".join(MODES), series="11,1|13,7,1", geometries="throughput,latency(R=3,R=8)",
+        result="bit-equal(all outputs, all tb bytes; NaN-poisoned)")
+    occupancy = {}
+    for k in (1, 2, 3, 15):
+        for g in (wavefront.geometry("throughput", 1024, k),
+                  wavefront.geometry("throughput", 1024, k, min_blocks=5),
+                  wavefront.geometry("latency", 1024, k, ctas=2),
+                  wavefront.geometry("latency", 1024, k), wavefront.geometry("latency", 2048, k)):
+            got = build.load_library().praline_wavefront_dp_smem(g.W, g.T, g.m, k)
+            if got != g.smem_bytes:
+                raise AssertionError(f"dp smem {g} k={k}: kernel {got} B")
+            occupancy[f"k{k}_{g.kind}_R{g.R}_m{g.m}_W{g.W}_n{g.min_blocks}_"
+                      f"{carries_of(g)}_{g.smem_bytes}B"] = \
+                wavefront.max_active_clusters(k, g)
+    say("dp-occupancy", **occupancy)
+    say("dp=plain-done", checked=";".join(",".join(map(str, g)) for g in sorted(seen)),
+        seconds=round(time.perf_counter() - t0, 3))
+    return {"err": err, "occupancy": occupancy, "geometries": sorted(seen)}
+
+
+def carries_of(g) -> str:
+    """Where geometry ``g`` keeps a tile's carries between visits."""
+    return "L2" if g.carry_scratch else "registers"
+
+
+def phase_dp_times(dev) -> dict:
+    """K2 at DP_TIMES on the default geometry, in turns with the tiled
+    kernel (K6) over the same hs and, where the package has them, the
+    DP_VARIANTS geometries; the headline chunk's 64 first problems held
+    against the plain DP.  Where the package has it, one more launch counts
+    the lane slots the kernel runs (``slots=``), which must equal the model
+    ``wavefront.lane_slots``.  Runs on whichever package is imported, so
+    that ``python3 chip_smoke.py dp-times DIR`` times another tree's kernels
+    (the parent's whole-row DP) at the same shapes in the same call."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import wavefront
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    variants = hasattr(wavefront, "dp_geometry")
+    results = {}
+    for B, bx, lo, tb in DP_TIMES:
+        t0 = time.perf_counter()
+        ops = stacked_operands(np.random.default_rng(SEED + 12), dev, s, B, bx, bx, lo)
+        hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
+        lx, ly = ops[5], ops[6]
+        del ops
+        args = (lx, ly, (11, 1), "global", tb)
+        d = {"dp_ms": cuda_ms(lambda: wavefront.wavefront_dp(hs, *args), 5),
+             "tiled_ms": cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)}
+        if variants:
+            g = wavefront.dp_geometry(B, bx + 1, 2, tb)
+            d["geometry"] = f"{g.kind}:R{g.R}:m{g.m}:W{g.W}:n{g.min_blocks}:{carries_of(g)}"
+            ran = torch.zeros(1, dtype=torch.int64, device=dev)
+            wavefront.wavefront_dp(hs, *args, slots=ran)
+            model = wavefront.lane_slots(lx.cpu().numpy(), ly.cpu().numpy(), hs.shape[0], bx + 1,
+                                         g, tb)
+            if ran.item() != model:
+                raise AssertionError(f"dp-times B{B}x{bx}: the kernel ran {ran.item()} lane "
+                                     f"slots, lane_slots says {model}")
+            d["lane_slots_per_cell"] = ran.item() / needed_cells(lx, ly)
+            for kind, ctas, n in DP_VARIANTS:
+                v = wavefront.geometry(kind, bx + 1, 2, ctas=ctas, min_blocks=n)
+                name = f"{kind}_R{v.R}_m{v.m}_n{n}_{carries_of(v)}_ms"
+                d[name] = cuda_ms(lambda: wavefront.wavefront_dp(hs, *args, geometry=v), 5)
+        d["dp_again_ms"] = cuda_ms(lambda: wavefront.wavefront_dp(hs, *args), 5)
+        d["wall_s"] = time.perf_counter() - t0
+        d.update(dp_bound(lx, ly, wavefront.wavefront_dp(hs, *args)))
+        if B > 64:
+            sub = hs[:, :64].contiguous()
+            got = wavefront.wavefront_dp(sub, lx[:64].contiguous(), ly[:64].contiguous(),
+                                         (11, 1), "global", tb)
+            same_outputs(got, plain_dp(sub, lx[:64], ly[:64], (11, 1), "global", tb),
+                         f"dp-times B{B}x{bx} first 64")
+            del sub
+        tag = f"B{B}x{bx}x{bx}_{'traceback' if tb else 'scores'}"
+        results[tag] = d
+        say("dp-times", shape=tag, **{k: (round(v, 4) if isinstance(v, float) else v)
+                                      for k, v in d.items()})
+        del hs
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1528,7 +1742,30 @@ def counted(name, phase):
     return result, counts
 
 
+def dp_only(argv) -> int:
+    """``dp-times [DIR]``: the build and the [dp-times] phase alone, on the
+    package of the tree at DIR (this checkout by default), so that the
+    parent's K2 is timed at this tree's shapes in the same call."""
+    global ROOT
+    if len(argv) > 1:
+        ROOT = Path(argv[1]).resolve()
+    smi = phase_environment()
+    from praline_tpu_torch.device import resolve_device
+    from praline_tpu_torch.kernels import build
+
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    build.build()
+    build.load_library()
+    say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
+    say("dp-times-tree", root=str(ROOT), json=json.dumps(phase_dp_times(dev)))
+    print(smi)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["dp-times"]:
+        return dp_only(sys.argv[1:])
     smi = phase_environment()
     import torch
 
@@ -1544,6 +1781,8 @@ def main() -> int:
     tiled_err = phase_tiled_vs_plain(dev)
     tiled_long = phase_tiled_long(dev, usage)
     tiled_times = phase_tiled_times(dev)
+    dp_check = phase_dp_vs_plain(dev)
+    dp_times = phase_dp_times(dev)
     phase_goldens(dev)
     probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
@@ -1614,9 +1853,16 @@ def main() -> int:
          "source": "praline_tpu_torch/csrc/wavefront_dp.cu",
          "replaces": "praline_tpu/kernels/strip.py:587 (wavefront_dp_strip), "
                      "praline_tpu/kernels/pallas_dp.py:628 (wavefront_dp_pallas)",
-         "launches": launches["dp"], "max_abs_err": timing["dp_err"],
+         "launches": launches["dp"], "max_abs_err": max(timing["dp_err"], dp_check["err"]),
          "ms": timing["dp_ms"], "plain_ms": timing["dp_plain_ms"],
-         **timing["dp_bound"], "library_ms": None},
+         **timing["dp_bound"], "library_ms": None, "shape": "B64x1023x1023 global scores",
+         "geometry": dp_times["B64x1023x1023_scores"]["geometry"],
+         "registers": {f"k{k}_n{n}": "{}regs/{}B-spill-stores/{}B-spill-loads".format(
+             *kernel_usage(usage, DP_WALK.format(k=k, n=n)))
+             for k in (1, 2, 3, 15) for n in (4, 5)},
+         "occupancy": dp_check["occupancy"],
+         "lane_slots_per_cell": {t: d["lane_slots_per_cell"] for t, d in dp_times.items()},
+         "variants": dp_times},
         {"name": "replay_moves", "route": "cuda",
          "source": "praline_tpu_torch/csrc/replay.cu",
          "replaces": "praline_tpu/kernels/replay.py:131 (replay_moves, an XLA scan)",

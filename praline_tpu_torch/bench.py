@@ -244,19 +244,19 @@ def bench_utilization(device="cuda", *, smem_shape=SMEM_SHAPE, smem_links: int =
     in shared memory; ``bench.py``'s ``vmem_roofline_bytes_per_s``) and
     ``alu_roofline_ops_per_s`` from K8 (:func:`alu_chains`, three
     operations a link).  The DP's work: ``dp_lane_ops_per_step`` from
-    :func:`count_step_lane_ops`; the lane slots a cell, the DP's own: in
-    scores mode the whole-row DP walks diagonals 2 .. lx + ly with all
-    ``bucket + 1`` lanes of the row (``csrc/wavefront.cuh``), so a problem
-    takes ``(lx + ly - 1) * (bucket + 1)`` slots for its ``lx * ly``
-    cells; ``dp_bytes_per_cell``: the device-memory bytes the DP moves,
-    counted as ``chip_smoke.py::dp_bound`` counts them (each needed ``hs``
-    cell read once, the per-problem results written once).
-    ``dp_only_cells_per_s``: the whole-row DP alone by CUDA events over
+    :func:`count_step_lane_ops`; the lane slots a cell, the DP's own: on
+    the card those the kernel counts as it runs (``slots`` of
+    ``kernels/wavefront.py::wavefront_dp``: in scores mode the tiles'
+    visits of each problem's band), on the CPU the plain DP's (every lane
+    of diagonals 2 .. 2 L); ``dp_bytes_per_cell``: the device-memory bytes
+    the DP moves, counted as ``chip_smoke.py::dp_bound`` counts them (each
+    needed ``hs`` cell read once, the per-problem results written once).
+    ``dp_only_cells_per_s``: the DP over hs alone by CUDA events over
     two seeded sets of ``dp_batch`` pairs at bucket ``L`` with ragged
     lengths (their ``hs`` made beforehand by the producer, whose time is
     ``producer_s_per_2set``).  ``alu_utilization`` (the value) is the
     DP's operation rate over the chain roofline.  ``bench.py``'s
-    ``vmem_utilization`` has no counterpart: the whole-row DP keeps its
+    ``vmem_utilization`` has no counterpart: the DP keeps a tile's
     carries in registers and hands them on by warp shuffles, so no stream
     of its bytes goes through shared memory at K7's rate.
     ``headline_cells_per_s`` is :func:`bench_cells` with four iterations
@@ -280,7 +280,8 @@ def bench_utilization(device="cuda", *, smem_shape=SMEM_SHAPE, smem_links: int =
         lx = rngu.integers(L // 2, L + 1, size=dp_batch).astype(np.int32)
         ly = rngu.integers(L // 2, L + 1, size=dp_batch).astype(np.int32)
         cells += float((lx.astype(np.float64) * ly).sum())
-        slots += float((lx.astype(np.float64) + ly - 1).sum()) * (L + 1)
+        if dev.type == "cpu":  # the plain DP steps every lane of diagonals 2 .. 2 L
+            slots += float(dp_batch) * (2 * L - 1) * (L + 1)
         out_bytes += dp_batch * 5 * 4  # score, length, ti, tj, tcode
         ops = [torch.from_numpy(a).to(dev) for a in (cx, ivx, cy, ivy)]
         tier = tier_of(cx, cy, s_host)
@@ -288,6 +289,11 @@ def bench_utilization(device="cuda", *, smem_shape=SMEM_SHAPE, smem_links: int =
     t_prod = device_ms(lambda: [fused_skewed_scores(*ops, s, tier=tier)
                                 for ops, _, _, tier in sets], reps, dev)
     hss = [fused_skewed_scores(*ops, s, tier=tier) for ops, _, _, tier in sets]
+    if dev.type == "cuda":
+        ran = torch.zeros(1, dtype=torch.int64, device=dev)
+        for hs, (_, lx, ly, _) in zip(hss, sets):
+            wavefront_dp(hs, lx, ly, slots=ran)
+        slots = float(ran.item())
     t_dp = device_ms(lambda: [wavefront_dp(hs, lx, ly) for hs, (_, lx, ly, _) in zip(hss, sets)],
                      reps, dev)
     del hss, sets
@@ -430,7 +436,8 @@ def bench_modes(device="cuda", *, n: int = 64, L: int = 300) -> dict:
 def headline_chunk(dev: torch.device, L: int = HEADLINE_BUCKET) -> int:
     """Pairs a chunk of the all-pairs headline holds on ``dev`` now, sized
     as ``kernels/batch.py`` sizes it."""
-    per_prob = batch.chunk_problem_bytes("two_kernel", dev.type, L, L, ALPHABET_AA.size, False)
+    per_prob = batch.chunk_problem_bytes("two_kernel", dev.type, L, L, ALPHABET_AA.size, False,
+                                         levels=2)
     return max(1, min(HEADLINE_PAIRS, batch.MAX_BATCH, batch.dispatch_budget(dev) // per_prob))
 
 

@@ -1,7 +1,9 @@
-// The cluster walk of the Hopper DPs that run one problem on a thread-block
-// cluster: csrc/fused_dp.cu (K5, one tile a CTA, scores computed on chip)
-// and csrc/tiled_dp.cu (K6, m tiles a CTA, rows of any length).  The
-// recurrence is csrc/wavefront.cuh's; this file orders its steps.
+// The cluster walk of the Hopper DPs, each of which runs one problem on a
+// thread-block cluster (of one CTA or more): csrc/wavefront_dp.cu (K2/K4,
+// hs, up to 2048 lanes, the band flag on), csrc/fused_dp.cu (K5, one tile
+// a CTA, scores computed on chip) and csrc/tiled_dp.cu (K6, m tiles a CTA,
+// rows of any length).  The recurrence is csrc/wavefront.cuh's; this file
+// orders its steps.
 //
 // The Lp lanes are cut into tiles of W lanes (one lane a thread, W =
 // blockDim.x); CTA rank r of the R in a cluster owns the m tiles r m ..
@@ -21,9 +23,8 @@
 //     barrier a phase orders every write before its read and every read
 //     before the next write to the same half.
 // Inside a tile lanes cross warps by shuffles and a double-buffered slot a
-// warp (xbuf), as in wavefront_block.  One tile's carries live in
-// registers; with m > 1 (TILES) a visit loads the tile's carries from a
-// CarryStore and stores them back.  Borders use the global lane index.
+// warp (xbuf).  One tile's carries live in registers; with m > 1 (TILES) a
+// visit loads the tile's carries from a CarryStore and stores them back.  Borders use the global lane index.
 // Scores mode stops at diagonal dend = lx + ly and skips tiles past lx,
 // so high ranks may have nothing to do but the barriers.  Semiglobal and
 // local terminals: each thread keeps its best candidate over its lanes,
@@ -41,10 +42,17 @@
 // d0 .. d0 + T - 1 on the tile at lane i0 (nd0 < 0 where this CTA makes no
 // further visit, else the next visit's first diagonal and lane) and returns
 // a functor score(d, i) = hs[d, b, i] for the visit's cells.
+//
+// The kernel of the walks with m tiles a CTA (walk_kernel, its launch and
+// its occupancy query launch_walk) is here too, one template over the score
+// source, shared by K2/K4 (csrc/hs_visits.cuh's HsSource, the band on) and
+// K6 (HsSource or csrc/tiled_dp.cu's RowsSource); K5 has its own.
 
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "wavefront.cuh"
 
@@ -70,6 +78,31 @@ struct WalkSmem {
   Cand* red;
 };
 
+// Byte offsets of a walking CTA's dynamic shared memory: the walk's
+// cross-warp exchange xbuf[2][W / 32][NX], ring[2][T][NX] and tile edge
+// edge[T][NX], the candidates red[W / 32 + 1]; on the hs source the
+// double-buffered scores hbuf[2][T][W] (csrc/hs_visits.cuh); with m > 1
+// the carries carry[NS][m W] where the whole fits in `budget` bytes (carry
+// = -1 where it does not: they go to a device-memory scratch).
+// kernels/tiled_dp.py::smem_layout mirrors it.
+struct WalkLayout {
+  int xbuf, ring, edge, red, hbuf, carry, total;
+  __host__ __device__ WalkLayout(int W, int T, int m, int nx, int ns, bool hs, int budget) {
+    const int nw = W / 32;
+    xbuf = 0;
+    ring = xbuf + round16(2 * nw * nx * 4);
+    edge = ring + round16(2 * T * nx * 4);
+    red = edge + round16(T * nx * 4);
+    hbuf = red + round16((nw + 1) * (int)sizeof(Cand));
+    total = hbuf + (hs ? 2 * T * W * 4 : 0);
+    carry = -1;
+    if (m > 1 && total + (long long)ns * m * W * 4 <= budget) {
+      carry = total;
+      total += ns * m * W * 4;
+    }
+  }
+};
+
 // Where a tile's carries wait between visits (TILES only): value v of the
 // tile's lane t at base[v * stride + jj * W + t] in shared memory, or, in
 // device memory, at base[v * stride + i] for the global lane i < Lp.
@@ -79,7 +112,23 @@ struct CarryStore {
   bool global;
 };
 
-template <int K, bool TILES, class Visits>
+// Where the band flag is on (BAND, csrc/wavefront_dp.cu), scores mode runs
+// only the visits that hold a cell of the problem's band 0 <= j <= ly
+// (rows past lane_end are never walked).  A visit of box d0 .. d1 on the
+// tile of lanes i0 .. ie (ie = min(i0 + W - 1, lane_end)) runs the steps
+// max(d0, i0) .. min(d1, ie + ly + 1): no lane of it is in the band before
+// diagonal i0, and the one step past ie + ly hands the next tile's first
+// lane its left neighbour at (i0 + W, ly).  A visit with no cell of the band
+// is skipped, but thread W - 1 still writes slot 0 of the edge (or of the
+// next CTA's ring) from its carries: the next tile's first lane may enter
+// the band's last column at the box's first diagonal.  This is exact
+// because nothing outside the band reaches a cell inside it: a cell (i, j)
+// reads (i - 1, j), (i, j - 1) and best(i - 1, j - 1), and the j = 0 border
+// step overwrites every value that came from j < 0 (M, the gap levels,
+// their lengths and the stay bits); so a tile's carries may stay at their
+// d = 1 values until its first visit in the band, and values past j = ly
+// flow only to larger j.  Traceback mode walks every lane of every box.
+template <int K, bool TILES, bool BAND = false, class Visits>
 __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const WalkSmem& sm,
                                              const WalkShape& w, const Problem& p,
                                              const Gaps& gaps, const Outs& out, int dend,
@@ -94,7 +143,40 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
   // tiles of this CTA with a lane to compute (uniform over the CTA)
   const int tiles = max(0, min(m, lane_end / W + 1 - tile0));
   const int nbox = (dend - 2) / T + 1;
+  const bool band = BAND && !p.traceback;
   float* next_ring = r + 1 < R ? cluster.map_shared_rank(sm.ring, r + 1) : nullptr;
+  // The steps first .. last of visit (box kb, tile jj), and whether it runs:
+  // with the band, whether a step of it holds a cell of the band (the step
+  // past the band alone is no visit).
+  auto steps_of = [&](int kb, int jj, int& first, int& last) {
+    const int d0 = 2 + kb * T, d1 = min(d0 + T - 1, dend);
+    const int i0 = (tile0 + jj) * W, ie = min(i0 + W - 1, lane_end);
+    first = d0;
+    last = d1;
+    if (band) {
+      first = max(d0, i0);
+      last = min(d1, ie + p.ly + 1);
+      return first <= min(d1, ie + p.ly);
+    }
+    return true;
+  };
+  // The visit this CTA runs after (kb, jj): its box and tile, kb = -1 for
+  // none.  Past the band is for good: once the CTA's last tile is past, so
+  // are all.
+  auto next_visit = [&](int kb, int jj, int& nk, int& nj) {
+    int f, l;
+    for (++jj; kb < nbox; ++kb, jj = 0) {
+      for (; jj < tiles; ++jj)
+        if (steps_of(kb, jj, f, l)) {
+          nk = kb;
+          nj = jj;
+          return;
+        }
+      if (band && 2 + kb * T > min((tile0 + tiles) * W - 1, lane_end) + p.ly) break;
+    }
+    nk = -1;
+    nj = 0;
+  };
 
   C c;
   if (!TILES || m == 1) c.init(0, tile0 * W + t, p.mode, gaps.g[0]);
@@ -111,18 +193,35 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
         const int i0 = (tile0 + jj) * W, i = i0 + t;
         border = box_border;
         const int ci = store.global ? i : jj * W + t;
-        if (TILES && m > 1) {
-          if (k == 0 || (store.global && i >= p.Lp)) c.init(0, i, p.mode, gaps.g[0]);
-          else c.load(0, store.base, store.stride, ci);
-        }
-        const float* left = jj > 0 ? sm.edge : (r > 0 ? sm.ring + (k & 1) * T * NX : nullptr);
+        int first, last;
+        const bool runs = steps_of(k, jj, first, last);
         float* right = jj + 1 < tiles ? sm.edge
                        : (jj == m - 1 && next_ring ? next_ring + (k & 1) * T * NX : nullptr);
-        const bool more = jj + 1 < tiles || k + 1 < nbox;
-        const int nd0 = !more ? -1 : (jj + 1 < tiles ? d0 : d0 + T);
-        const int ni0 = jj + 1 < tiles ? i0 + W : tile0 * W;
+        if (TILES && m > 1 && (runs || t == W - 1)) {
+          // a tile's first visit in the band starts from its d = 1 carries
+          if (k == 0 || (band && d0 <= i0) || (store.global && i >= p.Lp))
+            c.init(0, i, p.mode, gaps.g[0]);
+          else c.load(0, store.base, store.stride, ci);
+        }
+        if (!runs) {  // BAND only: the next tile's left neighbour at d0
+          if (t == W - 1 && right) c.export_x(0, right);
+          if (jj + 1 < tiles) __syncthreads();  // the next visit reads edge[0]
+          continue;
+        }
+        const float* left = jj > 0 ? sm.edge : (r > 0 ? sm.ring + (k & 1) * T * NX : nullptr);
+        int nk = k, nj = jj + 1;
+        if (band) {
+          next_visit(k, jj, nk, nj);
+        } else if (nj == tiles) {
+          nk = k + 1 < nbox ? k + 1 : -1;
+          nj = 0;
+        }
+        const int nd0 = nk < 0 ? -1 : 2 + nk * T;
+        const int ni0 = (tile0 + nj) * W;
         const auto score = visits.prepare(d0, i0, nd0, ni0);
-        for (int d = d0; d <= d1; ++d) {
+        for (int d = d0; d <= last; ++d) {
+          border.next(gaps, d);
+          if (d < first) continue;  // uniform over the CTA
           const int s = d - d0, buf = d & 1;
           float sh[NX];
           c.shfl_in(0, sh);
@@ -140,14 +239,19 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
             for (int v = 0; v < NX; ++v) sh[v] = x[v];
           }
           if (i == 0) C::border_x(sh);
-          border.next(gaps, d);
           if (i <= lane_end) c.step(0, i, d, sh, border.cum, score, gaps, p, out, best);
         }
+        // the loop above stepped diagonals first .. last
+        if (out.slots && t == 0) atomicAdd(out.slots, (unsigned long long)(last - first + 1) * W);
         if (TILES && m > 1 && (!store.global || i < p.Lp))
           c.store(0, store.base, store.stride, ci);
         if (jj + 1 < tiles) __syncthreads();  // the next visit reuses edge and xbuf
       }
-      box_border = border;
+      if constexpr (BAND) {
+        for (int d = d0; d <= d1; ++d) box_border.next(gaps, d);
+      } else {
+        box_border = border;
+      }
     }
     cluster.sync();  // the ring writes of this phase are visible to the next
   }
@@ -167,6 +271,138 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
     }
     cluster.sync();  // no CTA leaves while rank 0 reads its candidate
   }
+}
+
+constexpr int WALK_MAX_R = 16;         // CTAs of a cluster: the H100's non-portable size
+constexpr int WALK_MAX_T = 32;         // T: diagonals a box
+constexpr int WALK_MAX_SMEM = 232448;  // shared memory a CTA may use on the H100
+
+// The launch of walk_kernel: one problem a cluster of R CTAs of m tiles of
+// W lanes, boxes of T diagonals; budget: the shared-memory bytes a CTA may
+// fill with the carries of m > 1 tiles (past it, or at 0, they go to the
+// device-memory scratch carry f32[B, NS, Lp]).
+struct WalkArgs {
+  const int* lx;
+  const int* ly;
+  float* carry;
+  Gaps gaps;
+  int mode, traceback, D, B, Lp, W, R, m, T, budget;
+  Outs out;
+  cudaStream_t stream;
+};
+
+// The shared-memory layout of a walk at k levels (on the hs source: hs).
+__host__ __device__ inline WalkLayout walk_layout(int k, bool hs, int W, int m, int T,
+                                                  int budget) {
+  const int kc = k == 2 ? 1 : k;
+  return WalkLayout(W, T, m, 6 + 2 * kc, 10 + 4 * kc, hs, budget);
+}
+
+// Whether walk_kernel takes this geometry for rows of Lp lanes in tiles of
+// at most max_w lanes.
+inline bool walk_geometry_ok(int k, int Lp, int W, int max_w, int R, int m, int T, bool hs) {
+  return k >= 1 && k <= MAXK && W >= 32 && W <= max_w && W % 32 == 0 && R >= 1 &&
+         R <= WALK_MAX_R && m >= 1 && (long long)R * m * W >= Lp && T >= 1 &&
+         T <= WALK_MAX_T && walk_layout(k, hs, W, m, T, 0).total <= WALK_MAX_SMEM;
+}
+
+// The checks and fields of a launch common to every walk; false for
+// arguments the kernel does not take.
+inline bool walk_args(WalkArgs* a, bool hs, int max_w, int budget, const int* lx,
+                      const int* ly, const float* gaps_host, int k, int mode, int traceback,
+                      int D, int B, int Lp, int W, int R, int m, int T, float* carry,
+                      const Outs& out, void* stream) {
+  if (mode < 0 || mode > 2 || B < 1 || Lp < 2 || D < Lp + 1 ||
+      (long long)B * R > 0x7fffffffLL || !walk_geometry_ok(k, Lp, W, max_w, R, m, T, hs))
+    return false;
+  if (m > 1 && walk_layout(k, hs, W, m, T, budget).carry < 0 && carry == nullptr)
+    return false;  // the carries need the device-memory scratch
+  for (int l = 0; l < k; ++l) a->gaps.g[l] = gaps_host[l];
+  a->lx = lx;
+  a->ly = ly;
+  a->carry = carry;
+  a->mode = mode;
+  a->traceback = traceback;
+  a->D = D;
+  a->B = B;
+  a->Lp = Lp;
+  a->W = W;
+  a->R = R;
+  a->m = m;
+  a->T = T;
+  a->budget = budget;
+  a->out = out;
+  a->stream = (cudaStream_t)stream;
+  return true;
+}
+
+// One problem a cluster, its scores from Src: Src::HS (the hs source's
+// boxes hbuf in shared memory), src.visits(a, b, dend, hbuf) the visit
+// functor of problem b.  Built for CTAs of at most MAXW threads, at least
+// MINB of them an SM (the launch bound).
+template <class Src, int K, bool BAND, int MAXW, int MINB>
+__global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
+  using C = Carries<K, 1>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::HS, a.budget);
+  const int b = blockIdx.x / a.R;
+  const int lx = a.lx[b], ly = a.ly[b], Lp = a.Lp;
+  const Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
+  // Scores mode stops at the last diagonal that can hold a terminal and
+  // skips lanes past lx; traceback mode fills every byte of tb.
+  const int dend = a.traceback ? a.D - 1 : min(a.D - 1, lx + ly);
+  const int lane_end = a.traceback ? Lp - 1 : min(Lp - 1, lx);
+  const CarryStore store =
+      L.carry >= 0
+          ? CarryStore{reinterpret_cast<float*>(smem + L.carry), a.m * a.W, false}
+          : CarryStore{a.carry + (size_t)b * C::NS * Lp, Lp, true};
+  const WalkSmem sm = {reinterpret_cast<float*>(smem + L.xbuf),
+                       reinterpret_cast<float*>(smem + L.ring),
+                       reinterpret_cast<float*>(smem + L.edge),
+                       reinterpret_cast<Cand*>(smem + L.red)};
+  auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.hbuf));
+  cluster_walk<K, true, BAND>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p, a.gaps, a.out,
+                              dend, lane_end, store, visits);
+}
+
+// Launches walk_kernel (or, with clusters != nullptr, asks how many
+// clusters of this shape fit on the card at once:
+// cudaOccupancyMaxActiveClusters).
+template <class Src, int K, bool BAND, int MAXW, int MINB>
+int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
+  const int smem = walk_layout(K, Src::HS, a.W, a.m, a.T, a.budget).total;
+  auto kern = walk_kernel<Src, K, BAND, MAXW, MINB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * a.R);
+  cfg.blockDim = dim3(a.W);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters) return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kern, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kern, a, src);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, k>()) for the level count 1 <= k <= MAXK.
+template <int K = 1, class F>
+int with_levels(int k, const F& f) {
+  if constexpr (K < MAXK) {
+    if (k != K) return with_levels<K + 1>(k, f);
+  }
+  return f(std::integral_constant<int, K>());
 }
 
 }  // namespace praline_dp

@@ -1,10 +1,10 @@
 // The anti-diagonal M/Ix/Iy recurrence of the Hopper DP kernels, written
-// once and included by all of them: csrc/wavefront_dp.cu reads each cell's
-// score from the skewed tensor hs, and csrc/fused_dp.cu (scores computed on
-// chip) and csrc/tiled_dp.cu (hs or scores computed in place, rows of any
-// length) walk it in lane tiles on a thread-block cluster
-// (csrc/cluster_walk.cuh).  The score source is a functor `score(d, i)` giving
-// cell (i, d - i)'s entry of hs[d, b, i] (kernels/scores.py::
+// once and included by all of them: csrc/wavefront_dp.cu (scores from the
+// skewed tensor hs), csrc/fused_dp.cu (scores computed on chip) and
+// csrc/tiled_dp.cu (hs or scores computed in place, rows of any length),
+// each walking it in lane tiles on a thread-block cluster
+// (csrc/cluster_walk.cuh).  The score source is a functor `score(d, i)`
+// giving cell (i, d - i)'s entry of hs[d, b, i] (kernels/scores.py::
 // skewed_pair_scores); everything else is this file.
 //
 // Contract: kernels/scan.py::wavefront_dp (the plain version), bit for bit:
@@ -13,7 +13,7 @@
 // ascending, the k = 2 collapse with its carried stay bits, the same border
 // runs, terminal rules and traceback bytes.
 //
-// The pieces, which the kernels put together:
+// The pieces, which the walk puts together:
 //   Carries<K, Q>   the per-thread state of Q lanes: each lane's values at
 //                   diagonal d - 1 (and its best state at d - 2), with their
 //                   d = 1 initialisation (init), the NX values a lane hands
@@ -21,20 +21,15 @@
 //                   (step) that takes the left neighbour's NX values;
 //   Border          the border run cost of a diagonal, summed in f32;
 //   block_best      the block-wide pick of the semiglobal / local terminal
-//                   candidate, and reduce_terminal, which writes it.
+//                   candidate, and write_terminal, which writes it.
 //
-// wavefront_block (below) is the whole-row walk: one thread block per
-// problem; lane i of a diagonal (cell (i, d - i)) belongs to thread i % nt,
-// as its (i / nt)-th lane, with nt = min(1024, Lp rounded up to a warp) and
-// Q lanes per thread.  The block walks the diagonals d = 2 .. D-1 in order.
-// The only values that cross lanes are lane i-1's carries (M and the gap
-// levels from d-1, the best state from d-2, their lengths, codes and the x
-// stay bit): they move by __shfl_up_sync inside a warp, and the one lane at
-// each warp's edge reads them from a double-buffered shared-memory slot
-// written before the diagonal's single __syncthreads.  All per-lane state
-// stays in registers (deep series spill to local memory).
+// Lane i of diagonal d is cell (i, d - i).  The only values that cross
+// lanes are lane i-1's carries (M and the gap levels from d-1, the best
+// state from d-2, their lengths, codes and the x stay bit): they move by
+// __shfl_up_sync inside a warp and through shared memory between warps,
+// tiles and CTAs.
 //
-// In scores mode the walk stops at diagonal lx + ly and lanes past lx are
+// In scores mode the walks stop at diagonal lx + ly and lanes past lx are
 // not computed: neither can reach a terminal
 // (praline_tpu/kernels/scan.py:14-17).
 
@@ -48,8 +43,6 @@ namespace praline_dp {
 constexpr float NEG = -1.0e30f;
 constexpr int PTR_NONE = 31;
 constexpr int MAXK = 15;
-constexpr int MAXT = 1024;
-constexpr int MAXW = MAXT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum { GLOBAL = 0, SEMIGLOBAL = 1, LOCAL = 2 };
@@ -73,21 +66,14 @@ struct Outs {
   int* tj;
   int* tcode;
   uint8_t* tb;
+  // Where non-null, csrc/cluster_walk.cuh adds the lane slots it ran (W a
+  // step of each visit): a measurement, null on the main path.
+  unsigned long long* slots;
 };
 
 // What one step needs of its problem besides the carries.
 struct Problem {
   int b, lx, ly, mode, traceback, B, Lp;
-};
-
-// Cell (i, d - i) of problem b: one element of the skewed score tensor
-// hs f32[D, B, Lp] that csrc/scores.cu writes.
-struct HsRows {
-  const float* hs;
-  int B, Lp, b;
-  __device__ __forceinline__ float operator()(int d, int i) const {
-    return __ldg(hs + ((size_t)d * B + b) * Lp + i);
-  }
 };
 
 // semiglobal: larger value, then larger i, then larger j;
@@ -96,12 +82,6 @@ __device__ __forceinline__ bool beats(const Cand& a, const Cand& b, bool local) 
   if (a.v != b.v) return a.v > b.v;
   if (local) return a.i < b.i || (a.i == b.i && a.j < b.j);
   return a.i > b.i || (a.i == b.i && a.j > b.j);
-}
-
-// Threads per block and lanes per thread for Lp lanes.
-inline void lane_split(int Lp, int* nt, int* q) {
-  *nt = Lp >= MAXT ? MAXT : (Lp + 31) / 32 * 32;
-  *q = (Lp + *nt - 1) / *nt;
 }
 
 // The border gap run of diagonal d: cum = sum over m = 1 .. d of
@@ -482,88 +462,6 @@ __device__ __forceinline__ void write_terminal(const Cand& best, int b, const Ou
   out.ti[b] = best.i;
   out.tj[b] = best.j;
   out.tcode[b] = best.c;
-}
-
-// Block-wide terminal reduction: block_best, written by thread 0.  Every
-// thread of the block calls it.
-__device__ __forceinline__ void reduce_terminal(Cand best, int mode, int b, const Outs& out,
-                                                Cand* red) {
-  best = block_best(best, mode == LOCAL, red);
-  if (threadIdx.x == 0) write_terminal(best, b, out);
-}
-
-// The DP of problem b on one block of blockDim.x threads (Q lanes each).
-template <int K, int Q, class Scores>
-__device__ __forceinline__ void wavefront_block(
-    const Scores& score, int b, int lx, int ly, const Gaps& gaps, int mode,
-    int traceback, int D, int B, int Lp, const Outs& out) {
-  using C = Carries<K, Q>;
-  __shared__ float xbuf[2][Q][MAXW][C::NX];
-  __shared__ Cand red[MAXW];
-
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-  const int warp = t >> 5, wl = t & 31, nw = nt >> 5;
-  const Problem p = {b, lx, ly, mode, traceback, B, Lp};
-
-  Border<K> border(gaps);
-  C c;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) c.init(q, t + q * nt, mode, border.cum);
-  Cand best = first_candidate<K>(mode, t == 0, lx, ly);
-
-  // Scores mode stops at the last diagonal that can hold a terminal and
-  // skips lanes past lx; traceback mode fills every byte of tb.
-  const int dend = traceback ? D - 1 : min(D - 1, lx + ly);
-  const int lane_end = traceback ? Lp - 1 : min(Lp - 1, lx);
-
-  for (int d = 2; d <= dend; ++d) {
-    const int buf = d & 1;
-    if (wl == 31) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) c.export_x(q, xbuf[buf][q][warp]);
-    }
-    __syncthreads();
-    border.next(gaps, d);
-
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int i = t + q * nt;
-      // ---- lane i-1's carries ----
-      float sh[C::NX];
-      c.shfl_in(q, sh);
-      if (wl == 0) {
-        if (i == 0) {
-          C::border_x(sh);
-        } else {
-          const float* x = (warp > 0) ? xbuf[buf][q][warp - 1]
-                                      : xbuf[buf][q > 0 ? q - 1 : 0][nw - 1];
-#pragma unroll
-          for (int v = 0; v < C::NX; ++v) sh[v] = x[v];
-        }
-      }
-      if (i > lane_end) continue;
-      c.step(q, i, d, sh, border.cum, score, gaps, p, out, best);
-    }
-  }
-
-  if (mode == GLOBAL) return;
-  reduce_terminal(best, mode, b, out, red);
-}
-
-// Instantiates `Kernel::launch<K, Q>` for the runtime level count k
-// (K = 1 .. MAXK) and lanes per thread q (Q = 1 or, where the kernel takes
-// it, 2).
-template <class Kernel, int K = 1>
-int launch_levels(int k, int q, const typename Kernel::Args& a) {
-  if constexpr (K < MAXK) {
-    if (k != K) return launch_levels<Kernel, K + 1>(k, q, a);
-  }
-  if (q == 1) return Kernel::template launch<K, 1>(a);
-  if constexpr (Kernel::MAXQ >= 2) {
-    if (q == 2) return Kernel::template launch<K, 2>(a);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace praline_dp

@@ -143,10 +143,12 @@ def tiled_source(bx: int, by: int) -> str:
 
 
 def chunk_problem_bytes(route: str, device_type: str, bx: int, by: int, A: int,
-                        traceback: bool, tier: str | None = None) -> int:
+                        traceback: bool, tier: str | None = None,
+                        levels: int = MAX_LEVELS) -> int:
     """Device bytes one problem of a chunk takes on ``route``: gathered
     operands, then ``hs``, the scratch of the score source, the tiled
-    kernel's carry scratch (at the deepest series), then twice the
+    kernel's carry scratch (at the deepest series) or, on the card, the
+    whole-row DP's (at ``levels``, the chunk's series), then twice the
     traceback bytes (the DP's and the walk's in flight).  The score
     source's scratch: on the card, the tensor-core tier's where the
     producer runs (either tier may take a chunk); on the fused route, that
@@ -169,6 +171,8 @@ def chunk_problem_bytes(route: str, device_type: str, bx: int, by: int, A: int,
         total += mma
     if route == "tiled":
         total += carry_values(MAX_LEVELS) * (bx + 1) * 4
+    elif route == "two_kernel" and device_type == "cuda":
+        total += carry_values(levels) * (bx + 1) * 4
     return total
 
 
@@ -441,7 +445,7 @@ def align_pairs_batched(
                     if tiered else None)
 
         per_prob = chunk_problem_bytes(route, dev.type, bx, by, A, traceback,
-                                       tier_of(rows_x, rows_y))
+                                       tier_of(rows_x, rows_y), len(gap_series))
         eff_batch = max(1, min(batch_pairs, MAX_BATCH, dispatch_budget(dev) // per_prob))
         for start in range(0, len(idxs), eff_batch):
             chunk = idxs[start : start + eff_batch]

@@ -115,9 +115,11 @@ def load_library() -> ctypes.CDLL:
         lib.praline_skewed_scores_mma.restype = i
         lib.praline_skewed_scores_mma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.praline_wavefront_dp.restype = i
-        lib.praline_wavefront_dp.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p,
-        ]
+        lib.praline_wavefront_dp.argtypes = [*[p] * 4, *[i] * 11, *[p] * 9]
+        lib.praline_wavefront_dp_clusters.restype = i
+        lib.praline_wavefront_dp_clusters.argtypes = [*[i] * 6, p]
+        lib.praline_wavefront_dp_smem.restype = i
+        lib.praline_wavefront_dp_smem.argtypes = [i, i, i, i]
         lib.praline_fused_dp.restype = i
         lib.praline_fused_dp.argtypes = [*[p] * 8, *[i] * 11, *[p] * 8]
         lib.praline_fused_dp_clusters.restype = i

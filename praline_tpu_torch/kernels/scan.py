@@ -318,10 +318,13 @@ class Terminals:
         if code is not None:
             self.tcode = torch.where(repl, code, self.tcode)
 
-    def add(self, d, lane0, lane, cell):
+    def add(self, d, lane0, lane, cell, active=None):
         """Diagonal ``d``'s cells on the lanes ``lane`` (``[1, w]``, the
-        global indices ``lane0 ..``)."""
+        global indices ``lane0 ..``) of the problems where ``active``
+        (``[B]`` bool; all where None)."""
         lx, ly = self.lx, self.ly
+        if active is not None:
+            lx = torch.where(active, lx, -1)  # no lane holds a candidate
         w = lane.shape[1]
         bv, bl, bc = cell["bv"], cell["bl"], cell["bc"]
         mode = self.rec.mode

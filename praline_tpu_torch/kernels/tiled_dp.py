@@ -46,7 +46,6 @@ from .fused_dp import (
 )
 from .scan import MODES, Recurrence, Terminals, carries_d1, diagonal_step, edge_of
 from .scores import skewed_pair_scores
-from .wavefront import check_hs
 
 launches = 0  # kernel launches by wavefront_dp_tiled (not by the plain path)
 
@@ -75,18 +74,35 @@ def carry_values(k: int) -> int:
     return 10 + 4 * (1 if k == 2 else k)
 
 
-def smem_layout(W: int, T: int, m: int, k: int, source: str) -> tuple[int, bool]:
-    """Dynamic shared memory of a CTA (``csrc/tiled_dp.cu`` ``Layout``) and
-    whether the carries of its ``m`` tiles are in it: the walk's
-    exchange, ring, edge and candidates; on the hs source two boxes of
-    scores; with m > 1 the carries where the whole fits in
-    :data:`SMEM_PER_CTA` (else they go to a device-memory scratch)."""
+def check_hs(hs, lx, ly) -> tuple[int, int, int]:
+    """``(D, B, Lp)`` of the hs score source; raises unless ``hs`` and the
+    lengths are contiguous tensors of their shapes on one device."""
+    if hs.dtype != torch.float32 or hs.dim() != 3 or not hs.is_contiguous():
+        raise ValueError("hs must be a contiguous f32[D, B, Lp] tensor")
+    D, B, Lp = hs.shape
+    if Lp < 2 or D < Lp + 1 or B < 1:
+        raise ValueError(f"bad hs shape {tuple(hs.shape)}")
+    dev = hs.device
+    for name, t in (("lx", lx), ("ly", ly)):
+        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (B,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32[{B}] tensor on {dev}")
+    return D, B, Lp
+
+
+def smem_layout(W: int, T: int, m: int, k: int, source: str,
+                budget: int = SMEM_PER_CTA) -> tuple[int, bool]:
+    """Dynamic shared memory of a CTA (``csrc/cluster_walk.cuh``
+    ``WalkLayout``) and whether the carries of its ``m`` tiles are in it:
+    the walk's exchange, ring, edge and candidates; on the hs source two
+    boxes of scores; with m > 1 the carries where the whole fits in
+    ``budget`` bytes (else they go to a device-memory scratch)."""
     kc = 1 if k == 2 else k
     nx, nw = 6 + 2 * kc, W // 32
     total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4) + round16(T * nx * 4)
              + round16((nw + 1) * CAND_BYTES) + (2 * T * W * 4 if source == "hs" else 0))
     carries = carry_values(k) * m * W * 4
-    if m > 1 and total + carries <= SMEM_PER_CTA:
+    if m > 1 and total + carries <= budget:
         return total + carries, True
     return total, False
 
@@ -136,11 +152,15 @@ def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = No
 
 def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
                              traceback=False, *, tile_lanes=None, ctas=None,
-                             steps_per_visit=MAX_STEPS):
+                             steps_per_visit=MAX_STEPS, band=False):
     """The plain version: the kernel's visits over ``kernels/scan.py``'s
     recurrence, at the tile width of :func:`tiled_geometry` (``tile_lanes``
     and ``ctas`` as there).  ``source`` is ``hs f32[D, B, Lp]`` or the tuple
-    ``(cx, inv_x, cy, inv_y, s)``, whose ``hs`` it builds first."""
+    ``(cx, inv_x, cy, inv_y, s)``, whose ``hs`` it builds first.  With
+    ``band`` (scores mode only; the whole-row DP's walk,
+    ``csrc/wavefront_dp.cu``) each problem runs only the visits and steps
+    of its band, as ``csrc/cluster_walk.cuh``'s BAND rule says
+    (:func:`_band_walk`)."""
     hs = source if isinstance(source, torch.Tensor) else skewed_pair_scores(*source)
     D, B, Lp = hs.shape
     T = steps_per_visit
@@ -153,6 +173,9 @@ def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
     lx = lx.to(dev, torch.int32)
     ly = ly.to(dev, torch.int32)
     term = Terminals(rec, lx, ly)
+    if band and not traceback:
+        _band_walk(rec, hs, lx, ly, W, T, term)
+        return term.result()
     tb = torch.empty((D - 2, B, Lp), dtype=torch.uint8, device=dev) if traceback else None
     # Scores mode skips what reaches no terminal: diagonals past lx + ly and
     # tiles past lx (here for the batch's largest problem, in the kernel per
@@ -181,6 +204,72 @@ def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
     if traceback:
         out["tb"] = tb
     return out
+
+
+def _poison_edge(B, kc, dev):
+    """An edge no step wrote: large positive values and impossible codes,
+    so that a cell of the band that read it would differ from the plain
+    DP."""
+    big = torch.full((B,), 1e29, dtype=torch.float32, device=dev)
+    code = torch.full((B,), 29, dtype=torch.int32, device=dev)
+    return dict(m1=big, r2v=big, r2l=big, r2c=code, lm1=big, psx=code,
+                ix1=[big] * kc, lix1=[big] * kc)
+
+
+def _select(active, new, old):
+    """Per problem (``active`` ``[B]``), ``new`` where active else ``old``,
+    over a carries or edge dict."""
+    def pick(a, b):
+        if isinstance(a, list):
+            return [pick(x, y) for x, y in zip(a, b)]
+        return torch.where(active.view(-1, *([1] * (a.dim() - 1))), a, b)
+    return {key: pick(new[key], old[key]) for key in new}
+
+
+def _band_walk(rec, hs, lx, ly, W, T, term):
+    """Scores mode on ``csrc/cluster_walk.cuh``'s BAND rule, problem by
+    problem over the batch: the visit of box d0 .. d1 on the tile of lanes
+    i0 .. ie (ie = min(i0 + W - 1, lx)) runs the steps max(d0, i0) ..
+    min(d1, ie + ly + 1) where max(d0, i0) <= min(d1, ie + ly), starting
+    from the tile's d = 1 carries where d0 <= i0; a visit that does not run
+    hands on only edge slot 0, from its carries.  A problem's carries move
+    only at its own steps, and edge slots that the previous tile did not
+    write this box are poisoned, so a rule that let a cell of the band read
+    what no step wrote would not give the plain DP's bits."""
+    D, B, Lp = hs.shape
+    dev = hs.device
+    dend = torch.clamp(lx + ly, max=D - 1)
+    lane_end = torch.clamp(lx, max=Lp - 1)
+    tiles = int(lane_end.max()) // W + 1
+    lanes = [torch.arange(j * W, min(j * W + W, Lp), device=dev, dtype=torch.int32)[None, :]
+             for j in range(tiles)]
+    init = [carries_d1(rec, lane, B) for lane in lanes]
+    scratch = list(init)
+    for d0 in range(2, int(dend.max()) + 1, T):
+        d1 = torch.clamp(dend, max=d0 + T - 1)
+        edge_in = [None] * T
+        for j, lane in enumerate(lanes):
+            i0 = j * W
+            ie = torch.clamp(lane_end, max=i0 + W - 1)
+            first = torch.full_like(ie, max(d0, i0))
+            last = torch.minimum(d1, ie + ly + 1)
+            runs = (i0 <= lane_end) & (d0 <= dend) & (first <= torch.minimum(d1, ie + ly))
+            c = _select(runs & (d0 <= i0), init[j], scratch[j])
+            edge_out = [_poison_edge(B, rec.kc, dev) for _ in range(T)]
+            skipped = (i0 <= lane_end) & (d0 <= dend) & ~runs
+            edge_out[0] = _select(skipped, edge_of(c), edge_out[0])
+            for d in range(d0, min(d0 + T - 1, D - 1) + 1):
+                s = d - d0
+                active = runs & (first <= d) & (d <= last)
+                if not bool(active.any()):
+                    continue
+                left = edge_in[s] if j > 0 else None
+                edge_out[s] = _select(active, edge_of(c), edge_out[s])
+                new, cell = diagonal_step(rec, c, left, d, i0, hs[d, :, i0 : i0 + lane.shape[1]])
+                term.add(d, i0, lane, cell, active)
+                c = _select(active, new, c)
+            scratch[j] = c
+            edge_in = edge_out
 
 
 _clusters: dict[tuple, int] = {}

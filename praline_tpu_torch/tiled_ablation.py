@@ -1,8 +1,8 @@
 """What the lane-tiled DP's score prefetch buys: ``csrc/tiled_dp.cu`` beside
 a copy whose hs visits read each score from device memory where the step
-consumes it (``HsRows``, ``csrc/wavefront.cuh``), instead of from the box
-of scores that each thread copied into shared memory by ``cp.async``
-during the visit before.
+consumes it (``__ldg``), instead of from the box of scores that each
+thread copied into shared memory by ``cp.async`` during the visit before
+(``csrc/hs_visits.cuh``, whose ``HsSource`` the copy replaces).
 
     python -m praline_tpu_torch.tiled_ablation
 
@@ -38,17 +38,30 @@ from .kernels.tiled_dp import tiled_geometry
 
 SOURCE = build.CSRC / "tiled_dp.cu"
 OUT_DIR = build.BUILD_DIR / "tiled_ablation"
-# The hs visits of the "direct" variant: the same fields, no copies; each
-# step reads its score with __ldg.
-DIRECT_VISITS = """struct HsVisits {
+# The hs source of the "direct" variant, in place of csrc/hs_visits.cuh:
+# the same shared-memory layout, no copies; each step reads its score with
+# __ldg.
+INCLUDE = '#include "hs_visits.cuh"\n'
+DIRECT_VISITS = """namespace praline_dp {
+struct HsDirect {
   const float* hs;
-  float* hbuf;
-  int B, Lp, b, W, T, dend, slot;
-  bool started;
-  __device__ __forceinline__ HsRows prepare(int, int, int, int) const {
-    return HsRows{hs, B, Lp, b};
+  int B, Lp, b;
+  __device__ __forceinline__ float operator()(int d, int i) const {
+    return __ldg(hs + ((size_t)d * B + b) * Lp + i);
   }
 };
+struct HsVisits {
+  HsDirect direct;
+  __device__ __forceinline__ HsDirect prepare(int, int, int, int) const { return direct; }
+};
+struct HsSource {
+  static constexpr bool HS = true;
+  const float* hs;
+  __device__ __forceinline__ HsVisits visits(const WalkArgs& a, int b, int, float*) const {
+    return HsVisits{HsDirect{hs, a.B, a.Lp, b}};
+  }
+};
+}  // namespace praline_dp
 """
 VARIANTS = ("kernel", "direct")
 # (B, Lx = Ly, shortest length, mode, traceback)
@@ -61,11 +74,9 @@ def variant_source(name: str) -> str:
     text = SOURCE.read_text()
     if name == "kernel":
         return text
-    start = text.find("struct HsVisits {")
-    end = text.find("\n};\n", start)
-    if start < 0 or end < 0:
-        raise RuntimeError(f"{SOURCE.name} no longer holds struct HsVisits: update the ablation")
-    return text[:start] + DIRECT_VISITS + text[end + len("\n};\n"):]
+    if text.count(INCLUDE) != 1:
+        raise RuntimeError(f"{SOURCE.name} no longer includes hs_visits.cuh: update the ablation")
+    return text.replace(INCLUDE, DIRECT_VISITS)
 
 
 def build_variants() -> dict:

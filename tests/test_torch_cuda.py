@@ -113,20 +113,71 @@ def test_batch_driver_takes_the_tier_the_predicate_gives(cuda):
         assert got == batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu")
 
 
+def dp_geometries(Lp, k):
+    """The DP's two geometries at 32-lane tiles (so that short rows take
+    several tiles or CTAs), the throughput one built for four and for five
+    CTAs an SM."""
+    return (wavefront.geometry("throughput", Lp, k, tile_lanes=32),
+            wavefront.geometry("throughput", Lp, k, tile_lanes=32, min_blocks=5),
+            wavefront.geometry("latency", Lp, k, tile_lanes=32))
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1), (5,), (4, 3, 2, 1), (9, 7, 5, 3, 2, 1)])
 @pytest.mark.parametrize("traceback", [False, True])
 def test_dp_matches_plain(cuda, mode, gap_series, traceback):
+    """The default geometry, then each geometry at 32-lane tiles."""
     seed = zlib.crc32(repr((mode, gap_series)).encode())
-    cx, ivx, cy, ivy, s, lx, ly = operands(seed, 8, 31, 63, cuda)
+    cx, ivx, cy, ivy, s, lx, ly = operands(seed, 8, 100, 63, cuda)
     hs = plain_scores(cx, ivx, cy, ivy, s)
-    before = wavefront.launches
-    got = wavefront.wavefront_dp(hs, lx, ly, gap_series, mode, traceback)
-    torch.cuda.synchronize()
-    assert wavefront.launches == before + 1
     want = plain_dp(hs, lx, ly, gap_series, mode, traceback)
-    for key in want:
-        assert torch.equal(got[key], want[key]), key
+    for g in (None, *dp_geometries(101, len(gap_series))):
+        before = wavefront.launches
+        got = wavefront.wavefront_dp(hs, lx, ly, gap_series, mode, traceback, geometry=g)
+        torch.cuda.synchronize()
+        assert wavefront.launches == before + 1
+        for key in want:
+            assert torch.equal(got[key], want[key]), (key, g)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", wavefront.GEOMETRIES)
+def test_dp_band_edges(cuda, mode, kind):
+    """Scores mode runs only the band's visits: problems at its edges (both
+    lengths 1, lx << ly, lx >> ly, lx = Lp - 1, and ly = 2 mod 32, with
+    which every full tile leaves the band at a box's first diagonal), into
+    poisoned outputs."""
+    L = 300
+    pairs = ((1, 1), (1, L), (L, 1), (3, 250), (280, 5), (L, L), (200, 34), (97, 66), (129, 2))
+    lx = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device=cuda)
+    ly = torch.tensor([b for _, b in pairs], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(zlib.crc32(repr(("edges", mode)).encode()))
+    hs = torch.from_numpy(rng.normal(0, 4, size=(2 * L + 1, len(pairs), L + 1))
+                          .astype(np.float32)).to(cuda)
+    for series in ((11, 1), (13, 7, 1)):
+        want = plain_dp(hs, lx, ly, series, mode)
+        for W in (32, 64, 128):
+            g = wavefront.geometry(kind, L + 1, len(series), tile_lanes=W)
+            out = {k: torch.full_like(v, float("nan") if v.is_floating_point() else -7)
+                   for k, v in want.items()}
+            wavefront.wavefront_dp(hs, lx, ly, series, mode, geometry=g, out=out)
+            torch.cuda.synchronize()
+            for key in want:
+                assert torch.equal(out[key], want[key]), (key, g)
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+def test_dp_lane_slots_match_the_model(cuda, traceback):
+    """The lane slots the kernel counts as it runs (``slots=``) equal
+    ``wavefront.lane_slots`` on both geometries, ragged lengths included."""
+    cx, ivx, cy, ivy, s, lx, ly = operands(17, 8, 300, 250, cuda)
+    hs = plain_scores(cx, ivx, cy, ivy, s)
+    for g in (None, *dp_geometries(301, 2)):
+        ran = torch.zeros(1, dtype=torch.int64, device=cuda)
+        wavefront.wavefront_dp(hs, lx, ly, (11, 1), "global", traceback, geometry=g, slots=ran)
+        g = g or wavefront.dp_geometry(8, 301, 2, traceback)
+        assert ran.item() == wavefront.lane_slots(lx.cpu().numpy(), ly.cpu().numpy(),
+                                                  hs.shape[0], 301, g, traceback), g
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -147,26 +198,33 @@ def test_walk_matches_plain(cuda, mode, gap_series):
 @pytest.mark.parametrize("bx,by", [(200, 100), (1100, 700)])
 @pytest.mark.parametrize("mode", ["global", "local"])
 def test_dp_lane_counts_off_the_warp_grid(cuda, bx, by, mode):
-    """Lp not a multiple of 32 (idle tail lanes), with one and two lanes
-    per thread."""
+    """Lp not a multiple of 32 (idle lanes in the last tile), on both
+    geometries at their default tiles."""
     cx, ivx, cy, ivy, s, lx, ly = operands(bx * 7 + by, 3, bx, by, cuda)
     hs = plain_scores(cx, ivx, cy, ivy, s)
     for traceback in (False, True):
-        got = wavefront.wavefront_dp(hs, lx, ly, (13, 7, 1), mode, traceback)
         want = plain_dp(hs, lx, ly, (13, 7, 1), mode, traceback)
-        for key in want:
-            assert torch.equal(got[key], want[key]), key
+        for kind in wavefront.GEOMETRIES:
+            g = wavefront.geometry(kind, bx + 1, 3)
+            got = wavefront.wavefront_dp(hs, lx, ly, (13, 7, 1), mode, traceback, geometry=g)
+            for key in want:
+                assert torch.equal(got[key], want[key]), (key, g)
 
 
 def test_dp_two_lanes_per_thread(cuda):
-    """Bucket 2047: Lp = 2048 lanes on 1024 threads."""
+    """Bucket 2047, where the whole-row DP before the tiled walk ran two
+    lanes a thread: Lp = 2048 lanes, 16 tiles of 128 on one CTA, on a
+    cluster of 4 CTAs of 4 tiles and on a cluster of 16."""
     cx, ivx, cy, ivy, s, lx, ly = operands(11, 2, 2047, 300, cuda)
     hs = plain_scores(cx, ivx, cy, ivy, s)
     for traceback in (False, True):
-        got = wavefront.wavefront_dp(hs, lx, ly, (11, 1), "global", traceback)
         want = plain_dp(hs, lx, ly, (11, 1), "global", traceback)
-        for key in want:
-            assert torch.equal(got[key], want[key]), key
+        for g in (wavefront.geometry("throughput", 2048, 2),
+                  wavefront.geometry("latency", 2048, 2, ctas=4),
+                  wavefront.geometry("latency", 2048, 2)):
+            got = wavefront.wavefront_dp(hs, lx, ly, (11, 1), "global", traceback, geometry=g)
+            for key in want:
+                assert torch.equal(got[key], want[key]), (key, g)
 
 
 def test_dp_refuses_what_it_does_not_take(cuda):
@@ -176,6 +234,15 @@ def test_dp_refuses_what_it_does_not_take(cuda):
     hs = plain_scores(cx, ivx, cy, ivy, s)
     with pytest.raises(NotImplementedError):
         wavefront.wavefront_dp(hs, lx, ly, (11, 1), "global")
+    # a geometry the kernel does not take raises before any launch
+    hs = hs[:, :, :32].contiguous()[:64]
+    lx.fill_(20)
+    before = wavefront.launches
+    for g in (wavefront.geometry("throughput", 32, 2, tile_lanes=512),
+              wavefront.geometry("latency", 32, 2, tile_lanes=32, ctas=17)):
+        with pytest.raises(ValueError):
+            wavefront.wavefront_dp(hs, lx, ly, (11, 1), "global", geometry=g)
+    assert wavefront.launches == before
 
 
 @pytest.mark.parametrize("traceback", [False, True])

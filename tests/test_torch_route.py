@@ -28,8 +28,9 @@ from praline_tpu_torch.io import (
     format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
 )
 from praline_tpu_torch.kernels import batch, fused_dp, wavefront
-from praline_tpu_torch.kernels.fused_dp import MAX_LANES_FUSED
+from praline_tpu_torch.kernels.fused_dp import MAX_LANES_FUSED, MAX_LEVELS
 from praline_tpu_torch.kernels.fused_scores import mma_scratch_bytes
+from praline_tpu_torch.kernels.tiled_dp import carry_values
 from praline_tpu_torch.msa import msa_align
 
 torch.set_num_threads(1)
@@ -92,8 +93,13 @@ def test_chunk_sizing_counts_what_each_route_allocates():
     hs_bytes, tb_bytes = batch.per_problem_bytes(1023, 1023)
     mma, rows = mma_scratch_bytes(1, 1023, 1023), 2046 * 24 * 4
     # on "mma" both routes count the tensor-core scratch alone (the
-    # producer's, the fused kernel's): they differ by hs
-    assert two - fused == hs_bytes
+    # producer's, the fused kernel's): they differ by hs and the whole-row
+    # DP's carry scratch (at the deepest series unless the chunk's is given)
+    carries = carry_values(MAX_LEVELS) * 1024 * 4
+    assert two - fused == hs_bytes + carries
+    assert size("two_kernel", "cuda", 1023, 1023, A, False, levels=2) == \
+        two - carries + carry_values(2) * 1024 * 4
+    assert size("two_kernel", "cpu", 1023, 1023, A, False) == two - carries - mma
     # a group on "scalar" may run a chunk on either tier: the larger
     # scratch, here the fused kernel's T / Cy copies
     assert size("fused", "cuda", 1023, 1023, A, False, "scalar") == fused - mma + max(mma, rows)

@@ -188,15 +188,18 @@ def test_plain_at_the_card_tile_widths_matches_jax_and_whole_row(W, Lx, mode, tr
 
 def test_tiled_ablation_variant_applies_to_the_kernel_source():
     """``tiled_ablation``'s "direct" variant replaces the hs visits (and
-    nothing else) of ``csrc/tiled_dp.cu``; "kernel" is the source as is."""
+    nothing else) of ``csrc/tiled_dp.cu``, the include of
+    ``csrc/hs_visits.cuh``; "kernel" is the source as is."""
     from praline_tpu_torch import tiled_ablation
 
     source = tiled_ablation.SOURCE.read_text()
     assert tiled_ablation.variant_source("kernel") == source
     direct = tiled_ablation.variant_source("direct")
     assert direct.count("struct HsVisits {") == 1 and tiled_ablation.DIRECT_VISITS in direct
-    assert "copy_wait_group<1>" in source and "copy_wait_group<1>" not in direct
-    assert direct.split("struct HsVisits {")[0] == source.split("struct HsVisits {")[0]
+    visits = (tiled_ablation.SOURCE.parent / "hs_visits.cuh").read_text()
+    assert "copy_wait_group<1>" in visits and "copy_wait_group<1>" not in direct
+    head, tail = source.split(tiled_ablation.INCLUDE)
+    assert direct == head + tiled_ablation.DIRECT_VISITS + tail
 
 
 def test_outputs_into_out_on_the_plain_path():
