@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the seven Hopper kernel sources (the score producer's two tiers,
+Builds the eight Hopper kernel sources (the score producer's two tiers,
 tensor-core and scalar, wavefront DP, fused producer + DP and lane-tiled
-DP, each on a thread-block cluster a problem, traceback walk, and the
-benchmark's probes) from ``praline_tpu_torch/csrc`` with nvcc, one process
-per source, with ``-Xptxas -v`` (registers and spills of the producers,
-the DPs and the probes are printed, and the fused and tiled kernels'
+DP, each on a thread-block cluster a problem, traceback walk, the device
+merge's profile composition, and the benchmark's probes) from
+``praline_tpu_torch/csrc`` with nvcc, one process per source, with
+``-Xptxas -v`` (registers and spills of the producers, the DPs, the probes
+and the composition are printed, and the fused and tiled kernels'
 cluster occupancy at every cluster size), and holds each kernel against its plain
 PyTorch version on the card, bit for bit: both producer tiers at buckets
 1023, 63x127 and 2047 and at the tensor-core predicate's edges (alphabets
@@ -44,14 +45,26 @@ traceback chunk (256) and merge levels of 4 and 1 problems
 and holds the lane slots the kernel counts as it runs against their model
 (``python3 chip_smoke.py dp-times DIR`` runs that phase alone on the tree
 at DIR, so that the parent's DP is timed in the same call).  It aligns the committed
-goldens through the CUDA path on both routes, then drives the main paths
+goldens through the CUDA path on both routes (the PAM250 golden on the
+per-level merge, as in the JAX package).  The compose kernel is held
+against ``compose_plain`` bit for bit, every output poisoned, in the three
+modes, on merge levels of 32 joins at capacities 1023 and msa128's first
+rung, of 16 joins at long32's and of 1 and 4 joins at long8's (tapes from
+the DP's traceback and
+hand-made ones: an empty local walk, x moves alone, y moves alone), over
+columns past COUNT_LIMIT.  The device-resident merge of msa128, long32 and
+long8 is enqueued under ``torch.cuda.set_sync_debug_mode("error")``, its
+rung, attempts and each level's score tier printed, byte-equal to the
+per-level path on the same tree; the two are timed in alternating turns
+(msa128 also on two other ladders).  Then it drives the main paths
 at full size, with the launch counts set to 0 before each and read after
 its own runs: the all-pairs distance stage on 8192 pairs of bucket 1023
 (five runs on the default two-kernel route), ``msa_align`` on a seeded
 128-sequence family of lengths 600-1000 (two runs), on a seeded
 32-sequence family of lengths 1800-2400 (two runs), which needs the fused
 kernel, and on 8 members of lengths 4300-5000 (two runs; the size of a
-dynein heavy chain), which needs the tiled kernel; the two-track
+dynein heavy chain), which needs the tiled kernel, each merged by the
+device walk (the compose kernel launched); the two-track
 composite workload of ``bench.py``'s ``tracks`` config (1024 pairs of
 one-hot profiles of 512-1023 residues, BLOSUM62 + PAM250 weighted 1 and
 0.5; two runs scores only, then one with traceback, each its own path);
@@ -67,9 +80,11 @@ on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
 one's bound: the larger of the bytes its function must move over 3.35
-TB/s and its operations over the H100 SXM's published rates, 67 TFLOP/s
-for f32 and 1979 TOP/s for int8 on the tensor cores), the card's name and
-power limit, and ``{"ok": true, ...}``.
+TB/s, or through shared memory at 128 bytes an SM a clock, and its
+operations: f32 lane-instructions at 128 an SM a clock, at the card's
+maximum SM clock from ``nvidia-smi``, and int8 at the tensor cores'
+published 1979 TOP/s), the card's name and power limit, and ``{"ok": true,
+...}``.
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
 """
@@ -77,6 +92,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -95,6 +111,8 @@ HEADLINE_RUNS = 5
 FUSED_ROUTE_RUNS = 4
 FAMILY_SIZE = 128
 LONG_FAMILY_SIZE = 32
+# Turns of the device walk against the per-level path on each family's tree.
+MERGE_TURNS = 4
 LONG8_SIZE = 8
 # (B, bucket_x, bucket_y, shortest length) of the kernel = plain checks:
 # the headline bucket, a small ragged pair, and bucket 2047, the DP's
@@ -134,15 +152,21 @@ TILED_TIMES_SHAPES = ((2, 3000, 2500), (32, 2303, 1800))
 # one and at two lanes a thread: the tiled and the fused kernels' times
 # beside it.
 TILED_VS_DP_SHAPES = ((64, 1023, 512), (64, 2047, 1024))
-# The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory,
-# f32 outside the tensor cores and dense int8 on the tensor cores.  The DP's
-# f32 operations a cell at k = 2: two subtracts, a compare and a length add
-# per gap side, an add and a length add for M, two compares for the best
-# state (selects not counted).
+# The H100 SXM's published rates (NVIDIA's H100 datasheet): device memory
+# and dense int8 on the tensor cores.  The f32 rate and the shared-memory
+# rate are the card's own (card_rates, from its SM count and maximum SM
+# clock): no kernel of the port issues an FMA (--fmad=false and the
+# bit-exact contract), so an f32 operation is one lane-instruction, at 128
+# lanes an SM a clock (the published 67 TFLOP/s counts an FMA as two); shared
+# memory moves 128 bytes an SM a clock.  The DP's f32 operations a cell at k
+# = 2: two subtracts, a compare and a length add per gap side, an add and a
+# length add for M, two compares for the best state (selects not counted).
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+F32_LANES_PER_SM = 128
+SMEM_BYTES_PER_SM_CLOCK = 128
 DP_OPS_PER_CELL = 12
+RATES: dict = {}  # card_rates()
 
 
 def say(phase: str, **fields) -> None:
@@ -194,6 +218,22 @@ def route_knob(value: str):
         del os.environ["PRALINE_FUSED_DP"]
 
 
+def card_rates() -> dict:
+    """The card's f32 lane-instruction rate and shared-memory byte rate: its
+    SMs times 128 lanes (bytes) times its maximum SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    RATES.update(sms=sms, sm_clock_hz=mhz * 1e6,
+                 f32_ops_per_s=sms * F32_LANES_PER_SM * mhz * 1e6,
+                 smem_bytes_per_s=sms * SMEM_BYTES_PER_SM_CLOCK * mhz * 1e6)
+    return RATES
+
+
 def phase_environment():
     import torch
 
@@ -201,6 +241,7 @@ def phase_environment():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
     if not (ROOT / "praline_tpu_torch" / "csrc").is_dir() or not (ROOT / "testdata").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository")
+    card_rates()
     sys.path.insert(0, str(ROOT))
     from praline_tpu_torch.kernels import build
 
@@ -217,7 +258,10 @@ def phase_environment():
     ).stdout.strip().splitlines()[0]
     say("environment", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=repr(nvcc.stdout.strip().splitlines()[-1]),
-        triton=triton_version, gpu=repr(smi), devices=torch.cuda.device_count())
+        triton=triton_version, gpu=repr(smi), devices=torch.cuda.device_count(),
+        sms=RATES["sms"], sm_clock_max_hz=f"{RATES['sm_clock_hz']:.4e}",
+        f32_ops_per_s=f"{RATES['f32_ops_per_s']:.4e}",
+        smem_bytes_per_s=f"{RATES['smem_bytes_per_s']:.4e}")
     return smi
 
 
@@ -265,15 +309,15 @@ def phase_build():
         say("registers", kernel=kernel, file=source, **{what: which}, lanes_per_thread=1,
             **found)
     phase_cluster_occupancy()
-    return usage
     probes = {}
-    for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel"):
+    for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel",
+                   "compose_kernel"):
         key = next((n for n in usage if kernel in n), None)
         if key is None:
             raise AssertionError(f"build: no -Xptxas -v line for {kernel}")
         probes[kernel.split("_kernel")[0]] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
             *usage[key])
-    say("registers", kernel="probes", **probes)
+    say("registers", kernel="probes and compose", **probes)
     producers = {}
     for kernel in ("skewed_scores_mma_kernel", "skewed_scores_kernel"):
         key = next((n for n in usage if kernel in n), None)
@@ -285,6 +329,7 @@ def phase_build():
                      re.S)
     say("registers", kernel="producers", **producers,
         mma_ptxas=repr(smem.group(0).splitlines()[-1].strip()) if smem else "not found")
+    return usage
 
 
 # Mangled names of the DP kernels at k = {k} levels: the fused kernel on
@@ -367,15 +412,20 @@ def same_outputs(got, want, what) -> float:
     return float((got["score"] - want["score"]).abs().max())
 
 
-def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
-    """The least time the card could take: the larger of ``nbytes`` over
-    its memory rate and the operations' time, ``ops`` f32 operations over
-    the f32 rate plus ``int8_ops`` tensor-core operations over the int8
-    rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / F32_OPS_PER_S + int8_ops / INT8_OPS_PER_S) * 1e3
-    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
-            else {"bound_ms": t_ops, "bound_by": "operations"})
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0, smem_bytes: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes' time
+    (``nbytes`` over the memory rate, or ``smem_bytes`` through shared
+    memory over its rate, whichever is longer; ``bytes_of`` says which) and
+    the operations' time, ``ops`` f32 lane-instructions over the card's f32
+    rate plus ``int8_ops`` tensor-core operations over the int8 rate."""
+    t_hbm = nbytes / HBM_BYTES_PER_S * 1e3
+    t_smem = smem_bytes / RATES["smem_bytes_per_s"] * 1e3
+    t_bytes = max(t_hbm, t_smem)
+    t_ops = (ops / RATES["f32_ops_per_s"] + int8_ops / INT8_OPS_PER_S) * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes",
+                "bytes_of": "shared memory" if t_smem > t_hbm else "device memory"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
 def nbytes(*tensors) -> int:
@@ -709,7 +759,9 @@ def phase_probes_vs_plain(dev) -> dict:
     out["smem_chain"] = {
         "err": err, "plain_ms": plain_ms,
         "ms": cuda_ms(lambda: probes.smem_chain(x, bench.SMEM_LINKS), 3),
-        **bound(2 * n * 4, n * bench.SMEM_LINKS * bench.OPS_PER_LINK)}
+        # a link: a 4-byte shared-memory load and store a thread
+        **bound(2 * n * 4, n * bench.SMEM_LINKS * bench.OPS_PER_LINK,
+                smem_bytes=n * bench.SMEM_LINKS * 8)}
     say("probe=plain", kernel="smem_chain", shape=list(bench.SMEM_SHAPE), links=bench.SMEM_LINKS,
         result="bit-equal", subnormal_results=subnormal,
         **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out["smem_chain"].items()})
@@ -1428,9 +1480,11 @@ def phase_goldens(dev):
         ALPHABET_AA, ALPHABET_DNA, PralineConfig, builtin_score_matrix,
         format_alignment_clustal, format_alignment_fasta, load_sequence_fasta, msa_align,
     )
+    from praline_tpu_torch import METRICS
     from praline_tpu_torch.kernels import fused_dp, fused_scores, replay, wavefront
 
     td = ROOT / "testdata"
+    walks = {}
     for knob in ("1", "0"):
         before = (sum(fused_dp.launches.values()), sum(fused_scores.launches.values()),
                   wavefront.launches, replay.launches)
@@ -1440,6 +1494,8 @@ def phase_goldens(dev):
                 alphabet = ALPHABET_DNA if family == "dna8" else ALPHABET_AA
                 seqs = load_sequence_fasta(td / f"{family}.fasta", alphabet)
                 aln = msa_align(seqs, builtin_score_matrix(mname), PralineConfig(**kw), device=dev)
+                walks[f"{family}.{tag}"] = (f"{METRICS.notes['merge_walk']}"
+                                            f":{METRICS.notes.get('merge_rung', '-')}")
                 if format_alignment_fasta(aln) != (td / f"{family}.{tag}.golden.fasta").read_text():
                     raise AssertionError(f"{family}.{tag} (knob {knob}): FASTA differs from the golden")
                 if format_alignment_clustal(aln) != (td / f"{family}.{tag}.golden.aln").read_text():
@@ -1451,8 +1507,289 @@ def phase_goldens(dev):
             raise AssertionError("goldens under PRALINE_FUSED_DP=1 did not launch the fused kernel")
         if knob == "0" and (fused or not (scores and dp and walk)):
             raise AssertionError("goldens under PRALINE_FUSED_DP=0 left the two-kernel route")
+        # PAM250 fails the device merge's exactness guard, as in the JAX package
+        if walks["family16div.pam250_semi_pplocal"] != "per-level:-":
+            raise AssertionError(f"the PAM250 golden took the {walks['family16div.pam250_semi_pplocal']} "
+                                 "merge walk")
         say("goldens", route="fused" if knob == "1" else "two_kernel", cases=len(GOLDENS),
-            result="byte-equal", seconds=round(time.perf_counter() - t0, 3))
+            result="byte-equal", merge_walks=",".join(f"{k}={v}" for k, v in walks.items()),
+            seconds=round(time.perf_counter() - t0, 3))
+
+
+def compose_table(rng, dev, J, C, A):
+    """A node table of 3J slots on the card: slots 0 .. 2J - 1 random integer
+    profiles of C/4 to C/2 columns (the last join's C/2 to C, so that its
+    merged profile may outgrow C; a fifth of the columns with a residue of
+    300-499 counts, so that merged columns cross COUNT_LIMIT), gap counts
+    and 1-400 members; slots 2J .. 3J - 1 the joins' outputs.  Returns the
+    table, the inverse table and the host counts, gaps and member counts."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch.kernels import compose
+
+    M = 3 * J
+    lens = rng.integers(max(1, C // 4), C // 2 + 1, size=2 * J)
+    lens[-2:] = rng.integers(C // 2, C + 1, size=2)
+    counts = np.zeros((M, C, A), np.float32)
+    gaps = np.zeros((M, C), np.float32)
+    for k, L in enumerate(lens):
+        c = rng.integers(0, 3, size=(L, A)).astype(np.float32)
+        big = rng.random(L) < 0.2
+        c[big, rng.integers(0, A, size=int(big.sum()))] += rng.integers(300, 500, size=int(big.sum()))
+        counts[k, :L] = c
+        gaps[k, :L] = rng.integers(0, 60, size=L)
+    mems = np.r_[rng.integers(1, 401, size=2 * J), np.zeros(J)].astype(np.int32)
+    inv_table = compose.inverse_table(float(counts.sum(-1).max()))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    table = compose.NodeTable(up(counts), up(gaps), up(compose.column_inverses(counts, inv_table)),
+                              up(np.r_[lens, np.ones(J)].astype(np.int32)), up(mems))
+    return table, up(inv_table), counts, gaps, mems
+
+
+def clone_table(table):
+    from praline_tpu_torch.kernels.compose import NodeTable
+
+    return NodeTable(*(getattr(table, f.name).clone() for f in dataclasses.fields(table)))
+
+
+def over_limit_columns(tape, nmv, counts, gaps, mems, li, ri, C) -> int:
+    """Merged columns whose counts plus gaps exceed COUNT_LIMIT before the
+    rescale, from the host copies of the tapes and the children (joins
+    within the capacity C)."""
+    import numpy as np
+
+    over = 0
+    for j in (j for j in range(len(nmv)) if nmv[j] <= C):
+        m = tape[j, : nmv[j]][::-1]
+        tx, ty = (m == 1) | (m == 2), (m == 1) | (m == 3)
+        side = lambda s, take, other: np.where(
+            take, (counts[s].sum(-1) + gaps[s])[np.clip(np.cumsum(take) - 1, 0, None)], other)
+        over += int((side(li[j], tx, mems[li[j]]) + side(ri[j], ty, mems[ri[j]]) > 992).sum())
+    return over
+
+
+def compose_shapes(msa_seqs, long_seqs, long8_seqs):
+    """(J, C) of the compose checks: a merge level at the headline bucket
+    1023 and at msa128's first rung, one of 16 joins at long32's (the fused
+    kernel's) and one of 1 and of 4 joins at long8's (the tiled kernel's),
+    the widest levels those walks run."""
+    from praline_tpu_torch.msa.device_merge import ladder
+
+    rung = lambda seqs: ladder(max(q.length for q in seqs))[0]
+    return ((32, HEADLINE_BUCKET), (32, rung(msa_seqs)), (16, rung(long_seqs)),
+            (1, rung(long8_seqs)), (4, rung(long8_seqs)))
+
+
+def phase_compose(dev, shapes):
+    """The compose kernel bit for bit against ``compose_plain`` on the card,
+    each output slot, tape and length NaN- (or -7, or 0xAB-) poisoned first,
+    in the three modes at ``shapes`` (J joins at capacity C): tapes from the
+    DP's traceback and walk at (C, C) on the route of kernels/batch.py, and in
+    semiglobal and local mode hand-made ones in the first three rows (an
+    empty local walk, a walk of x moves alone, one of y moves alone), over
+    columns that cross COUNT_LIMIT.  Then the kernel's and the plain
+    version's times at the second shape, with its bound in bytes (the two
+    children's needed columns and the tapes read, the output slot and the
+    full tapes written)."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import batch, compose
+    from praline_tpu_torch.kernels.fused_scores import tier_of
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    A = s.shape[0]
+    rng = np.random.default_rng(SEED + 16)
+    t0, err, over, outgrown, out = time.perf_counter(), 0.0, 0, 0, {}
+    for J, C in shapes:
+        for mode in MODES:
+            table, inv_dev, counts, gaps, mems = compose_table(rng, dev, J, C, A)
+            li = torch.arange(0, 2 * J, 2, dtype=torch.int32, device=dev)
+            ri, oi = li + 1, torch.arange(2 * J, 3 * J, dtype=torch.int32, device=dev)
+            ops = (table.counts[li.long()], table.inv[li.long()], table.counts[ri.long()],
+                   table.inv[ri.long()])
+            route = batch.choose_route("cuda", C, C, True)
+            tier = tier_of(counts[0::2][:J], counts[1::2][:J], s.cpu().numpy())
+            walk = batch.dispatch(route, *ops, s, table.lens[li.long()], table.lens[ri.long()],
+                                  gap_series=(11, 1), mode=mode, traceback=True,
+                                  tier=tier if batch.takes_tier(route, C, C) else None)
+            moves, nm, ti, tj = walk["moves"], walk["nmoves"], walk["ti"], walk["tj"]
+            lens = table.lens.cpu().numpy()
+            if mode != "global" and J >= 3:
+                # an empty local walk (or a semiglobal one of x moves), x alone, y alone
+                for row, kind in enumerate(("empty", "x", "y")):
+                    k = 0 if kind == "empty" and mode == "local" else \
+                        min(40, lens[2 * row + (kind == "y")])
+                    moves[row].zero_()
+                    moves[row, :k] = 3 if kind == "y" else 2
+                    nm[row] = k
+                    ti[row] = 0 if kind == "y" else k
+                    tj[row] = k if kind == "y" else 0
+            want = clone_table(table)
+            tape_p, nmv_p = compose.compose_plain(moves, nm, ti, tj, want, li, ri, oi, inv_dev, mode)
+            got = clone_table(table)
+            for t in (got.counts, got.gaps, got.inv):
+                t[oi.long()] = float("nan")
+            got.lens[oi.long()] = -7
+            got.mems[oi.long()] = -7
+            tape_k = torch.full_like(tape_p, 0xAB)
+            nmv_k = torch.full_like(nmv_p, -7)
+            before = compose.launches
+            compose.compose(moves, nm, ti, tj, got, li, ri, oi, inv_dev, mode, tape_out=tape_k,
+                            nmv_out=nmv_k)
+            if compose.launches != before + 1:
+                raise AssertionError("compose: no launch counted")
+            for key, a, b in (("tape", tape_k, tape_p), ("nmv", nmv_k, nmv_p),
+                              ("counts", got.counts, want.counts), ("gaps", got.gaps, want.gaps),
+                              ("inv", got.inv, want.inv), ("lens", got.lens, want.lens),
+                              ("mems", got.mems, want.mems)):
+                torch.cuda.synchronize()
+                if a.dtype == torch.float32:
+                    err = max(err, bit_equal(a, b, f"compose {key} {mode} J{J} C{C}"))
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"compose {key} {mode} J{J} C{C} differs from plain")
+            outgrown += int((nmv_p > C).sum())
+            over += over_limit_columns(tape_p.cpu().numpy(), nmv_p.cpu().numpy(), counts, gaps,
+                                       mems, li.cpu().numpy(), ri.cpu().numpy(), C)
+            if (J, C) == shapes[1] and mode == "global":
+                args = (moves, nm, ti, tj, got, li, ri, oi, inv_dev, mode)
+                ms = cuda_ms(lambda: compose.compose(*args, tape_out=tape_k, nmv_out=nmv_k), 10)
+                plain_ms = cuda_ms(lambda: compose.compose_plain(*args[:4], want, *args[5:]), 3)
+                needed = float(lens[0:2 * J].sum()) * (A + 1) * 4 + float(nm.sum())
+                written = J * C * (A + 2) * 4 + tape_k.numel() + J * 3 * 4
+                out = {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "shape": f"J{J}xC{C}",
+                       "again_ms": cuda_ms(lambda: compose.compose(*args, tape_out=tape_k,
+                                                                   nmv_out=nmv_k), 10),
+                       **bound(needed + written, 0.0)}
+            del walk, moves, want, got
+    if not over:
+        raise AssertionError("compose: no merged column crossed COUNT_LIMIT")
+    out["err"] = err
+    say("compose=plain", shapes="|".join(f"J{J}xC{C}" for J, C in shapes), modes=",".join(MODES),
+        tapes="DP traceback + empty local walk, x alone, y alone", over_limit_columns=over,
+        joins_past_capacity=outgrown,
+        result="bit-equal(tapes, lengths, table slots; poisoned)",
+        seconds=round(time.perf_counter() - t0, 3),
+        **{k: (round(v, 4) if isinstance(v, float) else v) for k, v in out.items()})
+    return out
+
+
+def merge_inputs(dev, seqs):
+    """The merge stage's inputs as ``msa_align`` makes them with the default
+    config: the preprofiled members and the guide tree."""
+    from praline_tpu_torch import PralineConfig, builtin_score_matrix
+    from praline_tpu_torch.msa.pipeline import batched_all_pairs, batched_preprofiles
+    from praline_tpu_torch.oracle.tree import build_guide_tree, similarity_from_scores
+
+    cfg = PralineConfig()
+    matrix = builtin_score_matrix("blosum62")
+    pp = batched_preprofiles(seqs, matrix, cfg, device=dev)
+    scores, lengths = batched_all_pairs(pp, matrix, cfg, device=dev)
+    tree = build_guide_tree(similarity_from_scores(scores, lengths, cfg.score_normalization),
+                            cfg.linkage)
+    return pp, tree, matrix, cfg
+
+
+def tier_runs(tiers) -> str:
+    """Each level's tier, run-length encoded: ``mma*70,scalar*2``."""
+    runs = []
+    for t in tiers:
+        if runs and runs[-1][0] == t:
+            runs[-1][1] += 1
+        else:
+            runs.append([t, 1])
+    return ",".join(f"{t}*{n}" for t, n in runs)
+
+
+def phase_device_merge(dev, name, seqs, ladders=()):
+    """The device walk of ``name``'s merge stage: each attempt enqueued
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any call that
+    synchronizes raises), then the one host copy; its rung, attempts, route
+    and each level's tier; then the device walk and the per-level path on
+    the same tree, :data:`MERGE_TURNS` times each in alternating order
+    (device first, then per-level first), each byte-equal to the first
+    walk.  ``ladders``: (label, rungs) walks timed twice each, byte-equal
+    too."""
+    import torch
+
+    from praline_tpu_torch import format_alignment_fasta
+    from praline_tpu_torch.msa.device_merge import (
+        collect_walk, enqueue_walk, merge_on_device, plan_merge, try_device_merge,
+    )
+    from praline_tpu_torch.msa.pipeline import per_level_merge
+
+    t0 = time.perf_counter()
+    pp, tree, matrix, cfg = merge_inputs(dev, seqs)
+    plan = plan_merge(pp, tree, matrix, cfg)
+    if plan is None:
+        raise AssertionError(f"{name}: the device merge refused the family")
+    attempts, aln, walk = [], None, None
+    t_walk = time.perf_counter()
+    enqueue_s = 0.0
+    for C in plan.rungs:
+        attempts.append(C)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            walk = enqueue_walk(plan, C, dev)
+            enqueue_s += time.perf_counter() - t1
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        aln = collect_walk(plan, walk)
+        if aln is not None:
+            break
+    walk_s = time.perf_counter() - t_walk
+    if aln is None:
+        raise AssertionError(f"{name}: every rung of {plan.rungs} overflowed")
+    text = format_alignment_fasta(aln)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t1
+
+    _, collect_idle_s = timed(lambda: collect_walk(plan, walk))  # the copy and gap injection alone
+    walks = {"device": (lambda: try_device_merge(pp, tree, matrix, cfg, device=dev), []),
+             "per_level": (lambda: per_level_merge(pp, tree, matrix, cfg, device=dev), [])}
+    for turn in range(MERGE_TURNS):
+        for key in ("device", "per_level")[:: 1 if turn % 2 == 0 else -1]:
+            fn, walls = walks[key]
+            got, wall = timed(fn)
+            if got is None or format_alignment_fasta(got) != text:
+                raise AssertionError(f"{name}: the {key} walk's bytes differ from the first "
+                                     "device walk's")
+            walls.append(wall)
+    device_s, per_level_s = walks["device"][1], walks["per_level"][1]
+    extra = {}
+    for label, rungs in ladders:
+        walls = []
+        for _ in range(2):
+            got, wall = timed(lambda: merge_on_device(dataclasses.replace(plan, rungs=rungs),
+                                                      dev))
+            if got is None or format_alignment_fasta(got) != text:
+                raise AssertionError(f"{name}: ladder {label} {rungs} differs")
+            walls.append(wall)
+        extra[f"ladder_{label}_rungs"] = "/".join(map(str, rungs))
+        extra[f"ladder_{label}_s"] = ",".join(f"{w:.4f}" for w in walls)
+    say("device-merge", family=name, walk="device", rung=walk.C_cap,
+        attempts="/".join(map(str, attempts)), ladder="/".join(map(str, plan.rungs)),
+        route=walk.route, columns=aln.num_columns, levels=len(plan.levels),
+        joins=len(tree.joins), tiers=tier_runs(plan.tiers),
+        sync_debug="error while enqueued", enqueue_s=round(enqueue_s, 4),
+        first_walk_s=round(walk_s, 4), collect_on_idle_device_s=round(collect_idle_s, 4),
+        turns="device,per_level then per_level,device, in turn",
+        device_walk_s=",".join(f"{w:.4f}" for w in device_s),
+        per_level_s=",".join(f"{w:.4f}" for w in per_level_s),
+        median_device_walk_s=round(statistics.median(device_s), 4),
+        median_per_level_s=round(statistics.median(per_level_s), 4),
+        device_faster_turns=sum(d < p for d, p in zip(device_s, per_level_s)),
+        result="byte-equal to the per-level path",
+        seconds=round(time.perf_counter() - t0, 3), **extra)
 
 
 GOLDENS = [  # (family, tag, matrix, config kwargs); the first four are the defaults
@@ -1594,6 +1931,9 @@ def run_msa_twice(dev, seqs, name):
             aln = msa_align(seqs, matrix, PralineConfig(), device=dev)
             wall = time.perf_counter() - t0
         stages = METRICS.summary()
+        notes = dict(METRICS.notes)
+        if notes.get("merge_walk") != "device":
+            raise AssertionError(f"{name}: the merge took the {notes.get('merge_walk')} walk")
         rows = np.asarray(aln.rows)
         if rows.shape != (len(seqs), aln.num_columns):
             raise AssertionError(f"{name}: rows of unequal width")
@@ -1604,15 +1944,13 @@ def run_msa_twice(dev, seqs, name):
         say(name, run=run, sequences=len(seqs),
             lengths=f"{min(s.length for s in seqs)}-{max(s.length for s in seqs)}",
             columns=aln.num_columns, wall_s=round(wall, 4), gc_s=round(gc_clock.seconds, 4),
-            **{f"{k}_s": v["seconds"] for k, v in stages.items()})
+            **{f"{k}_s": v["seconds"] for k, v in stages.items()},
+            merge_walk=notes["merge_walk"], merge_rung=notes["merge_rung"],
+            merge_attempts="/".join(map(str, notes["merge_attempts"])),
+            merge_route=notes["merge_route"])
     if texts[0] != texts[1]:
         raise AssertionError(f"{name}: two runs gave different bytes")
     return lambda: msa_align(seqs, matrix, PralineConfig(), device=dev)
-
-
-def phase_msa(dev):
-    """``msa_align`` end to end on the 128-sequence family, twice."""
-    return run_msa_twice(dev, synthetic_family(), "msa")
 
 
 def long_family():
@@ -1699,18 +2037,21 @@ def phase_profile(name, fn):
 
 
 KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "tiled",
-           "walk", "alu_chains", "smem_chain", "write_blocks")
+           "walk", "compose", "alu_chains", "smem_chain", "write_blocks")
 # The kernels each main path must launch: the all-pairs headline on its
 # default route (two-kernel) and forced onto the fused route, the three
 # msa_align runs, the composites (the producer at least twice a chunk: see
 # main), and the utilization and wprobe configs.  Only long8 has rows past
 # the fused kernel's lanes; every other path must keep off the tiled kernel.
+# The three msa_align paths merge on the device walk, whose compose kernel
+# writes each level's merged profiles.
 # Every path's profiles are integer counts the tensor-core predicate
 # admits, so every producer and fused launch of a path takes the "mma"
 # tier; the scalar tiers are launched and checked by the kernel phases alone.
 PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
-                "msa128": ("scores_mma", "dp", "walk"), "long-family": ("fused", "walk"),
-                "long8": ("scores_mma", "tiled", "walk"), "tracks": ("scores_mma", "dp"),
+                "msa128": ("scores_mma", "dp", "walk", "compose"),
+                "long-family": ("fused", "walk", "compose"),
+                "long8": ("scores_mma", "tiled", "walk", "compose"), "tracks": ("scores_mma", "dp"),
                 "tracks-traceback": ("scores_mma", "dp", "walk"),
                 "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",)}
 
@@ -1718,9 +2059,11 @@ PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fu
 def counted(name, phase):
     """Run ``phase`` with every launch count set to 0 just before it; return
     its result and the counts read just after."""
-    from praline_tpu_torch.kernels import fused_dp, fused_scores, probes, replay, tiled_dp, wavefront
+    from praline_tpu_torch.kernels import (
+        compose, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
+    )
 
-    modules = dict(zip(("dp", "tiled", "walk"), (wavefront, tiled_dp, replay)))
+    modules = dict(zip(("dp", "tiled", "walk", "compose"), (wavefront, tiled_dp, replay, compose)))
     for m in (*modules.values(), fused_dp, fused_scores, probes):
         m.reset_launches()
     result = phase()
@@ -1787,14 +2130,20 @@ def main() -> int:
     probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
     all_pairs_run = all_pairs_runner(dev, matrix, pairs)
+    msa_seqs = synthetic_family()
     long_seqs = long_family()
     long8_seqs = long8_family()
+    compose_times = phase_compose(dev, compose_shapes(msa_seqs, long_seqs, long8_seqs))
+    phase_device_merge(dev, "msa128", msa_seqs, ladders=(
+        ("pow2", (2047,)), ("headroom1.125", (1151, 1279, 1535))))
+    phase_device_merge(dev, "long-family", long_seqs)
+    phase_device_merge(dev, "long8", long8_seqs)
     track_pairs, track_cells, track_mats, track_w, tracks_run = tracks_runner(dev)
 
     # ---- the main paths: launches are counted per path, over its runs only ----
     (res, walls, gcs), c1 = counted(
         "all-pairs", lambda: timed_runs(all_pairs_run, HEADLINE_RUNS, "two_kernel"))
-    msa_run, c2 = counted("msa128", lambda: phase_msa(dev))
+    msa_run, c2 = counted("msa128", lambda: run_msa_twice(dev, msa_seqs, "msa"))
     long_run, c3 = counted("long-family", lambda: run_msa_twice(dev, long_seqs, "long-family"))
     long8_run, c4 = counted("long8", lambda: run_msa_twice(dev, long8_seqs, "long8"))
     (tracks_res, chunks), c5 = counted("tracks", lambda: run_tracks(tracks_run, track_cells, 2, False))
@@ -1909,7 +2258,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "praline_tpu_torch/csrc/probes.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": t["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
+            "bound_by": t["bound_by"], "bytes_of": t.get("bytes_of"),
+            "library_ms": t.get("library_ms")})
+    kernels.append({
+        "name": "compose", "route": "cuda", "source": "praline_tpu_torch/csrc/compose.cu",
+        "replaces": "praline_tpu/msa/device_merge.py:159-266 (XLA ops of the device merge's "
+                    "join body; no Pallas kernel)",
+        "launches": launches["compose"], "max_abs_err": compose_times["err"],
+        "ms": compose_times["ms"], "plain_ms": compose_times["plain_ms"],
+        "bound_ms": compose_times["bound_ms"], "bound_by": compose_times["bound_by"],
+        "library_ms": None, "shape": compose_times["shape"],
+        "again_ms": compose_times["again_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

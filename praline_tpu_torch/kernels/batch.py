@@ -288,19 +288,20 @@ def chunk_stats(arrays: dict, rows: np.ndarray) -> SideStats:
                      tmax=float(arrays["tmax"][rows].max()) if "tmax" in arrays else 0.0)
 
 
-def _device_index(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Stack row indices on ``dev``; on a CUDA device they go up from pinned
-    memory, without blocking the host."""
-    idx = torch.from_numpy(rows)
+def upload(array: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A contiguous numpy array (stack row indices, a node table) on
+    ``dev``; on a CUDA device it goes up from pinned memory, without
+    blocking the host."""
+    t = torch.from_numpy(array)
     if dev.type == "cuda":
-        idx = idx.pin_memory().to(dev, non_blocking=True)
-    return idx
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return t
 
 
 def _gather_side(st: dict, rows: np.ndarray):
     """(counts f32[B, L, A], inv f32[B, L], lens int32[B]) for stack rows
     ``rows``."""
-    idx = _device_index(rows, st["counts"].device)
+    idx = upload(rows, st["counts"].device)
     return (st["counts"].index_select(0, idx), st["inv"].index_select(0, idx),
             st["lens"].index_select(0, idx))
 
@@ -511,7 +512,7 @@ def composite_scores(sx: dict, sy: dict, ix: np.ndarray, iy: np.ndarray, ss, wei
     ``kernels/scores.py::composite_skewed_scores``.  In place, so at most
     two ``hs`` tensors are alive."""
     dev = ss[0].device
-    idx_x, idx_y = _device_index(ix, dev), _device_index(iy, dev)
+    idx_x, idx_y = upload(ix, dev), upload(iy, dev)
     acc = None
     for (cx, ivx), (cy, ivy), s, w, tier in zip(sx["tracks"], sy["tracks"], ss, weights, tiers):
         hs = fused_skewed_scores(cx.index_select(0, idx_x), ivx.index_select(0, idx_x),

@@ -136,6 +136,8 @@ def load_library() -> ctypes.CDLL:
         lib.praline_tiled_dp_smem.argtypes = [i, i, i, i, i]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
+        lib.praline_compose.restype = i
+        lib.praline_compose.argtypes = [*[p] * 13, *[i] * 6, p, p, p]
         ll = ctypes.c_longlong
         lib.praline_alu_chains.restype = i
         lib.praline_alu_chains.argtypes = [p, p, ll, ll, p]

@@ -8,10 +8,14 @@ device; profiles, the tree and gap injection are the port's copy of the
 JAX package's host code (``praline_tpu_torch.oracle``), so the output is
 column-identical to ``oracle_msa``.
 
-Not ported yet (ROADMAP.md, port queue): the single-dispatch device merge
-(``praline_tpu/msa/device_merge.py``), device meshes and the
-profiler trace.  The per-level merge is the JAX package's own fallback
-path (``pipeline.py:245-283``).
+The merge stage tries the device-resident walk first
+(``msa/device_merge.py``: the node table on the device, every tree level
+enqueued, one host copy for the whole walk), as the JAX package does
+(``praline_tpu/msa/pipeline.py:237-242``); where it returns None (PAM250's
+exactness guard, every column capacity outgrown) the merge walks the
+tree one level at a time (:func:`per_level_merge`, the JAX package's own
+fallback, ``pipeline.py:245-283``).  Not ported yet (ROADMAP.md, port
+queue): device meshes and the profiler trace.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..types import (
 )
 from ..util.checkpoint import Checkpoint, run_digest
 from ..util.metrics import METRICS, log
+from .device_merge import try_device_merge
 
 # Pairs per resumable distance tile: the O(N^2) stage checkpoints tile by
 # tile when a checkpoint directory is set (same tile as the JAX package).
@@ -181,8 +186,26 @@ def batched_progressive_merge(
     *,
     device,
 ) -> Alignment:
+    """The merge stage: the device-resident walk where it takes the input
+    (``device_merge.try_device_merge``), else :func:`per_level_merge`.
+    ``METRICS.notes["merge_walk"]`` says which ran."""
+    merged = try_device_merge(sequences, tree, matrix, config, device=device)
+    if merged is not None:
+        return merged
+    return per_level_merge(sequences, tree, matrix, config, device=device)
+
+
+def per_level_merge(
+    sequences: list[Sequence],
+    tree: SequenceTree,
+    matrix: ScoreMatrix,
+    config: PralineConfig,
+    *,
+    device,
+) -> Alignment:
     """Walk the guide tree one level at a time: each level's joins are one
     batched profile-profile traceback call."""
+    METRICS.note("merge_walk", "per-level")
     nodes: dict[int, Alignment] = {i: Alignment.single(s) for i, s in enumerate(sequences)}
     profiles: dict[int, Profile] = {i: node_profile(nodes[i]) for i in range(len(sequences))}
     n = tree.num_leaves

@@ -33,16 +33,22 @@ class StageStats:
 
 
 class Metrics:
-    """Process-wide per-stage counters (reset per pipeline run)."""
+    """Process-wide per-stage counters (reset per pipeline run), and notes:
+    what a stage chose (the merge's walk, column capacity and attempts)."""
 
     def __init__(self) -> None:
         self.stages: dict[str, StageStats] = {}
+        self.notes: dict[str, object] = {}
 
     def stage(self, name: str) -> StageStats:
         return self.stages.setdefault(name, StageStats())
 
     def reset(self) -> None:
         self.stages.clear()
+        self.notes.clear()
+
+    def note(self, key: str, value) -> None:
+        self.notes[key] = value
 
     def add_pairs(self, stage: str, n_pairs: int, cells: float) -> None:
         s = self.stage(stage)

@@ -12,6 +12,7 @@ probes and the batched aligners (single-track and composite) are
 bit-exact by contract.
 """
 
+import dataclasses
 import zlib
 
 import numpy as np
@@ -512,3 +513,104 @@ def test_composites_match_plain_on_both_routes(cuda, monkeypatch, mode, tracebac
                 assert np.array_equal(g.cols_x, e.cols_x) and np.array_equal(g.cols_y, e.cols_y)
             else:
                 assert g == e
+
+
+def merge_family(n, L, seed):
+    """n members of a root of L residues with substitutions and short
+    deletions."""
+    from praline_tpu_torch import Sequence
+
+    rng = np.random.default_rng(seed)
+    root = rng.integers(0, 20, size=L)
+    out = []
+    for k in range(n):
+        toks = root.copy()
+        sub = rng.random(L) < 0.2
+        toks[sub] = rng.integers(0, 20, size=int(sub.sum()))
+        cut = int(rng.integers(0, L // 5))
+        at = int(rng.integers(0, L - cut))
+        out.append(Sequence(f"m{k}", np.delete(toks, np.arange(at, at + cut)).astype(np.int32),
+                            ALPHABET_AA))
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_compose_matches_plain(cuda, mode):
+    """The compose kernel against compose_plain on the card, output slots
+    poisoned: tapes from the DP's traceback at (C, C) and, outside global
+    mode, an empty walk, x moves alone and y moves alone."""
+    from praline_tpu_torch.kernels import compose
+
+    rng = np.random.default_rng(41)
+    J, C = 6, 200
+    counts = np.zeros((3 * J, C, A), np.float32)
+    gaps = np.zeros((3 * J, C), np.float32)
+    lens = np.r_[rng.integers(20, 100, size=2 * J), np.ones(J)].astype(np.int32)
+    for k in range(2 * J):
+        c = rng.integers(0, 3, size=(lens[k], A)).astype(np.float32)
+        c[rng.random(lens[k]) < 0.3, 0] += 400  # merged columns past COUNT_LIMIT
+        counts[k, : lens[k]], gaps[k, : lens[k]] = c, rng.integers(0, 50, size=lens[k])
+    mems = np.r_[rng.integers(1, 300, size=2 * J), np.zeros(J)].astype(np.int32)
+    inv_table = compose.inverse_table(float(counts.sum(-1).max()))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    table = compose.NodeTable(up(counts), up(gaps), up(compose.column_inverses(counts, inv_table)),
+                              up(lens), up(mems))
+    li = torch.arange(0, 2 * J, 2, dtype=torch.int32, device=cuda)
+    ri, oi = li + 1, torch.arange(2 * J, 3 * J, dtype=torch.int32, device=cuda)
+    ix, iy = li.long(), ri.long()
+    out = batch.dispatch("two_kernel", table.counts[ix], table.inv[ix], table.counts[iy],
+                         table.inv[iy], matrix_to_torch(B62, cuda), table.lens[ix],
+                         table.lens[iy], gap_series=(11, 1), mode=mode, traceback=True,
+                         tier="scalar")
+    moves, nm, ti, tj = out["moves"], out["nmoves"], out["ti"], out["tj"]
+    if mode != "global":
+        for row, (mv, k) in enumerate(((2, 0 if mode == "local" else 10), (2, 15), (3, 12))):
+            moves[row].zero_()
+            moves[row, :k] = mv
+            nm[row], ti[row], tj[row] = k, (k if mv == 2 else 0), (k if mv == 3 else 0)
+    clone = lambda t: compose.NodeTable(t.counts.clone(), t.gaps.clone(), t.inv.clone(),
+                                        t.lens.clone(), t.mems.clone())
+    want = clone(table)
+    tape_p, nmv_p = compose.compose_plain(moves, nm, ti, tj, want, li, ri, oi, up(inv_table), mode)
+    got = clone(table)
+    for t in (got.counts, got.gaps, got.inv):
+        t[oi.long()] = float("nan")
+    got.lens[oi.long()] = -7
+    before = compose.launches
+    tape, nmv = compose.compose(moves, nm, ti, tj, got, li, ri, oi, up(inv_table), mode)
+    torch.cuda.synchronize()
+    assert compose.launches == before + 1
+    assert torch.equal(tape, tape_p) and torch.equal(nmv, nmv_p)
+    for key in ("counts", "gaps", "inv"):
+        assert torch.equal(getattr(got, key).view(torch.int32), getattr(want, key).view(torch.int32))
+    assert torch.equal(got.lens, want.lens) and torch.equal(got.mems, want.mems)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_device_merge_cuda_equals_cpu(cuda, mode):
+    """The device walk on the card, enqueued with every synchronizing call
+    an error, gives the CPU's bytes and the per-level path's; the compose
+    kernel runs once a level."""
+    from praline_tpu_torch import PralineConfig, format_alignment_fasta
+    from praline_tpu_torch.kernels import compose
+    from praline_tpu_torch.msa import device_merge as dm
+    from praline_tpu_torch.msa.pipeline import batched_all_pairs, per_level_merge
+    from praline_tpu_torch.oracle.tree import build_guide_tree, similarity_from_scores
+
+    seqs = merge_family(9, 150, 43)
+    cfg = PralineConfig(merge_mode=mode)
+    scores, lengths = batched_all_pairs(seqs, B62, cfg, device=cuda)
+    tree = build_guide_tree(similarity_from_scores(scores, lengths, "length"), "average")
+    plan = dm.plan_merge(seqs, tree, B62, cfg)
+    before = compose.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        walk = dm.enqueue_walk(plan, plan.rungs[-1], cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert compose.launches == before + len(plan.levels)
+    got = dm.collect_walk(plan, walk)
+    want = dm.merge_on_device(dataclasses.replace(plan, rungs=plan.rungs[-1:]), "cpu")
+    assert format_alignment_fasta(got) == format_alignment_fasta(want)
+    assert format_alignment_fasta(got) == format_alignment_fasta(
+        per_level_merge(seqs, tree, B62, cfg, device=cuda))

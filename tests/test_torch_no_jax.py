@@ -41,6 +41,8 @@ def test_importing_the_port_leaves_jax_out():
     ``jax`` nor ``praline_tpu`` is loaded."""
     modules = port_modules()
     assert "praline_tpu_torch.kernels.tiled_dp" in modules and "praline_tpu_torch.oracle.msa" in modules
+    assert "praline_tpu_torch.kernels.compose" in modules
+    assert "praline_tpu_torch.msa.device_merge" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
