@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the eight Hopper kernel sources (the score producer's two tiers,
+Builds the ten Hopper kernel sources (the score producer's two tiers,
 tensor-core and scalar, wavefront DP, fused producer + DP and lane-tiled
-DP, each on a thread-block cluster a problem, traceback walk, the device
+DP on two sources, its checkpointed launches and the in-place composite,
+each on a thread-block cluster a problem, traceback walk, the device
 merge's profile composition, and the benchmark's probes) from
 ``praline_tpu_torch/csrc`` with nvcc, one process per source, with
 ``-Xptxas -v`` (registers and spills of the producers, the DPs, the probes
@@ -72,8 +73,30 @@ and the port's ``utilization`` and ``wprobe`` bench configs, whose rates
 are printed.  After them, sampled problems of each all-pairs stage and 16
 composite problems are held against the plain versions, and the headline
 runs four more times forced onto the fused route, counted on their own,
-to the same results.  One more run of each main path under
-``torch.profiler`` gives the device time per kernel and the busy share.
+to the same results.  The long routes (``[long=...]`` lines): at B2 x
+3000 x 2800, in global and local modes, on the hs and rows sources, at R
+= the default and 64 diagonals a block, the checkpointed forward launch's
+terminals equal the traceback launch's, every block's resumed bytes its
+rows of tb and the block walk's tapes ``replay_moves``'s; the forward
+launch (terminals and snapshot), one resume and one block walk against
+their plain versions; the in-place two-track composite against the tiled
+kernel over the materialized composite and the plain DP; a titin-length
+pair (34,350 aa) by the full traceback and checkpointed (budget lowered
+in this process, enqueued under ``set_sync_debug_mode("error")``), byte
+for byte, each timed with its peak memory.  Two more main paths: the
+``long-routes`` path (DNA pairs of 72,000 nt, full traceback under the
+scaled budget, and 75,000 nt, checkpointed unforced, each degapping to
+its inputs, the second's score equal to the scores-only run's; then
+``msa_align`` of a 4-member titin-length family unforced and forced, the
+same FASTA) and the ``tracks-long`` path (two two-track composites of
+26,000 residues a side, past the scaled hs budget: in place, then
+checkpointed).  The CLI runs msa128 with ``--profile-dir``, whose trace
+must hold ``dispatch:`` spans.  ``python3 chip_smoke.py long-routes``
+runs the build and these phases alone; ``python3 chip_smoke.py
+tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
+(for the parent beside this tree in one call).  One more run of each of the
+first five main paths under ``torch.profiler`` gives the device time per
+kernel and the busy share.
 Every producer and fused launch of every main path must take the
 tensor-core tier (the launches are counted per tier).  Every phase raises
 on failure.  The host layers are reached only through
@@ -297,6 +320,9 @@ def phase_build():
     usage = ptxas_usage("\n".join(build.last_build_log.values()))
     kernels = (("walk_kernel", "tiled_dp", "source", "hs", TILED_HS),
                ("walk_kernel", "tiled_dp", "source", "rows", TILED_ROWS),
+               ("walk_kernel", "tiled_ckpt", "source", "hs", TILED_HS_CKPT),
+               ("walk_kernel", "tiled_ckpt", "source", "rows", TILED_ROWS_CKPT),
+               ("walk_kernel", "tiled_composite", "source", "composite", TILED_COMPOSITE),
                ("walk_kernel", "wavefront_dp", "min_blocks", 4, DP_WALK.format(n=4, k="{k}")),
                ("walk_kernel", "wavefront_dp", "min_blocks", 5, DP_WALK.format(n=5, k="{k}")),
                ("fused_cluster_kernel", "fused_dp", "tier", "mma", FUSED_MMA),
@@ -333,13 +359,18 @@ def phase_build():
 
 
 # Mangled names of the DP kernels at k = {k} levels: the fused kernel on
-# either tier, csrc/cluster_walk.cuh's walk_kernel<Src, K, BAND, MAXW, MINB>
-# as the tiled kernel (on hs or in place, 512 threads) and as the DP over
-# hs (the band on, 128 threads, at least {n} CTAs an SM).
+# either tier, csrc/cluster_walk.cuh's walk_kernel<Src, K, BAND, MAXW, MINB,
+# CKPT> as the tiled kernel (on hs or in place, 512 threads, with the
+# checkpointed launches built in or not; walk_kernel_params on the
+# composite) and as the DP over hs (the band on, 128 threads, at least {n}
+# CTAs an SM).
 FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1E"
 FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0E"
-TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1E"
-TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1E"
+TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb0E"
+TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb0E"
+TILED_HS_CKPT = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb1E"
+TILED_ROWS_CKPT = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb1E"
+TILED_COMPOSITE = r"walk_kernel_paramsI.*CompositeSourceELi{k}ELb0ELi512ELi1ELb1E"
 DP_WALK = r"walk_kernelI.*HsSourceELi{k}ELb1ELi128ELi{n}E"
 
 
@@ -1615,7 +1646,7 @@ def phase_compose(dev, shapes):
             tier = tier_of(counts[0::2][:J], counts[1::2][:J], s.cpu().numpy())
             walk = batch.dispatch(route, *ops, s, table.lens[li.long()], table.lens[ri.long()],
                                   gap_series=(11, 1), mode=mode, traceback=True,
-                                  tier=tier if batch.takes_tier(route, C, C) else None)
+                                  tier=tier if batch.takes_tier(route, C, C, dev) else None)
             moves, nm, ti, tj = walk["moves"], walk["nmoves"], walk["ti"], walk["tj"]
             lens = table.lens.cpu().numpy()
             if mode != "global" and J >= 3:
@@ -2006,6 +2037,582 @@ def check_long_family(dev, seqs, name, n_sample, route=None):
         seconds=round(time.perf_counter() - t0, 3))
 
 
+# ---- the long routes: checkpointed traceback, in-place composites ----
+
+# (a) the new launches against the full traceback and their plain versions
+LONG_CHECK = (2, 3000, 2800, 2500)  # B, bx, by, shortest member
+LONG_CHECK_MODES = ("global", "local")
+TITIN_LENGTH = 34_350  # titin's canonical isoform, aa
+DNA_UNDER = 72_000  # nt: full traceback just under the scaled budget (2 bytes a cell)
+DNA_PAST = 75_000  # nt: past it, so checkpointed unforced
+TITIN_FAMILY = 4
+TRACKS_LONG = 26_000  # residues a side: a two-track composite past the scaled hs budget
+FORCED_TB_BUDGET = 1 << 24  # lowered in this process to force the checkpointed route
+# (gap series, geometry, carries in the scratch) of the checks at several
+# tiles a CTA, as the main paths run (titin m = 5, carries in shared
+# memory; the 75,000-nt pair m = 10, carries in the device-memory scratch):
+# m = 6 at LONG_CHECK's 3001 lanes
+LONG_MANY_TILES = (((11, 1), dict(ctas=2, tile_lanes=256), False),
+                   ((13, 7, 1), dict(ctas=1, tile_lanes=512), True))
+
+
+def mutated(rng, root, alphabet_size, indels=20):
+    """``root`` with 25% substitutions and ``indels`` short insertions or
+    deletions (1-3 residues each, half of each)."""
+    import numpy as np
+
+    toks = root.copy()
+    sub = rng.random(toks.size) < 0.25
+    toks[sub] = rng.integers(0, alphabet_size, size=int(sub.sum()))
+    for k in range(indels):
+        at, n = int(rng.integers(0, toks.size - 3)), int(rng.integers(1, 4))
+        toks = (np.insert(toks, at, rng.integers(0, alphabet_size, size=n)) if k % 2
+                else np.delete(toks, np.arange(at, at + n)))
+    return toks.astype(np.int32)
+
+
+def long_pair(seed, length, alphabet):
+    """Two seeded relatives of a ``length``-residue root."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = 4 if alphabet.size <= 5 else 20  # residues only (no wildcard)
+    root = rng.integers(0, A, size=length)
+    return mutated(rng, root, A), mutated(rng, root, A)
+
+
+@contextlib.contextmanager
+def forced_tb_budget():
+    """``batch.TB_BYTES_BUDGET`` lowered in this process: every traceback
+    past the hs budget or the whole-row lanes runs checkpointed."""
+    from praline_tpu_torch.kernels import batch
+
+    kept = batch.TB_BYTES_BUDGET
+    batch.TB_BYTES_BUDGET = FORCED_TB_BUDGET
+    try:
+        yield
+    finally:
+        batch.TB_BYTES_BUDGET = kept
+
+
+def cells_in_block(lx, ly, d0, d1) -> float:
+    """Cells 1 <= i <= lx, 1 <= j <= ly with d0 <= i + j <= d1, summed over
+    the problems."""
+    import numpy as np
+
+    total = 0.0
+    for a, b in zip(lx.tolist(), ly.tolist()):
+        i = np.arange(1, a + 1)
+        lo, hi = np.maximum(d0 - i, 1), np.minimum(d1 - i, b)
+        total += float(np.clip(hi - lo + 1, 0, None).sum())
+    return total
+
+
+def checkpointed_vs_full(source, lx, ly, series, mode, R, full, want_moves, want_n, what):
+    """The forward launch's terminals, every block's resumed bytes and the
+    block walk's tape against the full traceback launch and its walk."""
+    import torch
+
+    from praline_tpu_torch.kernels import replay, tiled_dp
+
+    D, B, Lp = full["tb"].shape[0] + 2, full["tb"].shape[1], full["tb"].shape[2]
+    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R)
+    for key in ("score", "length", "ti", "tj", "tcode"):
+        if not torch.equal(out[key], full[key]):
+            raise AssertionError(f"{what}: forward {key} differs from the traceback launch")
+    state = replay.walk_state(out["ti"], out["tj"], out["tcode"], len(series))
+    moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=lx.device)
+    block = torch.empty((R, B, Lp), dtype=torch.uint8, device=lx.device)
+    for q in range(snap.shape[0] - 1, -1, -1):
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R, q, snap, out=block)
+        rows = min(R, D - 2 - q * R)
+        if not torch.equal(block[:rows], full["tb"][q * R: q * R + rows]):
+            raise AssertionError(f"{what}: block {q} of {R} diagonals differs from tb")
+        replay.replay_block(block, state, moves, q, series, mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(moves, want_moves) and torch.equal(state[5], want_n)):
+        raise AssertionError(f"{what}: the block walk's tape differs from replay_moves")
+    return snap.shape[0]
+
+
+def plain_checkpointed(hs, lx, ly, series, mode, R):
+    """The plain checkpointed traceback over ``hs``: the forward pass's
+    terminals and snapshot, every block's bytes, and the block walk's tape
+    and move counts over them."""
+    import torch
+
+    from praline_tpu_torch.kernels import replay
+    from praline_tpu_torch.kernels.scan import forward_snapshots, resume_block
+
+    out, snap = forward_snapshots(hs, lx, ly, series, mode, R)
+    blocks = [resume_block(hs, snap, q, R, series, mode) for q in range(snap.shape[0])]
+    state = replay.walk_state(out["ti"], out["tj"], out["tcode"], len(series))
+    moves = torch.zeros((hs.shape[1], hs.shape[0] - 1), dtype=torch.uint8, device=hs.device)
+    for q in range(len(blocks) - 1, -1, -1):
+        replay.replay_block_plain(blocks[q], state, moves, q, series, mode)
+    return out, snap, blocks, moves, state[5]
+
+
+def many_tiles_vs_plain(source, lx, ly, series, mode, R, plain, geometry, what):
+    """At ``geometry``: the forward launch's terminals and snapshot, every
+    block's resumed bytes, the block walk's tape, and the full traceback
+    launch's terminals and bytes against :func:`plain_checkpointed`'s."""
+    import torch
+
+    from praline_tpu_torch.kernels import replay, tiled_dp
+
+    want_out, want_snap, want_blocks, want_moves, want_n = plain
+    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R, **geometry)
+    torch.cuda.synchronize()
+    for key in want_out:
+        if not torch.equal(out[key], want_out[key]):
+            raise AssertionError(f"{what}: forward {key} differs from plain")
+    if not torch.equal(snap.view(torch.int32), want_snap.view(torch.int32)):
+        raise AssertionError(f"{what}: the snapshot differs from plain")
+    state = replay.walk_state(out["ti"], out["tj"], out["tcode"], len(series))
+    moves = torch.zeros_like(want_moves)
+    block = torch.empty_like(want_blocks[0])
+    for q in range(snap.shape[0] - 1, -1, -1):
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R, q, snap, out=block,
+                                           **geometry)
+        rows = min(R, want_moves.shape[1] - 1 - q * R)  # rows past D - 1 are not written
+        if not torch.equal(block[:rows], want_blocks[q][:rows]):
+            raise AssertionError(f"{what}: block {q} differs from plain")
+        replay.replay_block(block, state, moves, q, series, mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(moves, want_moves) and torch.equal(state[5], want_n)):
+        raise AssertionError(f"{what}: the block walk's tape differs from plain")
+    full = tiled_dp.wavefront_dp_tiled(source, lx, ly, series, mode, True, **geometry)
+    rows = full["tb"].shape[0]
+    want_tb = torch.cat(want_blocks)[:rows]
+    same_outputs(full, {**want_out, "tb": want_tb}, f"{what}: the traceback launch")
+
+
+def phase_long_kernels(dev) -> dict:
+    """The checkpointed launches at B2 x 3000 x 2800: in global and local
+    modes on both sources, at R = the default and 64, the forward launch's
+    terminals equal the traceback launch's, every block's resumed bytes its
+    rows of tb (all cells) and the block walk's tapes replay_moves's; the
+    forward launch's snapshot and one block's bytes and walk against their
+    plain versions, bit for bit; the in-place composite (BLOSUM62 + PAM250,
+    weights 1 and 0.5) bit-equal to the tiled kernel over the materialized
+    composite hs, and against the plain DP.  Each new launch timed."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import replay, tiled_dp
+    from praline_tpu_torch.kernels.scan import (
+        default_ckpt_interval, forward_snapshots, resume_block, wavefront_dp as plain_dp,
+    )
+    from praline_tpu_torch.kernels.scores import composite_skewed_scores
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
+    t0 = time.perf_counter()
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    B, bx, by, lo = LONG_CHECK
+    ops = stacked_operands(np.random.default_rng(SEED + 20), dev, s, B, bx, by, lo)
+    lx, ly = ops[5], ops[6]
+    hs = plain_scores(*ops[:5])
+    D, Lp = bx + by + 1, bx + 1
+    R0 = default_ckpt_interval(D)
+    series = (11, 1)
+    blocks = {}
+    for mode in LONG_CHECK_MODES:
+        full = tiled_dp.wavefront_dp_tiled(hs, lx, ly, series, mode, True)
+        want_moves, want_n = replay.replay_moves(full["tb"], full["ti"], full["tj"],
+                                                 full["tcode"], series, mode, D - 1)
+        for name, source in (("hs", hs), ("rows", ops[:5])):
+            for R in (R0, 64):
+                blocks[f"{mode}:{name}:R{R}"] = checkpointed_vs_full(
+                    source, lx, ly, series, mode, R, full, want_moves, want_n,
+                    f"{mode} {name} R={R}")
+        del full
+    say("long=checkpointed", shape=f"B{B}x{bx}x{by}", modes=",".join(LONG_CHECK_MODES),
+        sources="hs,rows", intervals=f"{R0},64", blocks=json.dumps(blocks),
+        result="forward terminals = traceback launch; every block's bytes = tb rows (all "
+               "cells); block-walk tapes = replay_moves", seconds=round(time.perf_counter() - t0, 3))
+
+    # several tiles a CTA, on both sources and the in-place composite
+    # (BLOSUM62 + PAM250, weights 1 and 0.5; local mode), against plain
+    t1 = time.perf_counter()
+    pam = matrix_to_torch(builtin_score_matrix("pam250"), dev)
+    tracks = [ops[:5], (*ops[:4], pam)]  # the same columns under two matrices
+    weights = (1.0, 0.5)
+    comp = tiled_dp.Composite(*[tuple(t[i] for t in tracks) for i in range(5)], weights)
+    comp_hs = composite_skewed_scores(*[[t[i] for t in tracks] for i in range(5)], weights)
+    geometries = []
+    for series, geometry, scratch in LONG_MANY_TILES:
+        for kind in tiled_dp.SOURCES:
+            g = tiled_dp.tiled_geometry(Lp, len(series), kind, **geometry)
+            if g.m < 2 or g.carry_scratch != scratch:
+                raise AssertionError(f"{geometry} on {kind}: {g}, not the geometry checked")
+        geometries.append(f"R{g.R}xm{g.m}xW{g.W}:k{len(series)}:"
+                          f"{'scratch' if scratch else 'smem'}")
+        for mode in LONG_CHECK_MODES:
+            cases = [(hs, (("hs", hs), ("rows", ops[:5])))]
+            if mode == "local":
+                cases.append((comp_hs, (("composite", comp),)))
+            for scores, sources in cases:
+                plain = plain_checkpointed(scores, lx, ly, series, mode, R0)
+                for name, source in sources:
+                    many_tiles_vs_plain(source, lx, ly, series, mode, R0, plain, geometry,
+                                        f"{mode} {name} {geometry} k={len(series)}")
+                del plain
+    say("long=many-tiles", shape=f"B{B}x{bx}x{by}", R=R0, geometries=",".join(geometries),
+        modes=",".join(LONG_CHECK_MODES), sources="hs,rows,composite(local)",
+        result="forward terminals and snapshot, every block's bytes, the block walk's tape and "
+               "the traceback launch (terminals, all bytes) bit-equal to plain",
+        seconds=round(time.perf_counter() - t1, 3))
+
+    # against the plain versions (global, rows source, R0), timed
+    mode, source = "global", ops[:5]
+    plain = []
+    plain_fwd_ms = cuda_ms(lambda: plain.append(forward_snapshots(hs, lx, ly, series, mode, R0)),
+                           1, warm_up=False)
+    want_out, want_snap = plain[0]
+    got, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(got[k], want_out[k]) for k in want_out) or \
+            not torch.equal(snap.view(torch.int32), want_snap.view(torch.int32)):
+        raise AssertionError("forward launch: terminals or snapshot differ from plain")
+    fwd_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode,
+                                                                 R0), 3)
+    q = snap.shape[0] // 2
+    d0 = 2 + q * R0
+    block = torch.empty((R0, B, Lp), dtype=torch.uint8, device=dev)
+    pblock = []
+    plain_resume_ms = cuda_ms(lambda: pblock.append(resume_block(hs, snap, q, R0, series, mode)),
+                              1, warm_up=False)
+    tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, q, snap, out=block)
+    torch.cuda.synchronize()
+    if not torch.equal(block, pblock[0]):
+        raise AssertionError(f"resume launch: block {q} differs from plain")
+    resume_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_resume(
+        source, lx, ly, series, mode, R0, q, snap, out=block), 5)
+    # the block walk from the state where the walks enter block q
+    state = replay.walk_state(got["ti"], got["tj"], got["tcode"], len(series))
+    moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=dev)
+    bits = torch.empty_like(block)
+    for p in range(snap.shape[0] - 1, q, -1):
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, p, snap, out=bits)
+        replay.replay_block(bits, state, moves, p, series, mode)
+    entry = (state.clone(), moves.clone())
+    st_p, mv_p = entry[0].clone(), entry[1].clone()
+    plain_walk_ms = cuda_ms(lambda: replay.replay_block_plain(block, st_p, mv_p, q, series, mode),
+                            1, warm_up=False)
+    replay.replay_block(block, state, moves, q, series, mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(state, st_p) and torch.equal(moves, mv_p)):
+        raise AssertionError(f"block walk: block {q} differs from plain")
+    emitted = float((state[5] - entry[0][5]).sum())
+
+    def walk_again():
+        state.copy_(entry[0])
+        replay.replay_block(block, state, moves, q, series, mode)
+
+    walk_ms = cuda_ms(walk_again, 10)
+
+    # the in-place composite beside the materialized composite hs
+    want = tiled_dp.wavefront_dp_tiled(comp_hs, lx, ly, series, "local", True)
+    got_c = tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "local", True)
+    same_outputs(got_c, want, "composite source vs the tiled kernel over the composite hs")
+    pl = []
+    comp_plain_ms = cuda_ms(lambda: pl.append(plain_dp(comp_hs, lx, ly, series, "global")),
+                            1, warm_up=False)
+    comp_err = same_outputs(tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "global"), pl[0],
+                            "composite source vs the plain DP")
+    comp_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "global"), 3)
+    del comp_hs, want, got_c, pl
+
+    # bounds: operands read once, outputs (snapshot, block bytes, tape) written once
+    A = s.shape[0]
+    cells = needed_cells(lx, ly)
+    ops_rows = producer_ops(lx, ly, A, "scalar")[0] + cells * DP_OPS_PER_CELL
+    snap_bytes = nbytes(snap)
+    fwd_bound = bound(operand_bytes(lx, ly, A) + snap_bytes + 5 * 4 * B, ops_rows)
+    blk_cells = cells_in_block(lx, ly, d0, d0 + R0 - 1)
+    resume_bound = bound(operand_bytes(lx, ly, A) + snap_bytes / snap.shape[0] + blk_cells,
+                         blk_cells * (2 * A + 2 + DP_OPS_PER_CELL))
+    walk_bound = bound(2 * emitted + 2 * nbytes(state), 0.0)
+    comp_bound = bound(2 * operand_bytes(lx, ly, A) + 5 * 4 * B,
+                       2 * producer_ops(lx, ly, A, "scalar")[0] + cells * (2 + DP_OPS_PER_CELL))
+    out = {
+        "forward": {"ms": fwd_ms, "plain_ms": plain_fwd_ms, **fwd_bound,
+                    "shape": f"B{B}x{bx}x{by} global rows R={R0}"},
+        "resume": {"ms": resume_ms, "plain_ms": plain_resume_ms, **resume_bound,
+                   "shape": f"B{B}x{bx}x{by} global rows R={R0} block {q}"},
+        "walk_block": {"ms": walk_ms, "plain_ms": plain_walk_ms, **walk_bound,
+                       "shape": f"B{B} block {q} of {R0} diagonals, {int(emitted)} moves"},
+        "composite": {"ms": comp_ms, "plain_ms": comp_plain_ms, **comp_bound, "err": comp_err,
+                      "shape": f"B{B}x{bx}x{by} two tracks global scores"},
+    }
+    say("long=plain", shape=f"B{B}x{bx}x{by}", R=R0, block=q,
+        result="forward (terminals, snapshot), resume and block walk bit-equal to plain; "
+               "composite source = tiled over the composite hs (local traceback, all bytes) "
+               "= plain DP (global scores)",
+        **{f"{k}_{m}": round(v[m], 4) for k, v in out.items()
+           for m in ("ms", "plain_ms", "bound_ms")},
+        seconds=round(time.perf_counter() - t0, 3))
+    return out
+
+
+def stack_pair(dev, x, y, alphabet):
+    """One pair of sequences as the batch aligner's gathered operands at
+    their stepped buckets."""
+    from praline_tpu_torch import Profile
+    from praline_tpu_torch.convert import profiles_to_stack
+    from praline_tpu_torch.kernels import batch
+
+    px, py = Profile.from_tokens(x, alphabet), Profile.from_tokens(y, alphabet)
+    buckets = (63, 127, 255, 511, 1023, 2047)
+    bx, by = batch._bucket(px.length, buckets), batch._bucket(py.length, buckets)
+    cx, ivx, lx = profiles_to_stack([px], bx, dev)
+    cy, ivy, ly = profiles_to_stack([py], by, dev)
+    return cx, ivx, cy, ivy, lx, ly
+
+
+def timed_peak(fn):
+    """``fn()``'s result, its seconds (to a synchronize) and the peak of
+    ``torch.cuda.max_memory_allocated`` during it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_titin_pair(dev) -> dict:
+    """A seeded titin-length pair (34,350 aa root, 25% substitutions, short
+    indels), BLOSUM62, (11, 1), global: the full traceback on the tiled
+    route (within the scaled budget), then checkpointed (the budget lowered
+    in this process), enqueued with no host sync; score, terminal and tape
+    byte-equal, each timed with its peak memory."""
+    import torch
+
+    from praline_tpu_torch import ALPHABET_AA, builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import batch
+
+    x, y = long_pair(SEED + 22, TITIN_LENGTH, ALPHABET_AA)
+    cx, ivx, cy, ivy, lx, ly = stack_pair(dev, x, y, ALPHABET_AA)
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    bx, by = cx.shape[1], cy.shape[1]
+    kw = dict(gap_series=(11, 1), mode="global", traceback=True, tier=None)
+    route = batch.choose_route(dev, bx, by, True)
+    if route != "tiled" or batch.tiled_source(bx, by, dev) != "rows":
+        raise AssertionError(f"titin {bx}x{by}: route {route}, not the tiled rows source")
+    full, full_s, full_peak = timed_peak(
+        lambda: batch.dispatch(route, cx, ivx, cy, ivy, s, lx, ly, **kw))
+    with forced_tb_budget():
+        if batch.choose_route(dev, bx, by, True) != "checkpointed":
+            raise AssertionError("titin: the lowered budget did not take the checkpointed route")
+
+        def enqueue():
+            with torch.cuda.device(dev):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return batch.dispatch("checkpointed", cx, ivx, cy, ivy, s, lx, ly, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+        ckpt, ckpt_s, ckpt_peak = timed_peak(enqueue)
+    n = int(full["nmoves"][0])
+    for key in ("score", "length", "ti", "tj", "tcode", "nmoves"):
+        if not torch.equal(full[key], ckpt[key]):
+            raise AssertionError(f"titin: checkpointed {key} differs from the full traceback")
+    if not torch.equal(full["moves"][:, :n], ckpt["moves"][:, :n]) or ckpt["moves"][:, n:].any():
+        raise AssertionError("titin: the checkpointed tape differs from the full traceback's")
+    out = {"lengths": f"{len(x)}x{len(y)}", "bucket": f"{bx}x{by}", "full_s": full_s,
+           "full_peak_bytes": full_peak, "checkpointed_s": ckpt_s,
+           "checkpointed_peak_bytes": ckpt_peak, "moves": n,
+           "score": float(full["score"][0])}
+    say("long=titin", **out, result="score, terminal and tape byte-equal; the checkpointed "
+        "route enqueued under sync_debug_mode('error')")
+    return out
+
+
+def run_dna_long(dev) -> dict:
+    """Two seeded DNA pairs through ``align_pairs_batched`` with traceback,
+    nothing forced: about 72,000 nt, whose full traceback fits the scaled
+    budget, and about 75,000 nt, past it (checkpointed).  Each alignment
+    degaps to its inputs; the 75,000-nt score equals the scores-only run's.
+    Route, time and peak memory of each."""
+    import numpy as np
+
+    from praline_tpu_torch import ALPHABET_DNA, GAP, Profile, builtin_score_matrix
+    from praline_tpu_torch.kernels import batch
+
+    m = builtin_score_matrix("dna_simple")
+    out = {}
+    for name, length, want_route in (("under", DNA_UNDER, "tiled"),
+                                     ("past", DNA_PAST, "checkpointed")):
+        x, y = long_pair(SEED + 23 + length, length, ALPHABET_DNA)
+        pairs = [(Profile.from_tokens(x, ALPHABET_DNA), Profile.from_tokens(y, ALPHABET_DNA))]
+        batch.reset_route_counts()
+        res, secs, peak = timed_peak(lambda: batch.align_pairs_batched(
+            pairs, m, (11, 1), "global", device=dev, traceback=True))
+        route = "checkpointed" if batch.checkpointed_chunks else \
+            ",".join(k for k, v in batch.route_counts.items() if v)
+        if route != want_route:
+            raise AssertionError(f"dna {length}: took {route}, not {want_route}")
+        r = res[0]
+        for cols, toks in ((r.cols_x, x), (r.cols_y, y)):
+            if not np.array_equal(cols[cols != GAP], np.arange(toks.size)):
+                raise AssertionError(f"dna {length}: the alignment does not degap to its input")
+        entry = {"lengths": f"{len(x)}x{len(y)}", "route": route, "s": secs,
+                 "peak_bytes": peak, "score": r.score, "columns": int(r.cols_x.size)}
+        if name == "past":
+            scores = batch.align_pairs_batched(pairs, m, (11, 1), "global", device=dev)
+            if scores[0].score != r.score:
+                raise AssertionError("dna past the budget: score differs from the scores-only run")
+            entry["scores_only"] = "equal"
+        out[name] = entry
+        say("long=dna", case=name, **entry)
+    return out
+
+
+def titin_family():
+    """4 seeded members of a titin-length root: each merge is a (C, C)
+    traceback past LADDER_TOP, so the merge takes the per-level path."""
+    return synthetic_family(TITIN_FAMILY, SEED + 24, root_len=TITIN_LENGTH,
+                            lo=TITIN_LENGTH - 300, hi=TITIN_LENGTH)
+
+
+def run_titin_family(dev, seqs) -> dict:
+    """``msa_align`` of the titin-length family, unforced and with the
+    traceback budget lowered: the same FASTA bytes."""
+    from praline_tpu_torch import (
+        METRICS, PralineConfig, builtin_score_matrix, format_alignment_fasta, msa_align,
+    )
+    from praline_tpu_torch.kernels import batch
+
+    m = builtin_score_matrix("blosum62")
+    out, texts = {}, []
+    for name, ctx in (("unforced", contextlib.nullcontext), ("forced", forced_tb_budget)):
+        batch.reset_route_counts()
+        with ctx():
+            aln, secs, peak = timed_peak(lambda: msa_align(seqs, m, PralineConfig(), device=dev))
+        if METRICS.notes.get("merge_walk") != "per-level":
+            raise AssertionError(f"titin family: merge took {METRICS.notes.get('merge_walk')}")
+        texts.append(format_alignment_fasta(aln))
+        out[name] = {"s": secs, "peak_bytes": peak, "columns": aln.num_columns,
+                     "routes": dict(batch.route_counts),
+                     "checkpointed_chunks": batch.checkpointed_chunks}
+        say("long=titin-family", run=name, sequences=len(seqs),
+            lengths=f"{min(q.length for q in seqs)}-{max(q.length for q in seqs)}",
+            **out[name], merge_walk="per-level")
+    if texts[0] != texts[1]:
+        raise AssertionError("titin family: the forced checkpointed run's FASTA differs")
+    if not out["forced"]["checkpointed_chunks"]:
+        raise AssertionError("titin family: the forced run took no checkpointed chunk")
+    return out
+
+
+def run_long_routes(dev, family) -> dict:
+    """The long-routes main path: the DNA pairs, then the titin family."""
+    return {"dna": run_dna_long(dev), "titin_family": run_titin_family(dev, family)}
+
+
+def run_tracks_long(dev) -> dict:
+    """Two two-track composites of about 26,000 residues a side, whose
+    summed hs passes the scaled budget: the in-place composite source with
+    full traceback, unforced, then checkpointed on it (budget lowered);
+    the same alignments."""
+    import numpy as np
+
+    from praline_tpu_torch import ALPHABET_AA, Profile, builtin_score_matrix
+    from praline_tpu_torch.kernels import batch
+
+    mats, w = [builtin_score_matrix("blosum62"), builtin_score_matrix("pam250")], (1.0, 0.5)
+    pairs = []
+    for k in range(2):
+        x, y = long_pair(SEED + 25 + k, TRACKS_LONG, ALPHABET_AA)
+        pairs.append(tuple(tuple(Profile.from_tokens(t, ALPHABET_AA) for _ in range(2))
+                           for t in (x, y)))
+    out, results = {}, []
+    for name, ctx, want in (("unforced", contextlib.nullcontext, "tiled"),
+                            ("forced", forced_tb_budget, "checkpointed")):
+        batch.reset_route_counts()
+        with ctx():
+            res, secs, peak = timed_peak(lambda: batch.align_tracksets_batched(
+                pairs, mats, w, (11, 1), "global", device=dev, traceback=True))
+        route = "checkpointed" if batch.checkpointed_chunks else \
+            ",".join(k for k, v in batch.route_counts.items() if v)
+        if route != want:
+            raise AssertionError(f"tracks-long {name}: took {route}, not {want}")
+        results.append(res)
+        out[name] = {"route": route, "s": secs, "peak_bytes": peak}
+        say("long=tracks", run=name, pairs=len(pairs), **out[name])
+    for a, b in zip(*results):
+        if a.score != b.score or not (np.array_equal(a.cols_x, b.cols_x)
+                                      and np.array_equal(a.cols_y, b.cols_y)):
+            raise AssertionError("tracks-long: the checkpointed composite differs")
+    return out
+
+
+def phase_cli_profile(dev, seqs) -> dict:
+    """The CLI on msa128 with ``--profile-dir``: the trace it writes holds
+    ``dispatch:`` spans and the kernels' device events."""
+    import tempfile
+
+    from praline_tpu_torch.cli.main import main as cli_main
+    from praline_tpu_torch.io import format_sequences_fasta
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "in.fasta").write_text(format_sequences_fasta(seqs))
+        t0 = time.perf_counter()
+        rc = cli_main([str(tmp / "in.fasta"), str(tmp / "out.fasta"), "--device",
+                       dev.type, "--profile-dir", str(tmp / "prof")])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli --profile-dir: exit code {rc}")
+        traces = list((tmp / "prof").glob("msa_align.*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"cli --profile-dir: {len(traces)} traces")
+        data = json.loads(traces[0].read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans = [e for e in events if str(e.get("name", "")).startswith("dispatch:")]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = short_kernel_name(str(e.get("name", "")))
+            kernels[key] = kernels.get(key, 0) + 1
+    if not spans:
+        raise AssertionError("cli --profile-dir: no dispatch span in the trace")
+    out = {"wall_s": wall, "events": len(events), "dispatch_spans": len(spans),
+           "kernel_events": sum(kernels.values()) if kernels else "not measured (no device "
+                                                                  "events)"}
+    kinds = sorted({e["name"].split(":")[1] if e["name"].count(":") > 1 else "two_kernel"
+                    for e in spans})
+    say("profile-dir", run="msa128 cli", **out, span_kinds=",".join(kinds),
+        kernels=json.dumps(sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+    return out
+
+
+def long_only(argv) -> int:
+    """``long-routes``: the build, the tiled kernel's ordinary launch at
+    ``[tiled-long]`` and the long-routes phases alone (a quick check of the
+    checkpointed and composite launches)."""
+    smi = phase_environment()
+    from praline_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    phase_tiled_long(dev, phase_build())
+    phase_long_kernels(dev)
+    phase_titin_pair(dev)
+    (_, c9) = counted("long-routes", lambda: run_long_routes(dev, titin_family()))
+    (_, c10) = counted("tracks-long", lambda: run_tracks_long(dev))
+    phase_cli_profile(dev, synthetic_family())
+    print(smi)
+    return 0
+
+
 def short_kernel_name(key: str) -> str:
     key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
     return key.split("(")[0].strip()[:60] if not key.startswith("Memcpy") else key
@@ -2037,7 +2644,10 @@ def phase_profile(name, fn):
 
 
 KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "tiled",
-           "walk", "compose", "alu_chains", "smem_chain", "write_blocks")
+           "walk", "compose", "alu_chains", "smem_chain", "write_blocks", "tiled_forward",
+           "tiled_resume", "tiled_composite", "walk_block")
+# The launches of the long routes, which only the long paths make.
+LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block")
 # The kernels each main path must launch: the all-pairs headline on its
 # default route (two-kernel) and forced onto the fused route, the three
 # msa_align runs, the composites (the producer at least twice a chunk: see
@@ -2053,7 +2663,10 @@ PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fu
                 "long-family": ("fused", "walk", "compose"),
                 "long8": ("scores_mma", "tiled", "walk", "compose"), "tracks": ("scores_mma", "dp"),
                 "tracks-traceback": ("scores_mma", "dp", "walk"),
-                "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",)}
+                "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",),
+                "long-routes": ("tiled", "walk", "tiled_forward", "tiled_resume", "walk_block"),
+                "tracks-long": ("tiled_composite", "walk", "tiled_forward", "tiled_resume",
+                                "walk_block")}
 
 
 def counted(name, phase):
@@ -2070,7 +2683,11 @@ def counted(name, phase):
     counts = ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
               | {"fused": sum(fused_dp.launches.values())}
               | {f"fused_{k}": v for k, v in fused_dp.launches.items()}
-              | {k: m.launches for k, m in modules.items()} | probes.launches)
+              | {k: m.launches for k, m in modules.items()} | probes.launches
+              | {"tiled_forward": tiled_dp.forward_launches,
+                 "tiled_resume": tiled_dp.resume_launches,
+                 "tiled_composite": tiled_dp.composite_launches,
+                 "walk_block": replay.block_launches})
     say("launches", path=name, **counts)
     missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
     if missing:
@@ -2080,15 +2697,52 @@ def counted(name, phase):
             raise AssertionError(f"{name}: {counts[f'{kernel}_scalar']} of "
                                  f"{counts[f'{kernel}_scalar'] + counts[f'{kernel}_mma']} {kernel} "
                                  "launches left the tensor-core tier")
-    if name != "long8" and counts["tiled"]:
+    if name not in ("long8", "long-routes") and counts["tiled"]:
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
+    if name not in ("long-routes", "tracks-long") and any(counts[k] for k in LONG_KERNELS):
+        raise AssertionError(f"{name}: a path within the budgets took a long route")
     return result, counts
 
 
-def dp_only(argv) -> int:
-    """``dp-times [DIR]``: the build and the [dp-times] phase alone, on the
-    package of the tree at DIR (this checkout by default), so that the
-    parent's K2 is timed at this tree's shapes in the same call."""
+# K6's ordinary launches at the shapes of ``tiled-times``: (B, Lx, Ly,
+# shortest, mode, traceback, source).
+TILED_ORDINARY_SHAPES = ((1, 4600, 4400, 4000, "local", True, "hs"),
+                         (1, 4600, 4400, 4000, "local", True, "rows"),
+                         (1, 9000, 500, 9000, "global", False, "rows"),
+                         (32, 2303, 2303, 1800, "global", False, "hs"))
+
+
+def phase_tiled_ordinary_times(dev) -> dict:
+    """K6's ordinary launches (``wavefront_dp_tiled``) at
+    TILED_ORDINARY_SHAPES, by CUDA events, the mean of 10 after a warm-up:
+    the launches whose code the checkpointed ones must leave as it was."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.bench import count_profiles
+    from praline_tpu_torch.convert import matrix_to_torch, profiles_to_stack
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores
+    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    out = {}
+    for B, bx, by, lo, mode, traceback, source in TILED_ORDINARY_SHAPES:
+        rng = np.random.default_rng(SEED + 8)
+        cx, ivx, lx = profiles_to_stack(count_profiles(rng, B, min(lo, bx), bx, 23), bx, dev)
+        cy, ivy, ly = profiles_to_stack(count_profiles(rng, B, min(lo, by), by, 23), by, dev)
+        ops = (cx, ivx, cy, ivy, s)
+        src = skewed_pair_scores(*ops) if source == "hs" else ops
+        out[f"{source}_B{B}x{bx}x{by}_{mode}_{'traceback' if traceback else 'scores'}"] = \
+            cuda_ms(lambda: wavefront_dp_tiled(src, lx, ly, (11, 1), mode, traceback), 10)
+    return out
+
+
+def tree_only(argv) -> int:
+    """``dp-times [DIR]`` or ``tiled-times [DIR]``: the build and the
+    [dp-times] phase (K2 and K6 over hs) or K6's ordinary launches
+    (phase_tiled_ordinary_times) alone, on the package of the tree at DIR
+    (this checkout by default), so that the parent's kernels are timed at
+    this tree's shapes in the same call."""
     global ROOT
     if len(argv) > 1:
         ROOT = Path(argv[1]).resolve()
@@ -2101,14 +2755,17 @@ def dp_only(argv) -> int:
     build.build()
     build.load_library()
     say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
-    say("dp-times-tree", root=str(ROOT), json=json.dumps(phase_dp_times(dev)))
+    times = phase_dp_times(dev) if argv[0] == "dp-times" else phase_tiled_ordinary_times(dev)
+    say(f"{argv[0]}-tree", root=str(ROOT), json=json.dumps(times))
     print(smi)
     return 0
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["dp-times"]:
-        return dp_only(sys.argv[1:])
+    if sys.argv[1:2] in (["dp-times"], ["tiled-times"]):
+        return tree_only(sys.argv[1:])
+    if sys.argv[1:2] == ["long-routes"]:
+        return long_only(sys.argv[1:])
     smi = phase_environment()
     import torch
 
@@ -2127,6 +2784,8 @@ def main() -> int:
     dp_check = phase_dp_vs_plain(dev)
     dp_times = phase_dp_times(dev)
     phase_goldens(dev)
+    long_kernels = phase_long_kernels(dev)
+    titin = phase_titin_pair(dev)
     probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
     all_pairs_run = all_pairs_runner(dev, matrix, pairs)
@@ -2151,8 +2810,11 @@ def main() -> int:
         "tracks-traceback", lambda: run_tracks(tracks_run, track_cells, 1, True))
     _, c7 = counted("utilization", lambda: phase_bench(dev, "utilization"))
     _, c8 = counted("wprobe", lambda: phase_bench(dev, "wprobe"))
+    titin_seqs = titin_family()
+    long_res, c9 = counted("long-routes", lambda: run_long_routes(dev, titin_seqs))
+    tracks_long, c10 = counted("tracks-long", lambda: run_tracks_long(dev))
     # ---- end of the main paths ----
-    paths = (c1, c2, c3, c4, c5, c6, c7, c8)
+    paths = (c1, c2, c3, c4, c5, c6, c7, c8, c9, c10)
     launches = {k: sum(c[k] for c in paths) for k in KERNELS}
     for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
         if c["scores_mma"] != 2 * n or c["dp"] != n:
@@ -2174,6 +2836,7 @@ def main() -> int:
     phase_profile("long-family", long_run)
     phase_profile("long8", long8_run)
     phase_profile("tracks", tracks_run)
+    cli_profile = phase_cli_profile(dev, msa_seqs)
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "praline_tpu"))
     if foreign:
         raise AssertionError(f"JAX or the JAX package was imported: {foreign[:5]}")
@@ -2269,6 +2932,30 @@ def main() -> int:
         "bound_ms": compose_times["bound_ms"], "bound_by": compose_times["bound_by"],
         "library_ms": None, "shape": compose_times["shape"],
         "again_ms": compose_times["again_ms"]})
+    long_entries = (
+        ("tiled_forward", "wavefront_dp_tiled_forward", "praline_tpu_torch/csrc/tiled_ckpt.cu",
+         "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the forward pass "
+         "of praline_tpu/kernels/scan.py:173 (wavefront_dp_checkpointed)", "forward"),
+        ("tiled_resume", "wavefront_dp_tiled_resume", "praline_tpu_torch/csrc/tiled_ckpt.cu",
+         "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the block "
+         "re-derivation of praline_tpu/kernels/scan.py:173 (wavefront_dp_checkpointed)",
+         "resume"),
+        ("walk_block", "replay_block", "praline_tpu_torch/csrc/replay.cu",
+         "praline_tpu/kernels/scan.py:979-1004 (the checkpointed walk, an XLA scan; no "
+         "Pallas kernel)", "walk_block"),
+        ("tiled_composite", "wavefront_dp_tiled_composite",
+         "praline_tpu_torch/csrc/tiled_composite.cu",
+         "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled) over the composite "
+         "of praline_tpu/kernels/scores.py:98-122 (the JAX package streams it)", "composite"))
+    for key, name, source, replaces, timing_key in long_entries:
+        t = long_kernels[timing_key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": t.get("err", 0.0), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": t["shape"]})
+    say("long-routes", titin=json.dumps(titin), paths=json.dumps(long_res),
+        tracks_long=json.dumps(tracks_long), cli_profile=json.dumps(cli_profile))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

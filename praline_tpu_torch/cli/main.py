@@ -5,9 +5,12 @@ Usage:  praline-tpu-torch input.fasta output.aln [options]
         python -m praline_tpu_torch.cli input.fasta output.aln [options]
 
 The default device is ``cuda``; without a card the run fails unless
-``--device cpu`` is given.  Knobs of the JAX build that the port does not
-have yet (``--devices``, ``--blast-db``, ``--profile-dir``, ``--backend
-xla|pallas``) are accepted by the parser and refused with a message.
+``--device cpu`` is given.  ``--profile-dir DIR`` writes a
+``torch.profiler`` trace of the run there (``util/metrics.py``);
+``--score-against REF`` prints the SP/TC column accuracy of the result
+against a reference alignment.  Knobs of the JAX build that the port does
+not have yet (``--devices``, ``--blast-db``, ``--backend xla|pallas``) are
+accepted by the parser and refused with a message.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output format (default: by output extension, else fasta)")
     p.add_argument("--tree-out", default=None, metavar="FILE",
                    help="also write the guide tree as Newick")
+    p.add_argument("--score-against", default=None, metavar="REF",
+                   help="report SP/TC column-accuracy of the result against a reference "
+                   "alignment (FASTA or CLUSTAL by extension); metric only")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="compute device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--backend", choices=["auto", "oracle", "xla", "pallas"], default="auto",
@@ -62,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from a checkpoint dir (same as --checkpoint-dir)")
     p.add_argument("--devices", type=int, default=None, metavar="N", help=argparse.SUPPRESS)
     p.add_argument("--blast-db", default=None, metavar="DB", help=argparse.SUPPRESS)
-    p.add_argument("--profile-dir", default=None, metavar="DIR", help=argparse.SUPPRESS)
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (Chrome format) of the run here")
     p.add_argument("-v", "--verbose", action="count", default=0,
                    help="-v: stage progress, -vv: debug")
     p.add_argument("--log-json", action="store_true", help="emit log lines as JSON")
@@ -81,8 +88,7 @@ def parse_gap_series(text: str) -> tuple[int, ...]:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--devices", args.devices), ("--blast-db", args.blast_db),
-                        ("--profile-dir", args.profile_dir)):
+    for flag, value in (("--devices", args.devices), ("--blast-db", args.blast_db)):
         if value is not None:
             print(f"error: {flag} {NOT_PORTED}", file=sys.stderr)
             return 2
@@ -90,11 +96,23 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --backend {args.backend} {NOT_PORTED}", file=sys.stderr)
         return 2
 
-    from .. import io as pio
-    from ..types import ALPHABETS, PralineConfig
-    from ..util.metrics import configure_logging, log
+    from ..util.metrics import configure_logging, disable_profiling, enable_profiling
 
     configure_logging(args.verbose, json_lines=args.log_json)
+    if args.profile_dir:
+        enable_profiling(args.profile_dir)
+    try:
+        return _run(args)
+    finally:
+        disable_profiling()
+
+
+def _run(args) -> int:
+    """The run of :func:`main` past the knob checks (profiling armed)."""
+    from .. import io as pio
+    from ..types import ALPHABETS, PralineConfig
+    from ..util.metrics import log
+
     alphabet_name = "dna" if args.alphabet == "dna" else "protein"
     alphabet = ALPHABETS[alphabet_name]
     try:
@@ -155,6 +173,22 @@ def main(argv: list[str] | None = None) -> int:
         pio.write_alignment_clustal(alignment, args.output)
     else:
         pio.write_alignment_fasta(alignment, args.output, wrap=config.fasta_wrap)
+
+    if args.score_against:
+        from ..util.accuracy import sp_tc
+
+        ref_path = args.score_against
+        try:
+            if ref_path.endswith((".aln", ".clustal", ".clu")):
+                ref = pio.load_alignment_clustal(ref_path, alphabet)
+            else:
+                ref = pio.load_alignment_fasta(ref_path, alphabet)
+            sp, tc = sp_tc(alignment, ref)
+        except (OSError, ValueError) as e:
+            print(f"error: --score-against: {e}", file=sys.stderr)
+            return 2
+        log.info("column accuracy vs %s: SP=%.4f TC=%.4f", ref_path, sp, tc)
+        print(f"SP={sp:.4f} TC={tc:.4f}")
     return 0
 
 

@@ -46,7 +46,20 @@
 // The kernel of the walks with m tiles a CTA (walk_kernel, its launch and
 // its occupancy query launch_walk) is here too, one template over the score
 // source, shared by K2/K4 (csrc/hs_visits.cuh's HsSource, the band on) and
-// K6 (HsSource or csrc/tiled_dp.cu's RowsSource); K5 has its own.
+// K6 (HsSource, csrc/tiled_dp.cu's RowsSource or csrc/tiled_composite.cu's
+// CompositeSource); K5 has its own.
+//
+// Checkpointed traceback (K6 only, walk_kernel built with CKPT, Snapshots):
+// the forward launch writes no
+// traceback bytes; where a tile enters a box whose first diagonal is 2 +
+// q I (a block of I = every T diagonals), each thread stores its lane's
+// carries into the snapshot q.  Each tile writes only its own lanes, so the
+// snapshot is whole when the launch ends, with no extra barrier.  A resume
+// launch starts every tile at block q's first box from snapshot q (its
+// left neighbour's edge values then come from the neighbour's own snapshot
+// carries, exported before each step as in any box), walks the block's
+// diagonals only, writes their bytes into a block buffer and picks no
+// terminal.
 
 #pragma once
 
@@ -112,6 +125,19 @@ struct CarryStore {
   bool global;
 };
 
+// The checkpoints of a walk: snap f32[nblk, B, NS, Lp] holds lane i's
+// carries at the entry of block q (diagonal 2 + q every T) at
+// snap[((q B + b) NS + v) Lp + i].  snap == nullptr: an ordinary walk;
+// resume < 0: the forward launch, which stores them; resume = q: the
+// launch that restarts at block q, with cum0 the border run cost of the
+// diagonal before it.
+struct Snapshots {
+  float* snap = nullptr;
+  int every = 1;
+  int resume = -1;
+  float cum0 = 0.0f;
+};
+
 // Where the band flag is on (BAND, csrc/wavefront_dp.cu), scores mode runs
 // only the visits that hold a cell of the problem's band 0 <= j <= ly
 // (rows past lane_end are never walked).  A visit of box d0 .. d1 on the
@@ -128,12 +154,12 @@ struct CarryStore {
 // their lengths and the stay bits); so a tile's carries may stay at their
 // d = 1 values until its first visit in the band, and values past j = ly
 // flow only to larger j.  Traceback mode walks every lane of every box.
-template <int K, bool TILES, bool BAND = false, class Visits>
+template <int K, bool TILES, bool BAND = false, bool CKPT = false, class Visits>
 __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const WalkSmem& sm,
                                              const WalkShape& w, const Problem& p,
                                              const Gaps& gaps, const Outs& out, int dend,
                                              int lane_end, const CarryStore& store,
-                                             Visits& visits) {
+                                             Visits& visits, const Snapshots ck = Snapshots()) {
   using C = Carries<K, 1>;
   constexpr int NX = C::NX;
   const int W = w.W, T = w.T, R = w.R, m = TILES ? w.m : 1;
@@ -143,6 +169,10 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
   // tiles of this CTA with a lane to compute (uniform over the CTA)
   const int tiles = max(0, min(m, lane_end / W + 1 - tile0));
   const int nbox = (dend - 2) / T + 1;
+  const bool resume = CKPT && ck.snap && ck.resume >= 0;
+  const int kfirst = resume ? ck.resume * ck.every : 0;  // the first box walked
+  // lane carries of snapshot q (this problem's rows)
+  auto snap_at = [&](int q) { return ck.snap + ((size_t)q * p.B + p.b) * C::NS * p.Lp; };
   const bool band = BAND && !p.traceback;
   float* next_ring = r + 1 < R ? cluster.map_shared_rank(sm.ring, r + 1) : nullptr;
   // The steps first .. last of visit (box kb, tile jj), and whether it runs:
@@ -179,14 +209,19 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
   };
 
   C c;
-  if (!TILES || m == 1) c.init(0, tile0 * W + t, p.mode, gaps.g[0]);
+  if (!TILES || m == 1) {
+    const int i = tile0 * W + t;
+    if (resume && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
+    else c.init(0, i, p.mode, gaps.g[0]);
+  }
   Cand best = first_candidate<K>(p.mode, tile0 == 0 && t == 0, p.lx, p.ly);
   Border<K> box_border(gaps);  // the border run at diagonal d0 - 1
+  if (resume) box_border.cum = ck.cum0;
   cluster.sync();  // every CTA of the cluster runs before any writes another's ring
 
-  for (int ph = 0; ph < nbox + R - 1; ++ph) {
-    const int k = ph - r;
-    if (tiles > 0 && k >= 0 && k < nbox) {  // uniform over the CTA
+  for (int ph = 0; ph < nbox - kfirst + R - 1; ++ph) {
+    const int k = kfirst + ph - r;
+    if (tiles > 0 && k >= kfirst && k < nbox) {  // uniform over the CTA
       const int d0 = 2 + k * T, d1 = min(d0 + T - 1, dend);
       Border<K> border = box_border;
       for (int jj = 0; jj < tiles; ++jj) {
@@ -199,10 +234,14 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
                        : (jj == m - 1 && next_ring ? next_ring + (k & 1) * T * NX : nullptr);
         if (TILES && m > 1 && (runs || t == W - 1)) {
           // a tile's first visit in the band starts from its d = 1 carries
-          if (k == 0 || (band && d0 <= i0) || (store.global && i >= p.Lp))
+          if (resume && k == kfirst && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
+          else if (k == kfirst || (band && d0 <= i0) || (store.global && i >= p.Lp))
             c.init(0, i, p.mode, gaps.g[0]);
           else c.load(0, store.base, store.stride, ci);
         }
+        // the forward launch: this lane's carries at the entry of a block
+        if (CKPT && ck.snap && !resume && k % ck.every == 0 && i < p.Lp)
+          c.store(0, snap_at(k / ck.every), p.Lp, i);
         if (!runs) {  // BAND only: the next tile's left neighbour at d0
           if (t == W - 1 && right) c.export_x(0, right);
           if (jj + 1 < tiles) __syncthreads();  // the next visit reads edge[0]
@@ -256,7 +295,7 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
     cluster.sync();  // the ring writes of this phase are visible to the next
   }
 
-  if (p.mode != GLOBAL) {
+  if (p.mode != GLOBAL && !resume) {
     const bool local = p.mode == LOCAL;
     const Cand cta = block_best(best, local, sm.red);
     if (t == 0) sm.red[nw] = cta;
@@ -281,6 +320,10 @@ constexpr int WALK_MAX_SMEM = 232448;  // shared memory a CTA may use on the H10
 // W lanes, boxes of T diagonals; budget: the shared-memory bytes a CTA may
 // fill with the carries of m > 1 tiles (past it, or at 0, they go to the
 // device-memory scratch carry f32[B, NS, Lp]).
+// Checkpointed traceback (snap != nullptr, read by walk_kernel built with
+// CKPT): snap, interval I (diagonals a block, a multiple of T), block (-1:
+// the forward launch; q: resume block q into out.tb, uint8[I, B, Lp]) and
+// cum0 (Snapshots).
 struct WalkArgs {
   const int* lx;
   const int* ly;
@@ -289,6 +332,9 @@ struct WalkArgs {
   int mode, traceback, D, B, Lp, W, R, m, T, budget;
   Outs out;
   cudaStream_t stream;
+  float* snap;
+  int interval, block;
+  float cum0;
 };
 
 // The shared-memory layout of a walk at k levels (on the hs source: hs).
@@ -333,26 +379,63 @@ inline bool walk_args(WalkArgs* a, bool hs, int max_w, int budget, const int* lx
   a->budget = budget;
   a->out = out;
   a->stream = (cudaStream_t)stream;
+  a->snap = nullptr;
+  a->block = -1;
+  return true;
+}
+
+// The checkpoint fields of a launch (snap == nullptr: none); false for
+// arguments the kernel does not take.  The forward launch writes no
+// traceback bytes; a resume launch writes block `block`'s into out.tb.
+inline bool walk_snapshots(WalkArgs* a, float* snap, int interval, int block, float cum0) {
+  if (snap == nullptr) return true;
+  if (interval < a->T || interval % a->T != 0 || block < -1 ||
+      (long long)block * interval + 2 > a->D - 1)
+    return false;
+  a->snap = snap;
+  a->interval = interval;
+  a->block = block;
+  a->cum0 = cum0;
+  a->traceback = block >= 0;
   return true;
 }
 
 // One problem a cluster, its scores from Src: Src::HS (the hs source's
 // boxes hbuf in shared memory), src.visits(a, b, dend, hbuf) the visit
-// functor of problem b.  Built for CTAs of at most MAXW threads, at least
-// MINB of them an SM (the launch bound).
-template <class Src, int K, bool BAND, int MAXW, int MINB>
-__global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
+// functor of problem b.  CKPT (never with BAND) builds the checkpointed
+// launches in; without it none of their code is there, so the ordinary
+// launches run the walk as it was.
+template <class Src, int K, bool BAND, bool CKPT>
+__device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) {
+  static_assert(!(BAND && CKPT), "the band and the checkpoints exclude each other");
   using C = Carries<K, 1>;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::HS, a.budget);
   const int b = blockIdx.x / a.R;
   const int lx = a.lx[b], ly = a.ly[b], Lp = a.Lp;
-  const Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
+  Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
+  Outs out = a.out;
   // Scores mode stops at the last diagonal that can hold a terminal and
   // skips lanes past lx; traceback mode fills every byte of tb.
-  const int dend = a.traceback ? a.D - 1 : min(a.D - 1, lx + ly);
-  const int lane_end = a.traceback ? Lp - 1 : min(Lp - 1, lx);
+  int dend = a.traceback ? a.D - 1 : min(a.D - 1, lx + ly);
+  int lane_end = a.traceback ? Lp - 1 : min(Lp - 1, lx);
+  Snapshots ck;
+  if constexpr (CKPT) {
+    if (a.snap) {  // the checkpointed launches walk what the traceback launch walks
+      ck = Snapshots{a.snap, a.interval / a.T, a.block, a.cum0};
+      dend = a.D - 1;
+      lane_end = Lp - 1;
+      if (a.block >= 0) {  // a resume launch: its block; no terminal is at lx = ly = -1
+        p.lx = p.ly = -1;
+        // the step writes diagonal d at row d - 2 of out.tb; the block
+        // buffer's row r is diagonal 2 + block I + r, so its base moves
+        // back by block I rows (every row written lies in the buffer)
+        out.tb -= (size_t)a.block * a.interval * a.B * Lp;
+        dend = min(dend, 1 + (a.block + 1) * a.interval);
+      }
+    }
+  }
   const CarryStore store =
       L.carry >= 0
           ? CarryStore{reinterpret_cast<float*>(smem + L.carry), a.m * a.W, false}
@@ -362,17 +445,37 @@ __global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
                        reinterpret_cast<float*>(smem + L.edge),
                        reinterpret_cast<Cand*>(smem + L.red)};
   auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.hbuf));
-  cluster_walk<K, true, BAND>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p, a.gaps, a.out,
-                              dend, lane_end, store, visits);
+  cluster_walk<K, true, BAND, CKPT>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p, a.gaps,
+                                    out, dend, lane_end, store, visits, ck);
 }
 
-// Launches walk_kernel (or, with clusters != nullptr, asks how many
-// clusters of this shape fit on the card at once:
-// cudaOccupancyMaxActiveClusters).
-template <class Src, int K, bool BAND, int MAXW, int MINB>
+// walk_problem as a kernel, built for CTAs of at most MAXW threads, at
+// least MINB of them an SM (the launch bound).
+template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false>
+__global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
+  walk_problem<Src, K, BAND, CKPT>(a, src);
+}
+
+// The same for a source that its functor reads in place from the kernel's
+// parameters (__grid_constant__: src's address is in parameter space, no
+// copy; csrc/tiled_composite.cu's track table).
+template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false>
+__global__ void __launch_bounds__(MAXW, MINB)
+    walk_kernel_params(WalkArgs a, const __grid_constant__ Src src) {
+  walk_problem<Src, K, BAND, CKPT>(a, src);
+}
+
+// Launches walk_kernel, or walk_kernel_params with PARAMS (or, with
+// clusters != nullptr, asks how many clusters of this shape fit on the
+// card at once: cudaOccupancyMaxActiveClusters).
+template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false,
+          bool PARAMS = false>
 int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
   const int smem = walk_layout(K, Src::HS, a.W, a.m, a.T, a.budget).total;
-  auto kern = walk_kernel<Src, K, BAND, MAXW, MINB>;
+  auto kern = [] {
+    if constexpr (PARAMS) return walk_kernel_params<Src, K, BAND, MAXW, MINB, CKPT>;
+    else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT>;
+  }();
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)

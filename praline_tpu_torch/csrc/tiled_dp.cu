@@ -35,6 +35,11 @@
 // f32[D, B, Lp] from csrc/scores*.cu, K6's own contract; RowsSource
 // (csrc/fused_rows.cuh, with its prep kernel) computes each score in place
 // for rows whose hs would pass the batch aligner's budget (kernels/batch.py).
+// A third source, the multi-track composite in place, is
+// csrc/tiled_composite.cu.
+//
+// The checkpointed launches of the same kernel are csrc/tiled_ckpt.cu; the
+// kernels here are built without their code (csrc/tiled_walk.cuh).
 //
 // What bounds it on the H100: the chain of dependent diagonals.  A problem
 // runs (boxes + R - 1) m T steps, each a few dozen dependent instructions
@@ -45,41 +50,8 @@
 // the carries do not fit in shared memory, the carry scratch once a box.
 
 #include "cluster_walk.cuh"
-#include "fused_rows.cuh"
 #include "hs_visits.cuh"
-
-namespace {
-
-using namespace praline_dp;
-
-constexpr int MAX_W = 512;  // lanes (= threads) of a CTA
-
-struct RowsVisits {
-  FusedRows rows;
-  __device__ __forceinline__ FusedRows prepare(int, int, int, int) const { return rows; }
-};
-
-// walk_kernel's in-place score source: the scratch of csrc/fused_rows.cuh.
-struct RowsSource {
-  static constexpr bool HS = false;
-  const float* t;
-  const float* cyp;
-  const float* ivx;
-  const float* ivy;
-  int Lx, Ly, AP;
-  __device__ __forceinline__ RowsVisits visits(const WalkArgs&, int b, int, float*) const {
-    return RowsVisits{fused_rows(t, cyp, ivx, ivy, b, Lx, Ly, AP)};
-  }
-};
-
-template <class Src>
-int dispatch(int k, const WalkArgs& a, const Src& src, int* clusters) {
-  return with_levels(k, [&](auto K) {
-    return launch_walk<Src, decltype(K)::value, false, MAX_W, 1>(a, src, clusters);
-  });
-}
-
-}  // namespace
+#include "tiled_walk.cuh"
 
 // Dynamic shared memory bytes of a CTA of W lanes and m tiles, T diagonals
 // a box, k gap levels, on the hs source (hs = 1) or the rows source;
@@ -89,21 +61,12 @@ extern "C" int praline_tiled_dp_smem(int W, int T, int m, int k, int hs) {
   return walk_layout(k, hs != 0, W, m, T, WALK_MAX_SMEM).total;
 }
 
-// How many clusters of R CTAs of W threads and m tiles (k levels, source,
-// T) the card holds at once, into *clusters; returns the CUDA error of the
-// query.
+// How many clusters of R CTAs of W threads and m tiles (k levels, source:
+// hs = 1 or rows = 0, T) the card holds at once, into *clusters; returns
+// the CUDA error of the query.
 extern "C" int praline_tiled_dp_clusters(int k, int hs, int W, int R, int m, int T,
                                          int* clusters) {
-  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, hs != 0)) return (int)cudaErrorInvalidValue;
-  WalkArgs a = {};
-  a.B = 1;
-  a.W = W;
-  a.R = R;
-  a.m = m;
-  a.T = T;
-  a.budget = WALK_MAX_SMEM;
-  return hs ? dispatch(k, a, HsSource{nullptr}, clusters)
-            : dispatch(k, a, RowsSource{}, clusters);
+  return tiled_clusters<false>(k, hs, W, R, m, T, clusters);
 }
 
 // The hs source.  hs f32[D, B, Lp]; lx, ly int32[B] with 1 <= lx < Lp,
@@ -121,11 +84,8 @@ extern "C" int praline_tiled_dp_hs(const float* hs, const int* lx, const int* ly
                                    int D, int B, int Lp, int W, int R, int m, int T,
                                    float* carry, float* score, float* length, int* ti, int* tj,
                                    int* tcode, uint8_t* tb, void* stream) {
-  WalkArgs a = {};
-  if (!walk_args(&a, true, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback, D, B,
-                 Lp, W, R, m, T, carry, Outs{score, length, ti, tj, tcode, tb}, stream))
-    return (int)cudaErrorInvalidValue;
-  return dispatch(k, a, HsSource{hs}, nullptr);
+  return tiled_hs<false>(hs, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m, T, carry,
+                         Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f, stream);
 }
 
 // The in-place source.  cx f32[B, Lx, A], inv_x f32[B, Lx], cy f32[B, Ly,
@@ -140,14 +100,7 @@ extern "C" int praline_tiled_dp_rows(const float* cx, const float* inv_x, const 
                                      int m, int T, float* t, float* cyp, float* carry,
                                      float* score, float* length, int* ti, int* tj,
                                      int* tcode, uint8_t* tb, void* stream) {
-  WalkArgs a = {};
-  if (Lx < 1 || Ly < 1 ||
-      !walk_args(&a, false, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
-                 Lx + Ly + 1, B, Lx + 1, W, R, m, T, carry,
-                 Outs{score, length, ti, tj, tcode, tb}, stream))
-    return (int)cudaErrorInvalidValue;
-  const int rc = launch_prep(cx, cy, s, t, cyp, B, Lx, Ly, A, a.stream);
-  if (rc != 0) return rc;
-  return dispatch(k, a, RowsSource{t, cyp, inv_x, inv_y, Lx, Ly, padded_alphabet(A)},
-                  nullptr);
+  return tiled_rows<false>(cx, inv_x, cy, inv_y, s, lx, ly, gaps_host, k, mode, traceback, B,
+                           Lx, Ly, A, W, R, m, T, t, cyp, carry,
+                           Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f, stream);
 }

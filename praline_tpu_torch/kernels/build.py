@@ -126,16 +126,31 @@ def load_library() -> ctypes.CDLL:
         lib.praline_fused_dp_clusters.argtypes = [i, i, i, i, i, p]
         lib.praline_fused_dp_smem.restype = i
         lib.praline_fused_dp_smem.argtypes = [i, i, i, i]
+        f = ctypes.c_float
+        ckpt = [p, i, i, f]  # snap, interval, block, cum0
         lib.praline_tiled_dp_hs.restype = i
         lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 10, *[p] * 8]
         lib.praline_tiled_dp_rows.restype = i
         lib.praline_tiled_dp_rows.argtypes = [*[p] * 8, *[i] * 11, *[p] * 10]
+        lib.praline_tiled_ckpt_hs.restype = i
+        lib.praline_tiled_ckpt_hs.argtypes = [p, p, p, p, *[i] * 10, *[p] * 7, *ckpt, p]
+        lib.praline_tiled_ckpt_rows.restype = i
+        lib.praline_tiled_ckpt_rows.argtypes = [*[p] * 8, *[i] * 11, *[p] * 9, *ckpt, p]
+        lib.praline_tiled_ckpt_clusters.restype = i
+        lib.praline_tiled_ckpt_clusters.argtypes = [i, i, i, i, i, i, p]
+        lib.praline_tiled_dp_composite.restype = i
+        lib.praline_tiled_dp_composite.argtypes = [i, *[p] * 12, *[i] * 10, *[p] * 7, *ckpt,
+                                                   p]
         lib.praline_tiled_dp_clusters.restype = i
         lib.praline_tiled_dp_clusters.argtypes = [i, i, i, i, i, i, p]
+        lib.praline_tiled_composite_clusters.restype = i
+        lib.praline_tiled_composite_clusters.argtypes = [i, i, i, i, i, p]
         lib.praline_tiled_dp_smem.restype = i
         lib.praline_tiled_dp_smem.argtypes = [i, i, i, i, i]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
+        lib.praline_replay_block.restype = i
+        lib.praline_replay_block.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
         lib.praline_compose.restype = i
         lib.praline_compose.argtypes = [*[p] * 13, *[i] * 6, p, p, p]
         ll = ctypes.c_longlong

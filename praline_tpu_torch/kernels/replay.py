@@ -13,6 +13,13 @@ dependent one-byte reads.
 
 Move codes (emitted terminal -> origin): 0 = none (walk finished),
 1 = diagonal, 2 = up (consume x, gap in y), 3 = left (consume y, gap in x).
+
+The checkpointed traceback walks block by block (:func:`replay_block`,
+``csrc/replay.cu``'s second kernel): the state ``(i, j, st, lvl, done, n)``
+of every walk lives in an ``int32[6, B]`` tensor between blocks
+(:func:`walk_state`) and each block appends its moves at ``n`` of the
+tape, so the blocks from the last to the first build :func:`replay_moves`'s
+tape byte for byte.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ from . import build
 from .scan import MODES, PTR_NONE
 
 launches = 0  # kernel launches by replay_moves (not by the plain path)
+block_launches = 0  # kernel launches by replay_block
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, block_launches
     launches = 0
+    block_launches = 0
 
 
 def _walk_init(tcode, k):
@@ -175,6 +184,85 @@ def replay_moves(tb, ti, tj, tcode, gap_series=(11, 1), mode="global", steps=Non
     build.check(rc, "praline_replay_moves")
     launches += 1
     return moves, n
+
+
+def walk_state(ti, tj, tcode, k: int) -> torch.Tensor:
+    """The walks' start, ``int32[6, B]``: rows i, j, state, level, done
+    and moves emitted, from the terminal cell and state code."""
+    st, lvl = _walk_init(tcode, k)
+    zeros = torch.zeros_like(st)
+    return torch.stack([ti.to(torch.int32), tj.to(torch.int32), st, lvl, zeros, zeros])
+
+
+def replay_block_plain(bits, state, moves, block, gap_series=(11, 1), mode="global"):
+    """Walk block ``block`` of a checkpointed traceback: ``bits uint8[R, B,
+    Lp]`` are the direction bytes of diagonals 2 + block R .. (row d - 2 -
+    block R; block 0 also takes the moves below diagonal 2), ``state
+    int32[6, B]`` (:func:`walk_state`) is advanced in place and each move
+    is written at ``n`` of ``moves uint8[B, S]``.  A walk stops where its
+    diagonal leaves the block (the blocks below go on from there), after at
+    most R + 2 steps."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    R, B, Lp = bits.shape
+    k = len(gap_series)
+    local = mode == "local"
+    dev = bits.device
+    bidx = torch.arange(B, device=dev)
+    i, j, st, lvl, done, n = (state[v].clone() for v in range(6))
+    done = done != 0
+    S = moves.shape[1]
+    base = block * R
+    for _ in range(R + 2):
+        d = i + j
+        live = ~done & ((d - 2 >= base) | (block == 0))
+        if not bool(live.any()):
+            break
+        row = (d - 2 - base).clamp(0, R - 1).long()
+        cell = bits[row, bidx, i.clamp(0, Lp - 1).long()].to(torch.int32)
+        (ni, nj, nst, nlvl, ndone), mv = _walk_step(cell, i, j, st, lvl, done, k, local)
+        put = live & (mv != 0)
+        at = put & (n < S)
+        moves[bidx[at], n[at].long()] = mv[at]
+        n = n + put.to(torch.int32)
+        i, j = torch.where(live, ni, i), torch.where(live, nj, j)
+        st, lvl = torch.where(live, nst, st), torch.where(live, nlvl, lvl)
+        done = torch.where(live, ndone, done)
+    state.copy_(torch.stack([i, j, st, lvl, done.to(torch.int32), n]))
+    return state
+
+
+def replay_block(bits, state, moves, block, gap_series=(11, 1), mode="global"):
+    """``replay_block_plain``'s contract; CPU tensors take the plain
+    version, CUDA tensors launch ``csrc/replay.cu``'s block walk (or
+    raise)."""
+    if bits.device.type == "cpu":
+        return replay_block_plain(bits, state, moves, block, gap_series, mode)
+    global block_launches
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    k = len(gap_series)
+    if not 1 <= k <= 15:
+        raise ValueError("gap series must have 1 to 15 levels")
+    if bits.dtype != torch.uint8 or bits.dim() != 3 or not bits.is_contiguous():
+        raise ValueError("bits must be a contiguous uint8[R, B, Lp] tensor")
+    R, B, Lp = bits.shape
+    dev = bits.device
+    if state.device != dev or state.dtype != torch.int32 or tuple(state.shape) != (6, B) \
+            or not state.is_contiguous():
+        raise ValueError(f"state must be a contiguous int32[6, {B}] tensor on {dev}")
+    if moves.device != dev or moves.dtype != torch.uint8 or moves.dim() != 2 \
+            or moves.shape[0] != B or not moves.is_contiguous():
+        raise ValueError(f"moves must be a contiguous uint8[{B}, S] tensor on {dev}")
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.praline_replay_block(
+            bits.data_ptr(), state.data_ptr(), R, B, Lp, block, k, int(mode == "local"),
+            moves.shape[1], moves.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(rc, "praline_replay_block")
+    block_launches += 1
+    return state
 
 
 def moves_to_result(moves: np.ndarray, n: int, score: float, ti: int, tj: int,

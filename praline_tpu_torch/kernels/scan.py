@@ -392,3 +392,124 @@ def wavefront_dp(hs, lx, ly, gap_series=(11, 1), mode="global", traceback=False)
     if traceback:
         out["tb"] = tb
     return out
+
+
+# ---- checkpointed traceback -------------------------------------------------
+
+
+def default_ckpt_interval(D: int) -> int:
+    """Diagonals a block of the checkpointed traceback: about 8 sqrt(D),
+    rounded up to 64 (``praline_tpu/kernels/scan.py:215``), which balances
+    the O(D / R) carry snapshots against the O(R) block of direction bytes;
+    a multiple of the Hopper walk's box depth."""
+    return max(64, -(-int(8 * np.sqrt(D)) // 64) * 64)
+
+
+def pack_carries(c) -> torch.Tensor:
+    """The carries ``c`` of a lane range as ``f32[B, NS, w]`` in
+    ``csrc/wavefront.cuh`` ``Carries::store``'s order (codes and stay bits
+    as the bits of their int32): M, best(d-2) value, length and code, M
+    length, x stay, the Ix levels and their lengths, best(d-1) value,
+    length and code, y stay, the Iy levels and their lengths."""
+    def bits(t):
+        return t.to(torch.int32).view(torch.float32)
+
+    return torch.stack([c["m1"], c["r2v"], c["r2l"], bits(c["r2c"]), c["lm1"], bits(c["psx"]),
+                        *c["ix1"], *c["lix1"], c["r1v"], c["r1l"], bits(c["r1c"]),
+                        bits(c["psy"]), *c["iy1"], *c["liy1"]], dim=1)
+
+
+def unpack_carries(rec: Recurrence, snap: torch.Tensor):
+    """The carries dict of :func:`pack_carries`'s ``f32[B, NS, w]``."""
+    kc = rec.kc
+    rows = [snap[:, v].contiguous() for v in range(snap.shape[1])]
+
+    def code(v):
+        return v.view(torch.int32)
+
+    m1, r2v, r2l, r2c, lm1, psx = rows[:6]
+    ix1, lix1 = rows[6:6 + kc], rows[6 + kc:6 + 2 * kc]
+    r1v, r1l, r1c, psy = rows[6 + 2 * kc:10 + 2 * kc]
+    iy1, liy1 = rows[10 + 2 * kc:10 + 3 * kc], rows[10 + 3 * kc:10 + 4 * kc]
+    return dict(m1=m1, lm1=lm1, ix1=ix1, iy1=iy1, lix1=lix1, liy1=liy1, r1v=r1v, r1l=r1l,
+                r1c=code(r1c), r2v=r2v, r2l=r2l, r2c=code(r2c), psx=code(psx), psy=code(psy))
+
+
+def forward_snapshots(hs, lx, ly, gap_series, mode, interval):
+    """The forward pass of the checkpointed traceback over ``hs f32[D, B,
+    Lp]``: the terminal dict of :func:`wavefront_dp` and the snapshot
+    ``f32[nblk, B, NS, Lp]`` of every lane's carries at the entry of each
+    block of ``interval`` diagonals (block q starts at diagonal 2 + q
+    interval; nblk = ceil((D - 2) / interval)).  The recurrence runs as in
+    traceback mode (the stay bits a collapsed series carries) and keeps no
+    direction bytes."""
+    D, B, Lp = hs.shape
+    rec = Recurrence(gap_series, mode, True, D)
+    dev = hs.device
+    lx = lx.to(dev, torch.int32)
+    ly = ly.to(dev, torch.int32)
+    lane = torch.arange(Lp, device=dev, dtype=torch.int32)[None, :]
+    c = carries_d1(rec, lane, B)
+    term = Terminals(rec, lx, ly)
+    nblk = -(-(D - 2) // interval)
+    snap = torch.empty((nblk, B, 10 + 4 * rec.kc, Lp), dtype=torch.float32, device=dev)
+    for d in range(2, D):
+        if (d - 2) % interval == 0:
+            snap[(d - 2) // interval] = pack_carries(c)
+        c, cell = diagonal_step(rec, c, None, d, 0, hs[d])
+        term.add(d, 0, lane, cell)
+    return term.result(), snap
+
+
+def resume_block(hs, snap, block, interval, gap_series, mode, out=None):
+    """Block ``block``'s direction bytes ``u8[interval, B, Lp]`` (row r =
+    diagonal 2 + block interval + r; rows past D - 1 are 0), re-derived from
+    snapshot ``block`` of :func:`forward_snapshots`: the rows of the
+    traceback pass's ``tb``, byte for byte.  ``out``, where given, is the
+    tensor written."""
+    D, B, Lp = hs.shape
+    rec = Recurrence(gap_series, mode, True, D)
+    c = unpack_carries(rec, snap[block])
+    d0 = 2 + block * interval
+    if out is None:
+        out = torch.empty((interval, B, Lp), dtype=torch.uint8, device=hs.device)
+    out.zero_()
+    for d in range(d0, min(d0 + interval, D)):
+        c, cell = diagonal_step(rec, c, None, d, 0, hs[d])
+        out[d - d0] = cell["bits"]
+    return out
+
+
+def wavefront_dp_checkpointed(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
+                              mode="global", interval=None):
+    """Giant-problem traceback in O(L^1.5) memory: the plain version of
+    ``praline_tpu/kernels/scan.py::wavefront_dp_checkpointed`` (``:173``),
+    and the parity anchor of the Hopper route (``kernels/tiled_dp.py``'s
+    forward and resume launches, ``kernels/replay.py::replay_block``).
+
+    It is the CPU route's own composition of the plain pieces:
+    :func:`forward_snapshots` keeps the carries at the entry of every block
+    of R = ``interval`` diagonals (default :func:`default_ckpt_interval`);
+    then, from the last block to the first, :func:`resume_block` re-derives
+    the block's direction bytes and ``replay_block_plain`` walks them,
+    appending to the tape.  Returns the terminal dict of :func:`wavefront_dp`
+    plus ``moves uint8[B, D - 1]`` and ``nmoves int32[B]`` (the
+    ``kernels/replay.py`` move-tape contract, terminal to origin), in all
+    three modes (local's stop rule rides bit 7)."""
+    from .replay import replay_block_plain, walk_state
+    from .scores import skewed_pair_scores
+
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    hs = skewed_pair_scores(cx, inv_x, cy, inv_y, s)
+    D, B, _ = hs.shape
+    R = default_ckpt_interval(D) if interval is None else int(interval)
+    out, snap = forward_snapshots(hs, lx, ly, gap_series, mode, R)
+    state = walk_state(out["ti"], out["tj"], out["tcode"], len(gap_series))
+    moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=hs.device)
+    for q in range(snap.shape[0] - 1, -1, -1):
+        bits = resume_block(hs, snap, q, R, gap_series, mode)
+        replay_block_plain(bits, state, moves, q, gap_series, mode)
+    out["moves"] = moves
+    out["nmoves"] = state[5].clone()
+    return out

@@ -16,9 +16,23 @@ sequence; this is the route for rows past the fused kernel's 4096 lanes
 DP ``kernels/scan.py::wavefront_dp``, bit for bit: ``score``, ``length``,
 ``ti``, ``tj``, ``tcode`` and, with traceback, ``tb uint8[D-2, B, Lp]``.
 Unlike K6 (k <= 2, ``hs`` only, one of ``length`` / ``tcode``), it takes
-every mode, 1 to 15 gap levels and two score sources: ``hs f32[D, B, Lp]``
-(from the producer) or, computed in place, the counts, inverses and
-matrix ``(cx, inv_x, cy, inv_y, s)``.
+every mode, 1 to 15 gap levels and three score sources: ``hs f32[D, B,
+Lp]`` (from the producer) or, computed in place, the counts, inverses and
+matrix ``(cx, inv_x, cy, inv_y, s)`` ("rows") or a multi-track
+:class:`Composite` of them (``csrc/tiled_composite.cu``).
+
+The checkpointed traceback (the counterpart of ``praline_tpu/kernels/
+scan.py:173`` ``wavefront_dp_checkpointed``, for tracebacks past the batch
+aligner's byte budget) runs on the same kernel, built with the checkpoint
+code in (``csrc/tiled_ckpt.cu``; the ordinary launches' kernels are built
+without it), in two launches:
+:func:`wavefront_dp_tiled_forward` (the terminals and a snapshot of every
+lane's carries at the entry of each block of ``interval`` diagonals, no
+direction bytes) and :func:`wavefront_dp_tiled_resume` (one block's bytes,
+re-derived from its snapshot, byte for byte the traceback launch's rows);
+``kernels/replay.py::replay_block`` walks each block.  Their plain versions
+are ``kernels/scan.py``'s :func:`~.scan.forward_snapshots` and
+:func:`~.scan.resume_block`.
 
 :func:`wavefront_dp_tiled_plain` walks the same visits box by box over
 the pieces of ``kernels/scan.py``: each visit comes after the same tile's
@@ -44,10 +58,19 @@ from .fused_dp import (
     CAND_BYTES, SMEM_PER_CTA, check_out, check_rows, check_series, empty_outputs,
     padded_alphabet, round16,
 )
-from .scan import MODES, Recurrence, Terminals, carries_d1, diagonal_step, edge_of
-from .scores import skewed_pair_scores
+from .scan import (
+    MODES, Recurrence, Terminals, _gap_prefix, carries_d1, diagonal_step, edge_of,
+    forward_snapshots, resume_block,
+)
+from .scores import composite_skewed_scores, skewed_pair_scores, track_weight
 
-launches = 0  # kernel launches by wavefront_dp_tiled (not by the plain path)
+# Kernel launches (not by the plain paths): by wavefront_dp_tiled on the hs
+# and rows sources and on the composite source, and the checkpointed
+# forward and resume launches (any source).
+launches = 0
+forward_launches = 0
+resume_launches = 0
+composite_launches = 0
 
 MAX_TILE_LANES = 512  # W at most: lanes (= threads) of a CTA (csrc/tiled_dp.cu MAX_W)
 # R at most: the H100's non-portable cluster size (csrc/tiled_dp.cu MAX_R),
@@ -60,12 +83,48 @@ MIN_SPREAD_LANES = 256
 # Diagonals a box: the default and the most the kernel takes
 # (csrc/tiled_dp.cu MAX_STEPS).
 MAX_STEPS = 32
-SOURCES = ("hs", "rows")
+SOURCES = ("hs", "rows", "composite")
+MAX_TRACKS = 8  # tracks of a composite on the card (csrc/tiled_composite.cu)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, forward_launches, resume_launches, composite_launches
+    launches = forward_launches = resume_launches = composite_launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Composite:
+    """The multi-track composite score source, computed in place: one
+    entry a track of each field (counts ``f32[B, Lx, A_t]``, inverses, the
+    track's matrix and its weight); the tracks share ``B``, ``Lx`` and
+    ``Ly``.  Its scores are ``kernels/scores.py::composite_skewed_scores``'s,
+    bit for bit."""
+
+    cxs: tuple
+    inv_xs: tuple
+    cys: tuple
+    inv_ys: tuple
+    ss: tuple
+    weights: tuple
+
+
+def source_kind(source) -> str:
+    """``"hs"``, ``"rows"`` or ``"composite"``."""
+    if isinstance(source, torch.Tensor):
+        return "hs"
+    return "composite" if isinstance(source, Composite) else "rows"
+
+
+def source_scores(source) -> torch.Tensor:
+    """The skewed scores ``f32[D, B, Lp]`` of a source (the plain
+    versions' input)."""
+    kind = source_kind(source)
+    if kind == "hs":
+        return source
+    if kind == "rows":
+        return skewed_pair_scores(*source)
+    c = source
+    return composite_skewed_scores(c.cxs, c.inv_xs, c.cys, c.inv_ys, c.ss, c.weights)
 
 
 def carry_values(k: int) -> int:
@@ -161,7 +220,7 @@ def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
     ``csrc/wavefront_dp.cu``) each problem runs only the visits and steps
     of its band, as ``csrc/cluster_walk.cuh``'s BAND rule says
     (:func:`_band_walk`)."""
-    hs = source if isinstance(source, torch.Tensor) else skewed_pair_scores(*source)
+    hs = source_scores(source)
     D, B, Lp = hs.shape
     T = steps_per_visit
     if (tile_lanes is not None and tile_lanes < 1) or (ctas is not None and ctas < 1) or T < 1:
@@ -275,16 +334,23 @@ def _band_walk(rec, hs, lx, ly, W, T, term):
 _clusters: dict[tuple, int] = {}
 
 
-def max_active_clusters(k: int, source: str, geometry: TiledGeometry) -> int:
+def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
+                        ckpt: bool = False) -> int:
     """Clusters of this geometry the card holds at once
-    (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
+    (``cudaOccupancyMaxActiveClusters``) for the ordinary launches or, with
+    ``ckpt``, the checkpointed ones (``csrc/tiled_ckpt.cu``; the composite
+    source has one kernel for both), asked once per shape."""
     g = geometry
-    key = (k, source, g.R, g.m, g.W, g.T)
+    key = (k, source, g.R, g.m, g.W, g.T, ckpt)
     n = _clusters.get(key)
     if n is None:
         got = ctypes.c_int(0)
-        rc = build.load_library().praline_tiled_dp_clusters(
-            k, int(source == "hs"), g.W, g.R, g.m, g.T, ctypes.byref(got))
+        lib = build.load_library()
+        if source == "composite":
+            rc = lib.praline_tiled_composite_clusters(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
+        else:
+            query = lib.praline_tiled_ckpt_clusters if ckpt else lib.praline_tiled_dp_clusters
+            rc = query(k, int(source == "hs"), g.W, g.R, g.m, g.T, ctypes.byref(got))
         build.check(rc, "praline_tiled_dp_clusters")
         n = _clusters[key] = got.value
     return n
@@ -303,78 +369,203 @@ def check_geometry(g: TiledGeometry, Lp: int) -> None:
         raise ValueError(f"geometry {g} does not cover {Lp} lanes within the shared memory")
 
 
-def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceback=False,
-                       *, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS, out=None):
-    """Batched DP of ``source`` (``hs f32[D, B, Lp]``, or ``(cx f32[B, Lx,
-    A], inv_x f32[B, Lx], cy f32[B, Ly, A], inv_y f32[B, Ly], s f32[A, A])``
-    with ``Lp = Lx + 1``) with true lengths ``lx, ly int32[B]``, on the
-    cluster of :func:`tiled_geometry` (``tile_lanes`` W a multiple of 32 up
-    to 512, ``ctas`` R from 1 to 16, ``steps_per_visit`` T from 1 to 32).
-    Same outputs as :func:`wavefront_dp_tiled_plain` and
-    ``kernels.scan.wavefront_dp``; ``out``, where given, is the dict of
-    output tensors written (as ``fused_dp.wavefront_dp_fused``'s).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, or
-    raise where the card cannot hold one cluster of the geometry."""
-    from_hs = isinstance(source, torch.Tensor)
-    if (source if from_hs else source[0]).device.type == "cpu":
-        got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
-                                       tile_lanes=tile_lanes, ctas=ctas,
-                                       steps_per_visit=steps_per_visit)
-        if out is None:
-            return got
-        check_out(out, *_problem_shape(source), traceback, got["score"].device)
-        for key, t in out.items():
-            t.copy_(got[key])
-        return out
-    global launches
+def problem_shape(source) -> tuple[int, int, int]:
+    """``(B, Lx, Ly)`` of a score source."""
+    kind = source_kind(source)
+    if kind == "hs":
+        D, B, Lp = source.shape
+        return B, Lp - 1, D - Lp
+    cx, cy = (source.cxs[0], source.cys[0]) if kind == "composite" else (source[0], source[2])
+    return cx.shape[0], cx.shape[1], cy.shape[1]
+
+
+def source_device(source) -> torch.device:
+    """The device of a score source's tensors."""
+    kind = source_kind(source)
+    return (source if kind == "hs" else source.cxs[0] if kind == "composite"
+            else source[0]).device
+
+
+def _check_composite(c: Composite, lx, ly) -> tuple[int, int, int, list[int]]:
+    """``(B, Lx, Ly, alphabets)`` of a composite; raises unless every
+    track's operands are the rows source's and the tracks share their
+    shape."""
+    n = len(c.cxs)
+    if not 1 <= n <= MAX_TRACKS or not all(
+            len(f) == n for f in (c.inv_xs, c.cys, c.inv_ys, c.ss, c.weights)):
+        raise ValueError(f"a composite takes 1 to {MAX_TRACKS} tracks, one entry each")
+    shapes = [check_rows(*ops, lx, ly) for ops in zip(c.cxs, c.inv_xs, c.cys, c.inv_ys, c.ss)]
+    if len({sh[:3] for sh in shapes}) != 1 or len({t.device for t in c.cxs}) != 1:
+        raise ValueError("the tracks of a composite must share B, Lx, Ly and the device")
+    B, Lx, Ly, _ = shapes[0]
+    return B, Lx, Ly, [sh[3] for sh in shapes]
+
+
+def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry):
+    """One launch of the tiled kernel on ``source``'s entry point: ``out``
+    the dict of output tensors (``score`` .. ``tcode`` and, where written,
+    ``tb``), ``ckpt`` ``(snap, interval, block, cum0)`` or None, geometry
+    the keyword arguments of :func:`tiled_geometry`."""
     k = check_series(gap_series, mode)
-    if from_hs:
+    kind = source_kind(source)
+    if kind == "hs":
         D, B, Lp = check_hs(source, lx, ly)
-        dev = source.device
-    else:
+    elif kind == "rows":
         B, Lx, Ly, A = check_rows(*source, lx, ly)
         D, Lp = Lx + Ly + 1, Lx + 1
-        dev = source[0].device
-    kind = "hs" if from_hs else "rows"
-    g = tiled_geometry(Lp, k, kind, ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit)
+    else:
+        B, Lx, Ly, alphabets = _check_composite(source, lx, ly)
+        D, Lp = Lx + Ly + 1, Lx + 1
+    dev = source_device(source)
+    g = tiled_geometry(Lp, k, kind, **geometry)
     check_geometry(g, Lp)
-    if max_active_clusters(k, kind, g) < 1:
+    if ckpt is not None and ckpt[1] % g.T:
+        raise ValueError(f"the interval {ckpt[1]} must be a multiple of the box depth {g.T}")
+    if max_active_clusters(k, kind, g, ckpt is not None) < 1:
         raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} threads "
                            f"and {g.smem_bytes} B of shared memory at k={k} on the {kind} source")
     gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     carry = torch.empty((B, carry_values(k), Lp), **f32) if g.carry_scratch else None
-    if out is None:
-        out = empty_outputs(B, Lp - 1, D - Lp, traceback, dev)
-    check_out(out, B, Lp - 1, D - Lp, traceback, dev)
     tb = out.get("tb")
     outs = (carry.data_ptr() if carry is not None else None, out["score"].data_ptr(),
             out["length"].data_ptr(), out["ti"].data_ptr(), out["tj"].data_ptr(),
-            out["tcode"].data_ptr(), tb.data_ptr() if traceback else None)
+            out["tcode"].data_ptr(), tb.data_ptr() if tb is not None else None)
+    snap, interval, block, cum0 = ckpt or (None, 0, -1, 0.0)
+    # the ordinary launches take no checkpoint arguments (csrc/tiled_dp.cu)
+    checkpoints = (snap.data_ptr(), interval, block, cum0) if ckpt is not None else ()
     series = (gaps.ctypes.data_as(ctypes.c_void_p), k, MODES.index(mode), int(traceback))
     shape = (g.W, g.R, g.m, g.T)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if from_hs:
-            rc = lib.praline_tiled_dp_hs(source.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-                                         *series, D, B, Lp, *shape, *outs, stream)
-        else:
+        if kind == "hs":
+            name = "praline_tiled_ckpt_hs" if ckpt is not None else "praline_tiled_dp_hs"
+            rc = getattr(lib, name)(source.data_ptr(), lx.data_ptr(), ly.data_ptr(), *series, D,
+                                    B, Lp, *shape, *outs, *checkpoints, stream)
+        elif kind == "rows":
+            name = "praline_tiled_ckpt_rows" if ckpt is not None else "praline_tiled_dp_rows"
             AP = padded_alphabet(A)
             t_rows = torch.empty((B, Lx, AP), **f32)
             cy_rows = torch.empty((B, Ly, AP), **f32)
-            rc = lib.praline_tiled_dp_rows(*(t.data_ptr() for t in source), lx.data_ptr(),
-                                           ly.data_ptr(), *series, B, Lx, Ly, A, *shape,
-                                           t_rows.data_ptr(), cy_rows.data_ptr(), *outs,
-                                           stream)
-    build.check(rc, "praline_tiled_dp_hs" if from_hs else "praline_tiled_dp_rows")
-    launches += 1
+            rc = getattr(lib, name)(*(t.data_ptr() for t in source), lx.data_ptr(),
+                                    ly.data_ptr(), *series, B, Lx, Ly, A, *shape,
+                                    t_rows.data_ptr(), cy_rows.data_ptr(), *outs, *checkpoints,
+                                    stream)
+        else:
+            name = "praline_tiled_dp_composite"
+            n = len(alphabets)
+            scratch = [(torch.empty((B, Lx, padded_alphabet(A)), **f32),
+                        torch.empty((B, Ly, padded_alphabet(A)), **f32)) for A in alphabets]
+
+            def ptrs(ts):
+                return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+            weights = np.array([float(track_weight(w)) for w in source.weights], np.float32)
+            checkpoints = (snap.data_ptr() if snap is not None else None, interval, block,
+                           cum0)
+            rc = lib.praline_tiled_dp_composite(
+                n, ptrs(source.cxs), ptrs(source.inv_xs), ptrs(source.cys),
+                ptrs(source.inv_ys), ptrs(source.ss), (ctypes.c_int * n)(*alphabets),
+                weights.ctypes.data_as(ctypes.c_void_p), ptrs(t for t, _ in scratch),
+                ptrs(c for _, c in scratch), lx.data_ptr(), ly.data_ptr(), *series, B, Lx, Ly,
+                *shape, *outs, *checkpoints, stream)
+    build.check(rc, name)
+
+
+def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceback=False,
+                       *, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS, out=None):
+    """Batched DP of ``source`` (``hs f32[D, B, Lp]``, ``(cx f32[B, Lx,
+    A], inv_x f32[B, Lx], cy f32[B, Ly, A], inv_y f32[B, Ly], s f32[A, A])``
+    with ``Lp = Lx + 1``, or a :class:`Composite` of such tracks) with true
+    lengths ``lx, ly int32[B]``, on the cluster of :func:`tiled_geometry`
+    (``tile_lanes`` W a multiple of 32 up to 512, ``ctas`` R from 1 to 16,
+    ``steps_per_visit`` T from 1 to 32).  Same outputs as
+    :func:`wavefront_dp_tiled_plain` and ``kernels.scan.wavefront_dp``;
+    ``out``, where given, is the dict of output tensors written (as
+    ``fused_dp.wavefront_dp_fused``'s).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, or raise where the card cannot hold one
+    cluster of the geometry."""
+    geometry = dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit)
+    if source_device(source).type == "cpu":
+        got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
+                                       tile_lanes=tile_lanes, ctas=ctas,
+                                       steps_per_visit=steps_per_visit)
+        if out is None:
+            return got
+        check_out(out, *problem_shape(source), traceback, got["score"].device)
+        for key, t in out.items():
+            t.copy_(got[key])
+        return out
+    global launches, composite_launches
+    B, Lx, Ly = problem_shape(source)
+    dev = source_device(source)
+    if out is None:
+        out = empty_outputs(B, Lx, Ly, traceback, dev)
+    check_out(out, B, Lx, Ly, traceback, dev)
+    _launch(source, lx, ly, gap_series, mode, traceback, out, None, geometry)
+    if source_kind(source) == "composite":
+        composite_launches += 1
+    else:
+        launches += 1
     return out
 
 
-def _problem_shape(source) -> tuple[int, int, int]:
-    """``(B, Lx, Ly)`` of a score source."""
-    if isinstance(source, torch.Tensor):
-        D, B, Lp = source.shape
-        return B, Lp - 1, D - Lp
-    return source[0].shape[0], source[0].shape[1], source[2].shape[1]
+def wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, interval, *, tile_lanes=None,
+                               ctas=None, steps_per_visit=MAX_STEPS):
+    """The forward launch of the checkpointed traceback on ``source`` (as
+    :func:`wavefront_dp_tiled`'s): returns ``(out, snap)``, ``out`` the
+    terminal dict of the traceback launch and ``snap f32[nblk, B, NS, Lp]``
+    each lane's carries at the entry of every block of ``interval``
+    diagonals (a multiple of the box depth on the card), block q at
+    diagonal 2 + q interval, nblk = ceil((D - 2) / interval).  CPU tensors
+    take :func:`~.scan.forward_snapshots`."""
+    if source_device(source).type == "cpu":
+        return forward_snapshots(source_scores(source), lx, ly, gap_series, mode, interval)
+    global forward_launches
+    B, Lx, Ly = problem_shape(source)
+    dev = source_device(source)
+    D, Lp = Lx + Ly + 1, Lx + 1
+    out = empty_outputs(B, Lx, Ly, False, dev)
+    nblk = -(-(D - 2) // interval)
+    snap = torch.empty((nblk, B, carry_values(len(gap_series)), Lp), dtype=torch.float32,
+                       device=dev)
+    _launch(source, lx, ly, gap_series, mode, False, out, (snap, interval, -1, 0.0),
+            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit))
+    forward_launches += 1
+    return out, snap
+
+
+def wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, interval, block, snap, *,
+                              out=None, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS):
+    """The resume launch of block ``block``: its direction bytes ``uint8[
+    interval, B, Lp]`` (row r = diagonal 2 + block interval + r), re-derived
+    from ``snap`` (:func:`wavefront_dp_tiled_forward`'s), byte for byte the
+    traceback launch's rows; rows past D - 1 are not written on the card
+    (0 in the plain version).  ``out``, where given, is the tensor written.
+    CPU tensors take :func:`~.scan.resume_block`."""
+    if source_device(source).type == "cpu":
+        return resume_block(source_scores(source), snap, block, interval, gap_series, mode, out)
+    global resume_launches
+    B, Lx, Ly = problem_shape(source)
+    dev = source_device(source)
+    Lp = Lx + 1
+    if out is None:
+        out = torch.empty((interval, B, Lp), dtype=torch.uint8, device=dev)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (interval, B, Lp) \
+            or not out.is_contiguous() or out.device != dev:
+        raise ValueError(f"out must be a contiguous uint8[{interval}, {B}, {Lp}] tensor on {dev}")
+    k = len(gap_series)
+    if snap.dtype != torch.float32 or snap.dim() != 4 or tuple(snap.shape[1:]) != (
+            B, carry_values(k), Lp) or not snap.is_contiguous() or snap.device != dev \
+            or not 0 <= block < snap.shape[0]:
+        raise ValueError(f"snap must be the forward launch's f32[nblk, {B}, {carry_values(k)}, "
+                         f"{Lp}] with block {block} in it")
+    d0 = 2 + block * interval
+    cum0 = float(_gap_prefix(tuple(gap_series), d0 - 1)[d0 - 1])
+    scratch = empty_outputs(B, Lx, Ly, False, dev)
+    scratch["tb"] = out
+    _launch(source, lx, ly, gap_series, mode, True, scratch, (snap, interval, block, cum0),
+            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit))
+    resume_launches += 1
+    return out

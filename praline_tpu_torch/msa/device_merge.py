@@ -62,19 +62,13 @@ HEADROOM = 1.25
 MAX_ATTEMPTS = 3
 
 
-def _ladder_top() -> int:
-    """The largest ladder size (127 + 128 k) whose ``(C, C)`` traceback
-    problem ``batch.choose_route`` takes on the card: ``(2C - 1)(C + 1)``
-    traceback bytes within ``batch.TB_BYTES_BUDGET``."""
-    c = LADDER_BASE[-1]
-    while batch.per_problem_bytes(c + batch.BUCKET_STEP, c + batch.BUCKET_STEP)[1] \
-            <= batch.TB_BYTES_BUDGET:
-        c += batch.BUCKET_STEP
-    return c
-
-
-# 32767, the reference's largest rung (C_BUCKETS[-1]).
-LADDER_TOP = _ladder_top()
+# The largest rung: the reference's (``praline_tpu/msa/device_merge.py:57``,
+# C_BUCKETS[-1]), and the largest ladder size (127 + 128 k) whose (C, C)
+# traceback, (2C - 1)(C + 1) bytes, fits the unscaled
+# batch.TB_BYTES_BUDGET.  A constant: the card's scaled budgets (which
+# take full tracebacks far past it) do not change which families the
+# device walk takes.
+LADDER_TOP = 32767
 
 
 def ladder(max_len: int) -> tuple[int, ...]:
@@ -219,7 +213,7 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
     n = len(plan.leaves)
     M = 2 * n - 1  # a slot a tree node
     A = plan.s.shape[0]
-    route = batch.choose_route(dev.type, C_cap, C_cap, True)
+    route = batch.choose_route(dev, C_cap, C_cap, True)
     counts = np.zeros((M, C_cap, A), dtype=np.float32)
     gaps = np.zeros((M, C_cap), dtype=np.float32)
     lens = np.ones(M, dtype=np.int32)
@@ -242,8 +236,8 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
     budget = batch.dispatch_budget(dev)
     row = 0
     for level, tier in zip(plan.levels, plan.tiers):
-        tier = tier if batch.takes_tier(route, C_cap, C_cap) else None
-        per_problem = batch.chunk_problem_bytes(route, dev.type, C_cap, C_cap, A, True, tier,
+        tier = tier if batch.takes_tier(route, C_cap, C_cap, dev) else None
+        per_problem = batch.chunk_problem_bytes(route, dev, C_cap, C_cap, A, True, tier,
                                                 len(plan.gap_series))
         size = max(1, min(MAX_BATCH, budget // per_problem))
         for a in range(row, row + len(level), size):

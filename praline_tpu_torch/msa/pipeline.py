@@ -40,7 +40,7 @@ from ..types import (
     SequenceTree,
 )
 from ..util.checkpoint import Checkpoint, run_digest
-from ..util.metrics import METRICS, log
+from ..util.metrics import METRICS, log, maybe_trace
 from .device_merge import try_device_merge
 
 # Pairs per resumable distance tile: the O(N^2) stage checkpoints tile by
@@ -276,39 +276,40 @@ def msa_align(
             config.checkpoint_dir, run_digest(sequences, config, extra_slaves=extra_slaves)
         )
     METRICS.reset()
-    with METRICS.timed("preprofiles"):
-        seqs = ckpt.load_preprofiles(sequences) if ckpt else None
-        if seqs is None:
-            seqs = batched_preprofiles(
-                sequences, matrix, config, device=dev, extra_slaves=extra_slaves
-            )
-            if ckpt and config.preprofile_mode != "dummy":
-                ckpt.save_preprofiles(seqs)
+    with maybe_trace("msa_align"):
+        with METRICS.timed("preprofiles"):
+            seqs = ckpt.load_preprofiles(sequences) if ckpt else None
+            if seqs is None:
+                seqs = batched_preprofiles(
+                    sequences, matrix, config, device=dev, extra_slaves=extra_slaves
+                )
+                if ckpt and config.preprofile_mode != "dummy":
+                    ckpt.save_preprofiles(seqs)
 
-    with METRICS.timed("all_pairs"):
-        loaded = ckpt.load_distances() if ckpt else None
-        if loaded is None:
-            scores, lengths = batched_all_pairs(
-                seqs, matrix, config, device=dev, ckpt=ckpt, fault_hook=fault_hook
-            )
-            n = len(seqs)
-            lens = np.array([s.length for s in seqs], dtype=np.float64)
-            cells = float((lens.sum() ** 2 - (lens**2).sum()) / 2)
-            METRICS.add_pairs("all_pairs", n * (n - 1) // 2, cells)
-        else:
-            scores, lengths = loaded
+        with METRICS.timed("all_pairs"):
+            loaded = ckpt.load_distances() if ckpt else None
+            if loaded is None:
+                scores, lengths = batched_all_pairs(
+                    seqs, matrix, config, device=dev, ckpt=ckpt, fault_hook=fault_hook
+                )
+                n = len(seqs)
+                lens = np.array([s.length for s in seqs], dtype=np.float64)
+                cells = float((lens.sum() ** 2 - (lens**2).sum()) / 2)
+                METRICS.add_pairs("all_pairs", n * (n - 1) // 2, cells)
+            else:
+                scores, lengths = loaded
 
-    with METRICS.timed("guide_tree"):
-        tree = ckpt.load_tree() if ckpt else None
-        if tree is None:
-            sim = similarity_from_scores(scores, lengths, config.score_normalization)
-            tree = build_guide_tree(sim, config.linkage)
-            if ckpt:
-                ckpt.save_tree(tree)
-        if on_tree is not None:
-            on_tree(tree)
+        with METRICS.timed("guide_tree"):
+            tree = ckpt.load_tree() if ckpt else None
+            if tree is None:
+                sim = similarity_from_scores(scores, lengths, config.score_normalization)
+                tree = build_guide_tree(sim, config.linkage)
+                if ckpt:
+                    ckpt.save_tree(tree)
+            if on_tree is not None:
+                on_tree(tree)
 
-    with METRICS.timed("merge"):
-        result = batched_progressive_merge(seqs, tree, matrix, config, device=dev)
+        with METRICS.timed("merge"), maybe_trace("merge"):
+            result = batched_progressive_merge(seqs, tree, matrix, config, device=dev)
     METRICS.log_summary()
     return result

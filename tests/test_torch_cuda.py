@@ -614,3 +614,126 @@ def test_device_merge_cuda_equals_cpu(cuda, mode):
     assert format_alignment_fasta(got) == format_alignment_fasta(want)
     assert format_alignment_fasta(got) == format_alignment_fasta(
         per_level_merge(seqs, tree, B62, cfg, device=cuda))
+
+
+# ---- the long routes: checkpointed launches, block walk, in-place composite ----
+
+
+def checkpointed_launches_match_plain(cuda, sources, hs, lx, ly, gap_series, mode, interval,
+                                      geometry):
+    """On each of ``sources`` (whose scores are ``hs``), at ``geometry``:
+    the forward launch's terminals and snapshot equal ``forward_snapshots``'s,
+    every block's resumed bytes ``resume_block``'s and the full traceback's
+    rows, and the block walk's tape ``replay_moves_plain``'s over the full
+    traceback."""
+    D, B, Lp = hs.shape
+    full = plain_dp(hs, lx, ly, gap_series, mode, True)
+    want_moves, want_n = replay.replay_moves_plain(full["tb"], full["ti"], full["tj"],
+                                                  full["tcode"], gap_series, mode, D - 1)
+    want_out, want_snap = tiled_dp.forward_snapshots(hs, lx, ly, gap_series, mode, interval)
+    want_blocks = [tiled_dp.resume_block(hs, want_snap, q, interval, gap_series, mode)
+                   for q in range(want_snap.shape[0])]
+    for source in sources:
+        out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode,
+                                                        interval, **geometry)
+        torch.cuda.synchronize()
+        for key in want_out:
+            assert torch.equal(out[key], want_out[key]), key
+        assert torch.equal(snap.view(torch.int32), want_snap.view(torch.int32))
+        state = replay.walk_state(out["ti"], out["tj"], out["tcode"], len(gap_series))
+        moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=cuda)
+        for q in range(snap.shape[0] - 1, -1, -1):
+            bits = tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode,
+                                                      interval, q, snap, **geometry)
+            rows = min(interval, D - 2 - q * interval)  # rows past D - 1 are not written
+            assert torch.equal(bits[:rows], want_blocks[q][:rows])
+            assert torch.equal(bits[:rows], full["tb"][q * interval: q * interval + rows])
+            before = replay.block_launches
+            replay.replay_block(bits, state, moves, q, gap_series, mode)
+            assert replay.block_launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(moves, want_moves) and torch.equal(state[5], want_n)
+
+
+# (gap series, bx x by, geometry, carries in the scratch): more than one
+# tile a CTA, where a tile restarts from the carry store (shared memory, or
+# at 15 levels on 1024 lanes a CTA the device-memory scratch)
+MANY_TILES = [((11, 1), (300, 200), dict(ctas=1, tile_lanes=64), False),
+              ((13, 7, 1), (300, 200), dict(ctas=2, tile_lanes=32), False),
+              (tuple(range(29, 0, -2)), (1000, 700), dict(ctas=1, tile_lanes=256), True)]
+
+
+def composite_operands(cuda, key, bx, by):
+    """A two-track composite (BLOSUM62 and PAM250, weights 1 and 0.5) and
+    its true lengths."""
+    tracks = [operands(zlib.crc32(repr((key, t)).encode()), 3, bx, by, cuda) for t in range(2)]
+    pam = matrix_to_torch(builtin_score_matrix("pam250"), cuda)
+    ops = [tracks[0][:5], (*tracks[1][:4], pam)]
+    c = tiled_dp.Composite(*[tuple(o[i] for o in ops) for i in range(5)], (1.0, 0.5))
+    return c, tracks[0][5], tracks[0][6]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1), (5,)])
+def test_tiled_resume_matches_plain(cuda, mode, gap_series):
+    """The forward launch's terminals and snapshot, and each block's
+    resumed bytes, on both sources, equal the plain pass's; the block walk
+    over them equals ``replay_moves_plain`` over the full traceback."""
+    seed = zlib.crc32(repr(("resume", mode, gap_series)).encode())
+    ops = operands(seed, 3, 300, 200, cuda)
+    hs = plain_scores(*ops[:5])
+    checkpointed_launches_match_plain(cuda, (hs, ops[:5]), hs, ops[5], ops[6], gap_series, mode,
+                                      64, dict(tile_lanes=128))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", range(len(MANY_TILES)))
+def test_tiled_resume_on_many_tiles_matches_plain(cuda, mode, case):
+    """As above with several tiles a CTA, on both sources and the in-place
+    composite: a resumed tile restarts from the snapshot in place of the
+    carry store, and the tiles after it from the store."""
+    gap_series, (bx, by), geometry, scratch = MANY_TILES[case]
+    for kind in tiled_dp.SOURCES:
+        g = tiled_dp.tiled_geometry(bx + 1, len(gap_series), kind, **geometry)
+        assert g.m > 1 and g.carry_scratch == scratch, (kind, g)
+    ops = operands(zlib.crc32(repr(("many tiles", mode, case)).encode()), 3, bx, by, cuda)
+    hs = plain_scores(*ops[:5])
+    checkpointed_launches_match_plain(cuda, (hs, ops[:5]), hs, ops[5], ops[6], gap_series, mode,
+                                      64, geometry)
+    c, lx, ly = composite_operands(cuda, ("many tiles composite", mode, case), bx, by)
+    checkpointed_launches_match_plain(cuda, (c,), tiled_dp.source_scores(c), lx, ly, gap_series,
+                                      mode, 64, geometry)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_composite_source_matches_plain(cuda, mode):
+    """The in-place composite source equals the plain DP over
+    ``composite_skewed_scores``, scores and traceback bytes, at one tile a
+    CTA and at several."""
+    c, lx, ly = composite_operands(cuda, ("composite", mode), 300, 200)
+    want = plain_dp(tiled_dp.source_scores(c), lx, ly, (11, 1), mode, True)
+    for geometry in (dict(tile_lanes=128), dict(ctas=1, tile_lanes=64)):
+        before = tiled_dp.composite_launches
+        got = tiled_dp.wavefront_dp_tiled(c, lx, ly, (11, 1), mode, True, **geometry)
+        torch.cuda.synchronize()
+        assert tiled_dp.composite_launches == before + 1
+        for key in want:
+            assert torch.equal(got[key], want[key]), (key, geometry)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_checkpointed_route_cuda_equals_cpu(cuda, monkeypatch, mode):
+    """The batch aligner past a (lowered) traceback budget runs the
+    checkpointed route on the card, with the CPU's results."""
+    rng = np.random.default_rng(5)
+    profs = [Profile.from_tokens(rng.integers(0, 20, size=L).astype(np.int32), ALPHABET_AA)
+             for L in (4700, 4500, 4300, 4900)]
+    pairs = [(profs[0], profs[1]), (profs[2], profs[3])]
+    monkeypatch.setattr(batch, "TB_BYTES_BUDGET", 1 << 20)
+    want = batch.align_pairs_batched(pairs, B62, (11, 1), mode, device="cpu", traceback=True)
+    batch.reset_route_counts()
+    got = batch.align_pairs_batched(pairs, B62, (11, 1), mode, device=cuda, traceback=True)
+    assert batch.checkpointed_chunks > 0
+    for g, e in zip(got, want):
+        assert g.score == e.score
+        assert np.array_equal(g.cols_x, e.cols_x) and np.array_equal(g.cols_y, e.cols_y)

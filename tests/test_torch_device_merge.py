@@ -384,14 +384,16 @@ def test_ladder_steps_by_128_past_127():
 
 def test_ladder_stops_at_the_largest_traceback_the_card_takes():
     """No rung past LADDER_TOP, the reference's largest (32767) and the
-    largest (C, C) traceback problem choose_route takes on the card; a
-    leaf longer than it gives no rung."""
+    largest (C, C) full traceback at the budgets as written; a leaf longer
+    than it gives no rung."""
     from praline_tpu_torch.kernels import batch
 
     assert dm.LADDER_TOP == jax_dm.C_BUCKETS[-1] == 32767
-    batch.choose_route("cuda", dm.LADDER_TOP, dm.LADDER_TOP, True)
-    with pytest.raises(NotImplementedError):
-        batch.choose_route("cuda", dm.LADDER_TOP + 1, dm.LADDER_TOP + 1, True)
+    assert batch.choose_route("cuda", dm.LADDER_TOP, dm.LADDER_TOP, True) == "tiled"
+    # past it the card runs the traceback checkpointed (no card here: the
+    # budgets as written), and the ladder stops all the same
+    assert batch.choose_route("cuda", dm.LADDER_TOP + 1, dm.LADDER_TOP + 1, True) == \
+        "checkpointed"
     assert dm.ladder(20000) == (25087, 31359, 32767)
     assert dm.ladder(26926) == (32767,)  # titin's N2B isoform
     assert dm.ladder(32767) == (32767,)

@@ -43,6 +43,7 @@ def test_importing_the_port_leaves_jax_out():
     assert "praline_tpu_torch.kernels.tiled_dp" in modules and "praline_tpu_torch.oracle.msa" in modules
     assert "praline_tpu_torch.kernels.compose" in modules
     assert "praline_tpu_torch.msa.device_merge" in modules
+    assert "praline_tpu_torch.util.accuracy" in modules  # the long-routes slice's modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -66,6 +67,7 @@ def test_static_scan_finds_no_jax_and_no_compile():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert PKG / "kernels" / "fused_dp.py" in files
+    assert PKG / "util" / "accuracy.py" in files and PKG / "util" / "metrics.py" in files
     for path in files:
         assert not bad.search(path.read_text()), path
 

@@ -79,10 +79,12 @@ def test_cli_cpu_run_matches_golden(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--blast-db", "db"], ["--profile-dir", "p"],
+    ["--devices", "2"], ["--blast-db", "db"], ["--devices", "2", "--profile-dir", "p"],
     ["--backend", "xla"], ["--backend", "pallas"],
 ])
 def test_cli_refuses_unported_knobs(tmp_path, capsys, flags):
+    """``--profile-dir`` is ported (``tests/test_torch_profiling.py``); it
+    does not lift the refusal of a knob that is not."""
     rc = main([str(TESTDATA / "family10.fasta"), str(tmp_path / "o.fasta"), *flags])
     assert rc == 2
     assert "not ported" in capsys.readouterr().err

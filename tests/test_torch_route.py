@@ -69,10 +69,16 @@ def test_past_the_fused_cap_a_card_refuses(traceback):
 
 
 def test_giant_traceback_needs_the_checkpointed_route():
+    """Traceback bytes past their budget on the fused route's shape take
+    the checkpointed route on the tiled kernel, on a card as on the CPU
+    (no card here: the budgets stay as written)."""
     by = batch.TB_BYTES_BUDGET // 4096 + 10
     assert ROUTE("cuda", 4095, by, False) == "fused"
-    with pytest.raises(NotImplementedError, match="checkpointed"):
-        ROUTE("cuda", 4095, by, True)
+    for dev in ("cuda", "cpu"):
+        assert ROUTE(dev, 4095, by, True) == "checkpointed"
+    fits = batch.TB_BYTES_BUDGET // 4096 - 4094  # (4095 + fits - 1) 4096 bytes
+    assert ROUTE("cuda", 4095, fits, True) == "fused"
+    assert ROUTE("cuda", 4095, fits + 1, True) == "checkpointed"
 
 
 @pytest.mark.parametrize("knob,want", [("1", "fused"), ("0", "two_kernel"), (None, "two_kernel")])

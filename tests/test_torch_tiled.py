@@ -222,16 +222,20 @@ def test_rows_past_the_fused_cap_take_the_tiled_route(bx, by, traceback):
     for dev in ("cuda", "cpu"):
         assert batch.choose_route(dev, bx, by, traceback) == "tiled"
         assert batch.choose_route(dev, fused_dp.MAX_LANES_FUSED - 1, by, traceback) == "fused"
-    assert batch.tiled_source(bx, by) == "hs"
-    assert batch.tiled_source(bx, batch.HS_BYTES_BUDGET // (4 * (bx + 1))) == "rows"
+    assert batch.tiled_source(bx, by, "cpu") == "hs"
+    assert batch.tiled_source(bx, batch.HS_BYTES_BUDGET // (4 * (bx + 1)), "cpu") == "rows"
 
 
 def test_giant_traceback_on_the_tiled_route_still_raises():
+    """It no longer raises: traceback bytes past their budget on the tiled
+    route's shape run checkpointed on the same kernel, on a card as on the
+    CPU; just under the budget the full traceback stays."""
     by = batch.TB_BYTES_BUDGET // 5000
     assert batch.choose_route("cuda", 4999, by, False) == "tiled"
-    with pytest.raises(NotImplementedError, match="checkpointed"):
-        batch.choose_route("cuda", 4999, by, True)
-    assert batch.choose_route("cpu", 4999, by, True) == "tiled"
+    for dev in ("cuda", "cpu"):
+        assert batch.choose_route(dev, 4999, by, True) == "checkpointed"
+        fits = batch.TB_BYTES_BUDGET // 5000 - 4998  # (4999 + fits - 1) 5000 bytes
+        assert batch.choose_route(dev, 4999, fits, True) == "tiled"
 
 
 def test_chunk_sizing_counts_the_carry_scratch():

@@ -217,24 +217,50 @@ def test_composite_route_and_chunk_bytes():
         assert batch.composite_route(dev, cap - 1, 500, True) == "two_kernel"
         assert batch.composite_route(dev, cap, 500, True) == "tiled"
     by = batch.HS_BYTES_BUDGET // (4 * 5001)
-    with pytest.raises(NotImplementedError, match="composites past the budgets"):
-        batch.composite_route("cuda", 5000, by, False)
-    assert batch.composite_route("cpu", 5000, by, False) == "tiled"
+    for dev in ("cuda", "cpu"):  # past the hs budget: the in-place composite
+        assert batch.composite_route(dev, 5000, by, False) == "tiled"
+        assert batch.composite_route(dev, 5000, by, True) == "tiled"
+        assert batch.composite_route(dev, 5000, batch.TB_BYTES_BUDGET // 5001, True) == \
+            "checkpointed"
+    assert batch.tiled_source(5000, by, "cuda") == "rows"
+    assert batch.composite_in_place("tiled", 5000, by, "cuda")
+    assert not batch.composite_in_place("tiled", 5000, by, "cpu")
     hs_bytes, _ = batch.per_problem_bytes(1023, 700)
     got = batch.composite_problem_bytes("two_kernel", "cuda", 1023, 700, [23, 5], True)
     assert got == (batch.chunk_problem_bytes("two_kernel", "cuda", 1023, 700, 23, True)
                    + (1023 + 700) * 6 * 4 + hs_bytes)
 
 
+@pytest.mark.parametrize("traceback", [False, True])
+def test_composite_route_ignores_the_fused_route_knob(monkeypatch, traceback):
+    """``PRALINE_FUSED_DP=1`` moves pairs to the fused kernel, which takes
+    no composite: whole-row composites keep the two-kernel route and the
+    rest route as without the knob."""
+    shapes = [(1023, 700), (wavefront.MAX_LANES - 1, 500), (wavefront.MAX_LANES, 500),
+              (5000, batch.HS_BYTES_BUDGET // (4 * 5001)), (5000, batch.TB_BYTES_BUDGET // 5001)]
+    for dev in ("cuda", "cpu"):
+        monkeypatch.delenv(batch.FUSED_DP_ENV, raising=False)
+        want = [batch.composite_route(dev, bx, by, traceback) for bx, by in shapes]
+        monkeypatch.setenv(batch.FUSED_DP_ENV, "1")
+        assert batch.choose_route(dev, 1023, 700, traceback) == "fused"
+        assert [batch.composite_route(dev, bx, by, traceback) for bx, by in shapes] == want
+        assert want[:2] == ["two_kernel"] * 2
+
+
 def test_traceback_past_its_budget_raises_on_the_card(monkeypatch):
     """An hs within its budget (raised here: at the real budgets an hs is
-    about four times its traceback bytes) and traceback bytes past theirs."""
+    about four times its traceback bytes) and traceback bytes past theirs:
+    no longer refused.  Whole rows keep the two-kernel route, as pairs do
+    (``choose_route``: a traceback runs checkpointed only where the rows
+    leave the whole-row DP); past its lanes, the checkpointed route over
+    the summed hs."""
     monkeypatch.setattr(batch, "HS_BYTES_BUDGET", 1 << 40)
     by = batch.TB_BYTES_BUDGET // 1024 + 10
     assert batch.composite_route("cuda", 1023, by, False) == "two_kernel"
-    with pytest.raises(NotImplementedError, match="traceback bytes"):
-        batch.composite_route("cuda", 1023, by, True)
-    assert batch.composite_route("cpu", 1023, by, True) == "two_kernel"
+    for dev in ("cuda", "cpu"):
+        assert batch.composite_route(dev, 1023, by, True) == "two_kernel"
+        assert batch.composite_route(dev, 2048, by, True) == "checkpointed"
+    assert not batch.composite_in_place("checkpointed", 2048, by, "cuda")
 
 
 def test_plain_composite_matches_jax_composite():
