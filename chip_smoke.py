@@ -90,15 +90,30 @@ its inputs, the second's score equal to the scores-only run's; then
 ``msa_align`` of a 4-member titin-length family unforced and forced, the
 same FASTA) and the ``tracks-long`` path (two two-track composites of
 26,000 residues a side, past the scaled hs budget: in place, then
-checkpointed).  The CLI runs msa128 with ``--profile-dir``, whose trace
+checkpointed).  Two more, on the pair mesh of ``dist/``: ``[mesh]``, the
+headline all-pairs through ``make_pair_mesh(1)`` equal to the unsharded
+call, the two timed as warm medians in alternating turns, and msa128 with
+``mesh_shape=(1,)`` (the per-level merge, sharded) byte-equal to msa128
+merged by the device walk; and ``[homology]``, the CLI on msa128 with
+``--blast-db`` and ``--preprofile global`` against a ``psiblast`` stub put
+on PATH (hits drawn from a second seeded family), byte-equal to
+``msa_align`` with the same hits from ``FakeBlastFinder``, the hits
+changing exactly their members' preprofile counts.  ``[two-ranks]``
+starts this script twice as ``two-ranks-rank`` (two processes on gloo,
+both on ``cuda:0``, the kernels already built): msa128 on a mesh across
+both with a shared checkpoint directory, long8's all-pairs stage (the
+tiled route) and the ``tracks`` pairs, each equal to the single-process
+results, only rank 0 writing checkpoints; a rank that fails or hangs past
+its timeout fails the run.  The CLI runs msa128 with ``--profile-dir``, whose trace
 must hold ``dispatch:`` spans.  ``python3 chip_smoke.py long-routes``
 runs the build and these phases alone; ``python3 chip_smoke.py
 tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
 (for the parent beside this tree in one call).  One more run of each of the
 first five main paths under ``torch.profiler`` gives the device time per
 kernel and the busy share.
-Every producer and fused launch of every main path must take the
-tensor-core tier (the launches are counted per tier).  Every phase raises
+Every producer and fused launch of every main path but ``[homology]``'s must
+take the tensor-core tier (the launches are counted per tier; homology's
+preprofile counts pass the predicate's bounds once merged).  Every phase raises
 on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
@@ -2613,6 +2628,380 @@ def long_only(argv) -> int:
     return 0
 
 
+# ---- the pair mesh, two ranks on the card and homology-extended preprofiles ----
+MESH_TURNS = 4  # alternating turns of the headline unsharded and on a one-card mesh
+TWO_RANKS_TIMEOUT_S = 300  # a rank that fails or hangs fails the phase
+TWO_RANKS_COLLECTIVE_S = 120  # the process group's timeout: a lone rank raises
+HOMOLOGY_EVERY = 4  # every 4th msa128 member gets hits
+HOMOLOGY_HITS = 3  # hits a member
+
+
+def results_digest(results) -> str:
+    """sha256 of a batch aligner's results: each pair's score, length and
+    terminal cell, or score and traceback columns (to compare runs in two
+    processes without shipping the paths)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for r in results:
+        if hasattr(r, "cols_x"):
+            h.update(np.float64(r.score).tobytes() + r.cols_x.tobytes() + r.cols_y.tobytes())
+        else:
+            h.update(np.array([r.score, r.length, r.ti, r.tj], np.float64).tobytes())
+    return h.hexdigest()
+
+
+def phase_mesh(dev, matrix, pairs, msa_seqs) -> dict:
+    """``[mesh]``: the headline all-pairs through ``make_pair_mesh(1)`` equal
+    to the call without a mesh (both one shard of the sharding layer on the
+    card), both timed as warm medians in MESH_TURNS alternating turns; msa128 with
+    ``mesh_shape=(1,)`` (the per-level merge, sharded) byte-equal to
+    msa128 without a mesh (the device merge)."""
+    import torch
+
+    from praline_tpu_torch import METRICS, PralineConfig, format_alignment_fasta, msa_align
+    from praline_tpu_torch.dist import make_pair_mesh
+    from praline_tpu_torch.kernels.batch import ProfileArena, align_pairs_batched
+
+    mesh = make_pair_mesh(1, device=dev.type)
+    if mesh.devices != (dev,):
+        raise AssertionError(f"make_pair_mesh(1) drives {mesh.devices}, not {dev}")
+    arena = ProfileArena(matrix.alphabet.size, (HEADLINE_BUCKET,), dev)
+
+    def run(m):
+        out = align_pairs_batched(pairs, matrix, (11, 1), "global", device=dev,
+                                  bucket_sizes=(HEADLINE_BUCKET,), batch_pairs=HEADLINE_PAIRS,
+                                  arena=arena, mesh=m)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    want = run(None)
+    if run(mesh) != want:
+        raise AssertionError("mesh: the headline on a one-card mesh differs from the unsharded call")
+    walls = {"unsharded": [], "sharded": []}
+    for turn in range(MESH_TURNS):
+        for key in (("unsharded", "sharded") if turn % 2 == 0 else ("sharded", "unsharded")):
+            t0 = time.perf_counter()
+            out = run(mesh if key == "sharded" else None)
+            walls[key].append(time.perf_counter() - t0)
+            if out != want:
+                raise AssertionError(f"mesh: a {key} turn differs from the first unsharded run")
+    texts, msa_walls = {}, {}
+    for key, cfg, walk in (("device-merge", PralineConfig(), "device"),
+                           ("mesh1", PralineConfig(mesh_shape=(1,)), "per-level")):
+        t0 = time.perf_counter()
+        texts[key] = format_alignment_fasta(msa_align(msa_seqs, matrix, cfg, device=dev))
+        msa_walls[key] = time.perf_counter() - t0
+        if METRICS.notes.get("merge_walk") != walk:
+            raise AssertionError(f"mesh: msa128 {key} took the {METRICS.notes.get('merge_walk')} "
+                                 "walk")
+    if texts["mesh1"] != texts["device-merge"]:
+        raise AssertionError("mesh: msa128 on a one-card mesh differs from the device merge")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    say("mesh", pairs=len(pairs), bucket=HEADLINE_BUCKET, results="equal to unsharded",
+        turns=MESH_TURNS, **{f"{k}_walls_s": ",".join(f"{w:.4f}" for w in v)
+                             for k, v in walls.items()},
+        **{f"{k}_warm_median_s": round(v, 4) for k, v in med.items()},
+        sharded_over_unsharded=round(med["sharded"] / med["unsharded"], 4),
+        msa128="byte-equal (mesh1 per-level = device merge)",
+        **{f"msa128_{k}_wall_s": round(v, 4) for k, v in msa_walls.items()})
+    return {"warm_median_s": med, "walls_s": walls, "msa128_wall_s": msa_walls,
+            "msa_text": texts["device-merge"]}
+
+
+def two_ranks_rank(argv) -> int:
+    """``two-ranks-rank RANK PORT DIR DEVICE``: one of the two ranks of
+    ``[two-ranks]`` (gloo, both on ``cuda:0``, or on the CPU): msa128 on a mesh across both
+    ranks with a checkpoint directory under DIR, long8's all-pairs stage
+    and the ``tracks`` pairs scores only and with traceback; digests of the
+    results, the wall clocks, each path's launch counts (set to 0 just
+    before it and read just after) and the checkpoint files this rank wrote
+    go to DIR/rank{RANK}.json."""
+    rank, port, out_dir, device = int(argv[0]), int(argv[1]), Path(argv[2]), argv[3]
+    sys.path.insert(0, str(ROOT))
+    import hashlib
+
+    import torch
+
+    from praline_tpu_torch import PralineConfig, builtin_score_matrix, format_alignment_fasta
+    from praline_tpu_torch import msa_align
+    from praline_tpu_torch.bench import tracks_workload
+    from praline_tpu_torch.dist import initialize_distributed, make_pair_mesh, shutdown_distributed
+    from praline_tpu_torch.kernels import batch
+    from praline_tpu_torch.msa import batched_all_pairs
+
+    initialize_distributed(f"localhost:{port}", 2, rank, timeout_s=TWO_RANKS_COLLECTIVE_S)
+    try:
+        mesh = make_pair_mesh(device=device)
+        if mesh.shards != 2 or (device == "cuda" and (
+                mesh.devices != (torch.device("cuda", 0),) or mesh.sharing != 2)):
+            raise AssertionError(f"rank {rank}: mesh {mesh}")
+        matrix = builtin_score_matrix("blosum62")
+        out = {}
+        writes = []
+        replace = Path.replace
+
+        def counted_replace(self, target):
+            writes.append(str(target))
+            return replace(self, target)
+
+        seqs, long8_seqs = synthetic_family(), long8_family()
+        sets, _, mats, w = tracks_workload()
+        out["launches"] = {}
+        Path.replace = counted_replace
+        reset_launches()
+        t0 = time.perf_counter()
+        aln = msa_align(seqs, matrix, PralineConfig(
+            mesh_shape=(2,), checkpoint_dir=str(out_dir / "ck")), device=device)
+        out["msa128_wall_s"] = time.perf_counter() - t0
+        out["launches"]["msa128"] = read_launches()
+        Path.replace = replace
+        out["msa128"] = hashlib.sha256(format_alignment_fasta(aln).encode()).hexdigest()
+        out["writes"] = writes
+        batch.reset_route_counts()
+        reset_launches()
+        t0 = time.perf_counter()
+        scores, lengths = batched_all_pairs(long8_seqs, matrix, PralineConfig(),
+                                            device=device, mesh=mesh)
+        out["long8_wall_s"] = time.perf_counter() - t0
+        out["launches"]["long8"] = read_launches()
+        out["long8_routes"] = dict(batch.route_counts)
+        out["long8"] = hashlib.sha256(scores.tobytes() + lengths.tobytes()).hexdigest()
+        reset_launches()
+        for traceback in (False, True):
+            t0 = time.perf_counter()
+            res = batch.align_tracksets_batched(sets[0], mats, w, (11, 1), "global",
+                                                device=device, traceback=traceback,
+                                                bucket_sizes=(HEADLINE_BUCKET,), mesh=mesh)
+            out[f"tracks_{traceback}_wall_s"] = time.perf_counter() - t0
+            out[f"tracks_{traceback}"] = results_digest(res)
+        out["launches"]["tracks"] = read_launches()
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def phase_two_ranks(dev, msa_text, long8_seqs, tracks_res, tracks_tb) -> dict:
+    """``[two-ranks]``: two processes on the one card (gloo, both on
+    ``cuda:0``, the kernels built once by this process before they start),
+    each running :func:`two_ranks_rank` with a timeout; every rank's exit
+    code is checked, both ranks' msa128 byte-equal to the single-process run,
+    only rank 0 wrote checkpoint files, long8's all-pairs (tiled route) and
+    the ``tracks`` pairs equal to the unsharded results.  Each path's launches,
+    both ranks' summed, are checked against PATH_KERNELS (``[launches]``
+    lines ``path=two-ranks-...``) and returned under ``launches``."""
+    import hashlib
+    import shutil
+    import socket
+    import tempfile
+
+    from praline_tpu_torch import PralineConfig, builtin_score_matrix
+    from praline_tpu_torch.msa import batched_all_pairs
+
+    scores, lengths = batched_all_pairs(long8_seqs, builtin_score_matrix("blosum62"),
+                                        PralineConfig(), device=dev)
+    want = {"msa128": hashlib.sha256(msa_text.encode()).hexdigest(),
+            "long8": hashlib.sha256(scores.tobytes() + lengths.tobytes()).hexdigest(),
+            "tracks_False": results_digest(tracks_res), "tracks_True": results_digest(tracks_tb)}
+    tmp = Path(tempfile.mkdtemp(prefix="praline_two_ranks_"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "two-ranks-rank",
+                               str(rank), str(port), str(tmp), dev.type], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"two-ranks: rank {rank} exited {p.returncode}:\n{log[-3000:]}")
+    outs = [json.loads((tmp / f"rank{rank}.json").read_text()) for rank in (0, 1)]
+    files = sorted(f.name for f in (tmp / "ck").iterdir())
+    shutil.rmtree(tmp)
+    for rank, out in enumerate(outs):
+        for key, digest in want.items():
+            if out[key] != digest:
+                raise AssertionError(f"two-ranks: rank {rank}'s {key} differs from the "
+                                     "single-process run")
+        if out["long8_routes"]["tiled"] < 1:
+            raise AssertionError(f"two-ranks: rank {rank}'s long8 took {out['long8_routes']}")
+    if not outs[0]["writes"] or outs[1]["writes"]:
+        raise AssertionError(f"two-ranks: checkpoint writes {len(outs[0]['writes'])} by rank 0, "
+                             f"{len(outs[1]['writes'])} by rank 1")
+    launches = {}
+    for path in ("msa128", "long8", "tracks"):
+        counts = {k: sum(o["launches"][path][k] for o in outs) for k in KERNELS}
+        check_launches(f"two-ranks-{path}", counts)
+        launches[path] = counts
+    res = {"wall_s": wall, "msa128_wall_s": [o["msa128_wall_s"] for o in outs],
+           "long8_wall_s": [o["long8_wall_s"] for o in outs],
+           "tracks_wall_s": [[o["tracks_False_wall_s"], o["tracks_True_wall_s"]] for o in outs]}
+    say("two-ranks", ranks=2, device=f"{dev} both", backend="gloo",
+        results="msa128, long8 all-pairs, tracks scores and traceback equal to one process",
+        checkpoint=",".join(files), writes_rank0=len(outs[0]["writes"]), writes_rank1=0,
+        **{k: json.dumps(v) for k, v in res.items()})
+    return res | {"launches": launches}
+
+
+PSIBLAST_STUB = """#!/bin/sh
+query=""
+while [ $# -gt 0 ]; do
+  [ "$1" = "-query" ] && query="$2"
+  shift
+done
+case "$(head -1 "$query")" in
+{cases}
+esac
+exit 0
+"""
+
+
+def phase_homology(dev, seqs) -> dict:
+    """``[homology]``: a ``psiblast`` stub on PATH whose hits (HOMOLOGY_HITS
+    for every HOMOLOGY_EVERY-th member) are members of a second seeded
+    family; the CLI on msa128 with ``--blast-db stub --preprofile global``
+    on the card is byte-equal to ``msa_align`` with
+    ``find_homologs(FakeBlastFinder(the same hits))``, and the hits change
+    the preprofile counts of exactly the members that have them.  The
+    operands of the first and the last producer call of the CLI run that
+    took the scalar tier are kept (references, no copies) under
+    ``scalar_ops`` for :func:`homology_scalar_vs_plain`."""
+    import tempfile
+
+    import numpy as np
+
+    from praline_tpu_torch import METRICS, PralineConfig, Sequence, builtin_score_matrix
+    from praline_tpu_torch import format_alignment_fasta, msa_align
+    from praline_tpu_torch.cli.main import main as cli_main
+    from praline_tpu_torch.io import format_sequences_fasta
+    from praline_tpu_torch.kernels import batch
+    from praline_tpu_torch.msa import (
+        FakeBlastFinder, batched_preprofiles, find_homologs, find_homologs_blast,
+    )
+    from praline_tpu_torch.types import TRACK_ID_PREPROFILE
+
+    others = synthetic_family(len(seqs[::HOMOLOGY_EVERY]) * HOMOLOGY_HITS, SEED + 13,
+                              root_len=900, lo=500, hi=900)
+    hits = {}
+    for k, seq in enumerate(seqs[::HOMOLOGY_EVERY]):
+        group = others[k * HOMOLOGY_HITS:(k + 1) * HOMOLOGY_HITS]
+        hits[seq.name] = [Sequence(f"hit{k:03d}_{j}", h.tokens, h.alphabet)
+                          for j, h in enumerate(group)]
+    cases = "\n".join(f'  ">{name}") printf \'%s\\n\' '
+                      + " ".join(f"'{h.name}\t{h.text()}'" for h in group) + " ;;"
+                      for name, group in hits.items())
+    matrix = builtin_score_matrix("blosum62")
+    cfg = PralineConfig(preprofile_mode="global")
+    path = os.environ["PATH"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        stub = tmp / "psiblast"
+        stub.write_text(PSIBLAST_STUB.format(cases=cases))
+        stub.chmod(0o755)
+        (tmp / "in.fasta").write_text(format_sequences_fasta(seqs))
+        os.environ["PATH"] = f"{tmp}{os.pathsep}{path}"
+        producer = batch.fused_skewed_scores
+        scalar_ops = {}
+
+        def keep_scalar_operands(cx, inv_x, cy, inv_y, s, *, tier, out=None):
+            if tier == "scalar":
+                ops = (cx, inv_x, cy, inv_y, s)
+                scalar_ops.setdefault("first", ops)
+                scalar_ops["last"] = ops
+            return producer(cx, inv_x, cy, inv_y, s, tier=tier, out=out)
+
+        batch.fused_skewed_scores = keep_scalar_operands
+        try:
+            t0 = time.perf_counter()
+            rc = cli_main([str(tmp / "in.fasta"), str(tmp / "out.fasta"), "--device", dev.type,
+                           "--preprofile", "global", "--blast-db", "stub"])
+            cli_wall = time.perf_counter() - t0
+            batch.fused_skewed_scores = producer
+            stages = METRICS.summary()
+            cli_text = (tmp / "out.fasta").read_text() if rc == 0 else ""
+            t0 = time.perf_counter()
+            mapping = find_homologs_blast(seqs, "stub")
+            blast_s = time.perf_counter() - t0
+        finally:
+            batch.fused_skewed_scores = producer
+            os.environ["PATH"] = path
+    if rc != 0:
+        raise AssertionError(f"homology: the CLI exited {rc}")
+    fake = find_homologs(seqs, FakeBlastFinder(hits))
+    if {i: [(h.name, h.tokens.tobytes()) for h in v] for i, v in mapping.items()} != \
+            {i: [(h.name, h.tokens.tobytes()) for h in v] for i, v in fake.items()}:
+        raise AssertionError("homology: the stub's hits differ from FakeBlastFinder's")
+    want = format_alignment_fasta(msa_align(seqs, matrix, cfg, device=dev, extra_slaves=fake))
+    if cli_text != want:
+        raise AssertionError("homology: the CLI's --blast-db FASTA differs from msa_align with "
+                             "the same hits")
+    plain = batched_preprofiles(seqs, matrix, cfg, device=dev)
+    extended = batched_preprofiles(seqs, matrix, cfg, device=dev, extra_slaves=fake)
+    changed = {i for i, (p, e) in enumerate(zip(plain, extended))
+               if not np.array_equal(p.profiles[TRACK_ID_PREPROFILE].counts,
+                                     e.profiles[TRACK_ID_PREPROFILE].counts)}
+    if changed != set(fake):
+        raise AssertionError(f"homology: preprofiles changed for {sorted(changed)[:8]}..., "
+                             f"hits for {sorted(fake)[:8]}...")
+    res = {"cli_wall_s": cli_wall, "blast_s": blast_s,
+           **{f"{k}_s": v["seconds"] for k, v in stages.items()},
+           "preprofile_pairs": stages["preprofiles"]["pairs"]}
+    say("homology", sequences=len(seqs), members_with_hits=len(fake),
+        hits=sum(len(v) for v in fake.values()), hit_lengths=f"{min(len(h.tokens) for h in others)}"
+        f"-{max(len(h.tokens) for h in others)}",
+        results="CLI --blast-db = msa_align(FakeBlastFinder hits); preprofiles changed for "
+                "exactly the members with hits", **{k: round(v, 4) if isinstance(v, float) else v
+                                                   for k, v in res.items()})
+    return res | {"scalar_ops": scalar_ops}
+
+
+def homology_scalar_vs_plain(scalar_ops) -> float:
+    """The scalar producer (``csrc/scores.cu``) bit for bit against the plain
+    version on the operands ``[homology]`` gave it (its first and last
+    scalar-tier call, at their merge level's bucket shape), each output
+    NaN-poisoned.  The device merge picks a level's tier from host bounds
+    on its counts, so the first call may hold counts the predicate would
+    admit; the last (the deepest merge) must hold counts past 255 that it
+    refuses.  Run after the path's launches are read, so these launches are
+    not the path's.  Returns the largest difference (0.0)."""
+    import torch
+
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
+    if not scalar_ops:
+        raise AssertionError("homology: no producer call took the scalar tier")
+    first, last = scalar_ops["first"], scalar_ops["last"]
+    calls = [("first", first), ("last", last)] if last is not first else [("only", last)]
+    err, shapes, top = 0.0, [], []
+    for which, ops in calls:
+        cx, _, cy, _, _ = ops
+        most = float(torch.maximum(cx.max(), cy.max()))
+        if which != "first" and (most <= 255 or producer_tier(ops) != "scalar"):
+            raise AssertionError(f"homology: the last scalar call's operands (counts up to "
+                                 f"{most}) are ones the tensor-core predicate admits")
+        want = plain_scores(*ops)
+        what = f"homology's {which} scalar call B{cx.shape[0]}x{cx.shape[1]}x{cy.shape[1]}"
+        err = max(err, producer_vs_plain(ops, want, "scalar", what))
+        shapes.append(f"{which}:B{cx.shape[0]}x{cx.shape[1]}x{cy.shape[1]}")
+        top.append(most)
+    say("producer=homology", tier="scalar", calls=",".join(shapes),
+        max_count=",".join(f"{m:g}" for m in top), result="bit-equal(NaN-poisoned output)")
+    return err
+
+
 def short_kernel_name(key: str) -> str:
     key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
     return key.split("(")[0].strip()[:60] if not key.startswith("Memcpy") else key
@@ -2648,16 +3037,21 @@ KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_sca
            "tiled_resume", "tiled_composite", "walk_block")
 # The launches of the long routes, which only the long paths make.
 LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block")
-# The kernels each main path must launch: the all-pairs headline on its
-# default route (two-kernel) and forced onto the fused route, the three
-# msa_align runs, the composites (the producer at least twice a chunk: see
-# main), and the utilization and wprobe configs.  Only long8 has rows past
-# the fused kernel's lanes; every other path must keep off the tiled kernel.
-# The three msa_align paths merge on the device walk, whose compose kernel
-# writes each level's merged profiles.
-# Every path's profiles are integer counts the tensor-core predicate
-# admits, so every producer and fused launch of a path takes the "mma"
-# tier; the scalar tiers are launched and checked by the kernel phases alone.
+# The kernels each main path must launch, and the only ones of the tiled,
+# long-route and scalar-tier kernels it may launch: the all-pairs headline
+# on its default route (two-kernel) and forced onto the fused route, the
+# three msa_align runs, the composites (the producer at least twice a chunk:
+# see main), and the utilization and wprobe configs.  Only long8 and the
+# long routes have rows past the fused kernel's lanes.  The three msa_align
+# paths merge on the device walk, whose compose kernel writes each level's
+# merged profiles; on a mesh across the two ranks the merge is per level
+# (no compose).  Every path's profiles but homology's are integer counts the
+# tensor-core predicate admits, so their producer and fused launches take
+# the "mma" tier.  Homology's preprofiles hold up to 131 counts a column
+# (the master, 127 slaves and its hits), so merged nodes pass the 255 a
+# count of P2 (``fused_scores.tensor_core_exact``) and take the scalar
+# producer, which ``homology_scalar_vs_plain`` holds against the plain
+# version on the operands of that run.
 PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
                 "msa128": ("scores_mma", "dp", "walk", "compose"),
                 "long-family": ("fused", "walk", "compose"),
@@ -2666,41 +3060,70 @@ PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fu
                 "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",),
                 "long-routes": ("tiled", "walk", "tiled_forward", "tiled_resume", "walk_block"),
                 "tracks-long": ("tiled_composite", "walk", "tiled_forward", "tiled_resume",
-                                "walk_block")}
+                                "walk_block"),
+                "mesh": ("scores_mma", "dp", "walk", "compose"),
+                "homology": ("scores_mma", "scores_scalar", "dp", "walk", "compose"),
+                # [two-ranks]: both ranks' launches, summed
+                "two-ranks-msa128": ("scores_mma", "dp", "walk"),
+                "two-ranks-long8": ("scores_mma", "tiled"),
+                "two-ranks-tracks": ("scores_mma", "dp", "walk")}
 
 
-def counted(name, phase):
-    """Run ``phase`` with every launch count set to 0 just before it; return
-    its result and the counts read just after."""
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from praline_tpu_torch.kernels import (
+        compose, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
+    )
+
+    for m in (wavefront, tiled_dp, replay, compose, fused_dp, fused_scores, probes):
+        m.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count since :func:`reset_launches`, by
+    the names of KERNELS."""
     from praline_tpu_torch.kernels import (
         compose, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
     )
 
     modules = dict(zip(("dp", "tiled", "walk", "compose"), (wavefront, tiled_dp, replay, compose)))
-    for m in (*modules.values(), fused_dp, fused_scores, probes):
-        m.reset_launches()
-    result = phase()
-    counts = ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
-              | {"fused": sum(fused_dp.launches.values())}
-              | {f"fused_{k}": v for k, v in fused_dp.launches.items()}
-              | {k: m.launches for k, m in modules.items()} | probes.launches
-              | {"tiled_forward": tiled_dp.forward_launches,
-                 "tiled_resume": tiled_dp.resume_launches,
-                 "tiled_composite": tiled_dp.composite_launches,
-                 "walk_block": replay.block_launches})
+    return ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
+            | {"fused": sum(fused_dp.launches.values())}
+            | {f"fused_{k}": v for k, v in fused_dp.launches.items()}
+            | {k: m.launches for k, m in modules.items()} | probes.launches
+            | {"tiled_forward": tiled_dp.forward_launches,
+               "tiled_resume": tiled_dp.resume_launches,
+               "tiled_composite": tiled_dp.composite_launches,
+               "walk_block": replay.block_launches})
+
+
+def check_launches(name: str, counts: dict) -> None:
+    """Print the path's ``[launches]`` line; fail where a kernel of the path
+    never launched, or where it launched a tiled, long-route or scalar-tier
+    kernel that PATH_KERNELS does not give it."""
     say("launches", path=name, **counts)
-    missing = [k for k in PATH_KERNELS[name] if counts[k] < 1]
+    allowed = PATH_KERNELS[name]
+    missing = [k for k in allowed if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
     for kernel in ("scores", "fused"):
-        if counts[f"{kernel}_scalar"]:
+        if counts[f"{kernel}_scalar"] and f"{kernel}_scalar" not in allowed:
             raise AssertionError(f"{name}: {counts[f'{kernel}_scalar']} of "
                                  f"{counts[f'{kernel}_scalar'] + counts[f'{kernel}_mma']} {kernel} "
                                  "launches left the tensor-core tier")
-    if name not in ("long8", "long-routes") and counts["tiled"]:
+    if counts["tiled"] and "tiled" not in allowed:
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
-    if name not in ("long-routes", "tracks-long") and any(counts[k] for k in LONG_KERNELS):
+    if any(counts[k] for k in LONG_KERNELS if k not in allowed):
         raise AssertionError(f"{name}: a path within the budgets took a long route")
+
+
+def counted(name, phase):
+    """Run ``phase`` with every launch count set to 0 just before it; return
+    its result and the counts read just after."""
+    reset_launches()
+    result = phase()
+    counts = read_launches()
+    check_launches(name, counts)
     return result, counts
 
 
@@ -2761,7 +3184,39 @@ def tree_only(argv) -> int:
     return 0
 
 
+def dist_only() -> int:
+    """``dist``: the build and the phases of the pair mesh and homology
+    alone (``[mesh]``, ``[homology]``, ``[two-ranks]``, with the msa128,
+    long8 and ``tracks`` runs they compare against)."""
+    smi = phase_environment()
+    from praline_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    os.environ.pop("PRALINE_FUSED_DP", None)
+    build_t0 = time.perf_counter()
+    from praline_tpu_torch.kernels import build
+
+    build.build()
+    build.load_library()
+    say("build", seconds=round(time.perf_counter() - build_t0, 3))
+    matrix, pairs, _ = headline_pairs()
+    msa_seqs = synthetic_family()
+    _, track_cells, _, _, tracks_run = tracks_runner(dev)
+    tracks_res, _ = run_tracks(tracks_run, track_cells, 1, False)
+    tracks_tb, _ = run_tracks(tracks_run, track_cells, 1, True)
+    mesh_out, _ = counted("mesh", lambda: phase_mesh(dev, matrix, pairs, msa_seqs))
+    homology, _ = counted("homology", lambda: phase_homology(dev, msa_seqs))
+    homology_scalar_vs_plain(homology.pop("scalar_ops"))
+    phase_two_ranks(dev, mesh_out["msa_text"], long8_family(), tracks_res, tracks_tb)
+    print(smi)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["two-ranks-rank"]:
+        return two_ranks_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["dist"]:
+        return dist_only()
     if sys.argv[1:2] in (["dp-times"], ["tiled-times"]):
         return tree_only(sys.argv[1:])
     if sys.argv[1:2] == ["long-routes"]:
@@ -2813,14 +3268,19 @@ def main() -> int:
     titin_seqs = titin_family()
     long_res, c9 = counted("long-routes", lambda: run_long_routes(dev, titin_seqs))
     tracks_long, c10 = counted("tracks-long", lambda: run_tracks_long(dev))
-    # ---- end of the main paths ----
-    paths = (c1, c2, c3, c4, c5, c6, c7, c8, c9, c10)
-    launches = {k: sum(c[k] for c in paths) for k in KERNELS}
+    mesh_out, c11 = counted("mesh", lambda: phase_mesh(dev, matrix, pairs, msa_seqs))
+    homology, c12 = counted("homology", lambda: phase_homology(dev, msa_seqs))
+    # ---- end of the main paths; [two-ranks] counts its own, in each rank ----
+    scalar_err = homology_scalar_vs_plain(homology.pop("scalar_ops"))
     for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
         if c["scores_mma"] != 2 * n or c["dp"] != n:
             raise AssertionError(f"{name}: {c['scores_mma']} producer and {c['dp']} DP launches "
                                  f"for {n} chunks of two tracks")
     check_tracks(dev, track_pairs, track_mats, track_w, tracks_res, tracks_tb)
+    two_ranks = phase_two_ranks(dev, mesh_out["msa_text"], long8_seqs, tracks_res, tracks_tb)
+    paths = (c1, c2, c3, c4, c5, c6, c7, c8, c9, c10, c11, c12,
+             *two_ranks.pop("launches").values())
+    launches = {k: sum(c[k] for c in paths) for k in KERNELS}
     check_all_pairs(dev, matrix, pairs, res)
     say_all_pairs("two_kernel", cells, walls, gcs, sampled_vs_plain="64/64 bit-equal")
     with route_knob("1"):
@@ -2849,7 +3309,7 @@ def main() -> int:
          "replaces": "praline_tpu/kernels/fused_scores.py:359 (fused_skewed_scores_strip), "
                      "praline_tpu/kernels/fused_scores.py:119 (fused_skewed_scores)",
          "launches": launches["scores_mma"] + launches["scores_scalar"],
-         "max_abs_err": max(timing["scores_err"], timing["scores_edge_err"]),
+         "max_abs_err": max(timing["scores_err"], timing["scores_edge_err"], scalar_err),
          "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"],
          **timing["scores_bound"], "library_ms": timing["scores_library_ms"],
          "hs_pattern_ms": timing["scores_hs_pattern_ms"],
@@ -2956,6 +3416,8 @@ def main() -> int:
             "library_ms": None, "shape": t["shape"]})
     say("long-routes", titin=json.dumps(titin), paths=json.dumps(long_res),
         tracks_long=json.dumps(tracks_long), cli_profile=json.dumps(cli_profile))
+    say("dist", mesh=json.dumps({k: v for k, v in mesh_out.items() if k != "msa_text"}),
+        two_ranks=json.dumps(two_ranks), homology=json.dumps(homology))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,12 @@ The default device is ``cuda``; without a card the run fails unless
 ``--device cpu`` is given.  ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the run there (``util/metrics.py``);
 ``--score-against REF`` prints the SP/TC column accuracy of the result
-against a reference alignment.  Knobs of the JAX build that the port does
-not have yet (``--devices``, ``--blast-db``, ``--backend xla|pallas``) are
-accepted by the parser and refused with a message.
+against a reference alignment.  ``--devices N`` shards the pair space
+over the first N cards (``config.mesh_shape``, ``dist/mesh.py``);
+``--blast-db DB`` extends the preprofiles with the PSI-BLAST hits of each
+sequence in DB (``msa/homology.py``; ``psiblast`` must be on PATH).  The
+JAX build's backends (``--backend xla|pallas``) are accepted by the parser
+and refused with a message.
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="none", help="master-slave preprofile strategy")
     p.add_argument("--preprofile-gap-series", default=None, metavar="G1,G2,...",
                    help="gap series for preprofile alignments (default: --gap-series)")
+    p.add_argument("--blast-db", default=None, metavar="DB",
+                   help="PSI-BLAST database for homology-extended preprofiles "
+                   "(requires psiblast on PATH)")
     p.add_argument("--linkage", choices=["single", "complete", "average"], default="average")
     p.add_argument("--score-normalization", choices=["none", "length"], default="length",
                    help="normalize pairwise scores by alignment length for the guide tree")
@@ -66,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write resumable stage checkpoints here")
     p.add_argument("--resume", default=None, metavar="DIR",
                    help="resume from a checkpoint dir (same as --checkpoint-dir)")
-    p.add_argument("--devices", type=int, default=None, metavar="N", help=argparse.SUPPRESS)
-    p.add_argument("--blast-db", default=None, metavar="DB", help=argparse.SUPPRESS)
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="shard the pair space over the first N devices")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler trace (Chrome format) of the run here")
     p.add_argument("-v", "--verbose", action="count", default=0,
@@ -88,10 +94,6 @@ def parse_gap_series(text: str) -> tuple[int, ...]:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--devices", args.devices), ("--blast-db", args.blast_db)):
-        if value is not None:
-            print(f"error: {flag} {NOT_PORTED}", file=sys.stderr)
-            return 2
     if args.backend in ("xla", "pallas"):
         print(f"error: --backend {args.backend} {NOT_PORTED}", file=sys.stderr)
         return 2
@@ -111,7 +113,7 @@ def _run(args) -> int:
     """The run of :func:`main` past the knob checks (profiling armed)."""
     from .. import io as pio
     from ..types import ALPHABETS, PralineConfig
-    from ..util.metrics import log
+    from ..util.metrics import METRICS, log
 
     alphabet_name = "dna" if args.alphabet == "dna" else "protein"
     alphabet = ALPHABETS[alphabet_name]
@@ -142,6 +144,7 @@ def _run(args) -> int:
         batch_pairs=args.batch_pairs,
         backend=args.backend,
         checkpoint_dir=args.checkpoint_dir or args.resume,
+        mesh_shape=(args.devices,) if args.devices else None,
     )
 
     on_tree = None
@@ -156,17 +159,35 @@ def _run(args) -> int:
             Path(_path).write_text(tree.newick([s.name for s in sequences]) + "\n")
 
     from ..device import resolve_device
+    from ..dist import make_pair_mesh
     from ..msa import msa_align
 
     device = "cpu"  # the oracle backend is NumPy and needs no device
     if args.backend != "oracle":
         try:
             device = resolve_device(args.device)
-        except RuntimeError as e:  # no card for --device cuda
+            if args.devices:  # fail on too few devices before the expensive stages
+                make_pair_mesh(args.devices, device=device.type)
+        except (RuntimeError, ValueError) as e:  # no card for --device cuda, too few
             print(f"error: {e}", file=sys.stderr)
             return 2
+
+    extra_slaves = None
+    if args.blast_db:
+        from ..msa import find_homologs_blast
+
+        try:
+            with METRICS.timed("blast"):
+                extra_slaves = find_homologs_blast(sequences, args.blast_db)
+        except FileNotFoundError as e:  # no psiblast on PATH
+            print(f"error: --blast-db: {e}", file=sys.stderr)
+            return 2
+        log.info("blast: hits for %d of %d sequences", len(extra_slaves), len(sequences))
+
+    # --devices is recorded as config.mesh_shape; msa_align builds the mesh.
     t0 = time.perf_counter()
-    alignment = msa_align(sequences, matrix, config, device=device, on_tree=on_tree)
+    alignment = msa_align(sequences, matrix, config, device=device, extra_slaves=extra_slaves,
+                          on_tree=on_tree)
     log.info("aligned %d sequences into %d columns in %.2fs",
              alignment.num_members, alignment.num_columns, time.perf_counter() - t0)
     if out_format == "clustal":

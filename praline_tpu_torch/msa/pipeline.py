@@ -14,8 +14,12 @@ enqueued, one host copy for the whole walk), as the JAX package does
 (``praline_tpu/msa/pipeline.py:237-242``); where it returns None (PAM250's
 exactness guard, every column capacity outgrown) the merge walks the
 tree one level at a time (:func:`per_level_merge`, the JAX package's own
-fallback, ``pipeline.py:245-283``).  Not ported yet (ROADMAP.md, port
-queue): device meshes and the profiler trace.
+fallback, ``pipeline.py:245-283``).
+
+Under a pair mesh (``config.mesh_shape`` or ``mesh=``; ``dist/mesh.py``)
+every stage's batched call shards its chunks over the mesh, the merge walks
+the tree a level at a time (the device walk runs only without a mesh, as
+in the JAX package), and only process 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..device import resolve_device
+from ..dist.mesh import make_pair_mesh, process_index
 from ..kernels.batch import ProfileArena, align_pairs_batched
 from ..oracle.align import AlignResult
 from ..oracle.merge import full_coverage_path, inject_gaps, reorder_to_input
@@ -61,6 +66,7 @@ def batched_preprofiles(
     *,
     device,
     extra_slaves: dict[int, list[Sequence]] | None = None,
+    mesh=None,
 ) -> list[Sequence]:
     """Attach preprofile tracks; all master-slave DPs in one batched call."""
     mode = config.preprofile_mode
@@ -87,7 +93,7 @@ def batched_preprofiles(
     results: list[AlignResult] = align_pairs_batched(
         pairs, matrix, config.effective_preprofile_gap_series, mode,
         device=device, traceback=True, bucket_sizes=tuple(config.bucket_sizes),
-        batch_pairs=_wide_batch_pairs(config),
+        batch_pairs=_wide_batch_pairs(config), mesh=mesh,
     )
     METRICS.add_pairs(
         "preprofiles", len(pairs), sum(float(a.length) * b.length for a, b in pairs)
@@ -112,6 +118,7 @@ def batched_all_pairs(
     device,
     ckpt=None,
     fault_hook=None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """N x N (score, alignment length) matrices, scores-only DP.
 
@@ -121,7 +128,8 @@ def batched_all_pairs(
     """
     n = len(sequences)
     profiles = [member_profile(s) for s in sequences]
-    arena = ProfileArena(matrix.alphabet.size, tuple(config.bucket_sizes), device)
+    arena = ProfileArena(matrix.alphabet.size, tuple(config.bucket_sizes),
+                         mesh.devices[0] if mesh else device)
     index = [(i, j) for i in range(n) for j in range(i + 1, n)]
     scores = np.zeros((n, n), dtype=np.float64)
     lengths = np.zeros((n, n), dtype=np.int64)
@@ -146,7 +154,7 @@ def batched_all_pairs(
                 matrix, config.gap_series, config.distance_mode,
                 device=device, traceback=False,
                 bucket_sizes=tuple(config.bucket_sizes),
-                batch_pairs=_wide_batch_pairs(config), arena=arena,
+                batch_pairs=_wide_batch_pairs(config), arena=arena, mesh=mesh,
             )
             tile_scores = np.array([r.score for r in results])
             tile_lengths = np.array([r.length for r in results])
@@ -185,14 +193,17 @@ def batched_progressive_merge(
     config: PralineConfig,
     *,
     device,
+    mesh=None,
 ) -> Alignment:
-    """The merge stage: the device-resident walk where it takes the input
-    (``device_merge.try_device_merge``), else :func:`per_level_merge`.
-    ``METRICS.notes["merge_walk"]`` says which ran."""
-    merged = try_device_merge(sequences, tree, matrix, config, device=device)
-    if merged is not None:
-        return merged
-    return per_level_merge(sequences, tree, matrix, config, device=device)
+    """The merge stage: without a mesh, the device-resident walk where it
+    takes the input (``device_merge.try_device_merge``), else (and on a
+    mesh, sharded) :func:`per_level_merge`.  ``METRICS.notes["merge_walk"]``
+    says which ran."""
+    if mesh is None:
+        merged = try_device_merge(sequences, tree, matrix, config, device=device)
+        if merged is not None:
+            return merged
+    return per_level_merge(sequences, tree, matrix, config, device=device, mesh=mesh)
 
 
 def per_level_merge(
@@ -202,9 +213,10 @@ def per_level_merge(
     config: PralineConfig,
     *,
     device,
+    mesh=None,
 ) -> Alignment:
     """Walk the guide tree one level at a time: each level's joins are one
-    batched profile-profile traceback call."""
+    batched profile-profile traceback call (sharded over ``mesh``)."""
     METRICS.note("merge_walk", "per-level")
     nodes: dict[int, Alignment] = {i: Alignment.single(s) for i, s in enumerate(sequences)}
     profiles: dict[int, Profile] = {i: node_profile(nodes[i]) for i in range(len(sequences))}
@@ -216,7 +228,7 @@ def per_level_merge(
         results = align_pairs_batched(
             pairs, matrix, config.gap_series, config.merge_mode,
             device=device, traceback=True, bucket_sizes=tuple(config.bucket_sizes),
-            batch_pairs=config.batch_pairs,
+            batch_pairs=config.batch_pairs, mesh=mesh,
         )
         METRICS.add_pairs(
             "merge", len(pairs), sum(float(a.length) * b.length for a, b in pairs)
@@ -243,13 +255,17 @@ def msa_align(
     *,
     device="cuda",
     extra_slaves: dict[int, list[Sequence]] | None = None,
+    mesh=None,
     fault_hook=None,
     on_tree=None,
 ) -> Alignment:
     """Full progressive MSA on ``device`` (``"cuda"`` or ``"cpu"``).
 
     ``device="cuda"`` raises when no card is visible: the CPU runs only
-    when asked for.  ``config.backend == "oracle"`` runs the NumPy
+    when asked for.  ``extra_slaves`` (homology hits, ``msa/homology.py``)
+    join the preprofiles.  ``mesh`` (a ``dist.PairMesh``; by default one of
+    ``config.mesh_shape`` shards, where set) shards every stage; on a mesh
+    across processes every process makes this call with the same inputs.  ``config.backend == "oracle"`` runs the NumPy
     reference pipeline; ``"auto"`` runs the port; the JAX backends
     (``"xla"``, ``"pallas"``) belong to ``praline_tpu`` and raise here.
     ``on_tree(tree)`` is called once the guide tree exists.
@@ -266,14 +282,19 @@ def msa_align(
         return Alignment.single(sequences[0])
     if config.backend == "oracle":
         return oracle_msa(sequences, matrix, config, extra_slaves=extra_slaves, on_tree=on_tree)
-    if config.mesh_shape:
-        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md, port queue)")
 
     dev = resolve_device(device)
+    if mesh is None and config.mesh_shape:
+        mesh = make_pair_mesh(int(np.prod(config.mesh_shape)), device=dev.type)
+    if mesh is not None:
+        dev = mesh.devices[0]
     ckpt = None
     if config.checkpoint_dir:
+        # every process reads the shared directory, only process 0 writes
+        # (the artifacts are the same on every process)
         ckpt = Checkpoint(
-            config.checkpoint_dir, run_digest(sequences, config, extra_slaves=extra_slaves)
+            config.checkpoint_dir, run_digest(sequences, config, extra_slaves=extra_slaves),
+            writer=process_index() == 0,
         )
     METRICS.reset()
     with maybe_trace("msa_align"):
@@ -281,7 +302,7 @@ def msa_align(
             seqs = ckpt.load_preprofiles(sequences) if ckpt else None
             if seqs is None:
                 seqs = batched_preprofiles(
-                    sequences, matrix, config, device=dev, extra_slaves=extra_slaves
+                    sequences, matrix, config, device=dev, extra_slaves=extra_slaves, mesh=mesh
                 )
                 if ckpt and config.preprofile_mode != "dummy":
                     ckpt.save_preprofiles(seqs)
@@ -290,7 +311,8 @@ def msa_align(
             loaded = ckpt.load_distances() if ckpt else None
             if loaded is None:
                 scores, lengths = batched_all_pairs(
-                    seqs, matrix, config, device=dev, ckpt=ckpt, fault_hook=fault_hook
+                    seqs, matrix, config, device=dev, ckpt=ckpt, fault_hook=fault_hook,
+                    mesh=mesh,
                 )
                 n = len(seqs)
                 lens = np.array([s.length for s in seqs], dtype=np.float64)
@@ -310,6 +332,7 @@ def msa_align(
                 on_tree(tree)
 
         with METRICS.timed("merge"), maybe_trace("merge"):
-            result = batched_progressive_merge(seqs, tree, matrix, config, device=dev)
+            result = batched_progressive_merge(seqs, tree, matrix, config, device=dev,
+                                               mesh=mesh)
     METRICS.log_summary()
     return result

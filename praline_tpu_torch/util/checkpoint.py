@@ -158,8 +158,12 @@ class Checkpoint:
         return data["scores"], data["lengths"]
 
     def clear_distance_tiles(self) -> None:
+        """Delete the tiles once ``distances.npz`` holds them (the writer
+        only: readers of a shared directory leave it as it is)."""
+        if not self.writer:
+            return
         for p in self.dir.glob("tile_*.npz"):
-            p.unlink()
+            p.unlink(missing_ok=True)
 
     # -- guide tree -------------------------------------------------------
     def save_tree(self, tree: SequenceTree) -> None:

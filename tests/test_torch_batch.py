@@ -15,6 +15,7 @@ from praline_tpu import ALPHABET_AA, Profile, builtin_score_matrix
 from praline_tpu.kernels.batch import align_pairs_batched as jax_batched
 from praline_tpu.oracle import align_profiles
 from praline_tpu_torch.convert import matrix_from_arrays, profile_from_arrays
+from praline_tpu_torch.dist import PairMesh, make_pair_mesh
 from praline_tpu_torch.kernels import batch
 from praline_tpu_torch.kernels.batch import ProfileArena, align_pairs_batched
 
@@ -103,14 +104,19 @@ def test_exactness_gate_raises_like_the_oracle():
 
 
 def test_unported_routes_raise(monkeypatch):
-    """Meshes are not ported; a traceback past its byte budget is no longer
-    refused (it runs checkpointed, ``test_torch_long_routes.py``), nor an
-    hs tensor past its budget: it takes the fused route, with the same
-    results."""
+    """No route is refused any more: a pair mesh shards the call
+    (``test_torch_dist.py``), to the same results, and refuses only a mesh
+    of another device type than the call's; a traceback past its byte
+    budget runs checkpointed (``test_torch_long_routes.py``), and an hs
+    tensor past its budget takes the fused route, with the same results."""
     profs = port_profiles(profiles(2))
     pairs = [(profs[0], profs[1])]
-    with pytest.raises(NotImplementedError):
-        align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu", mesh=object())
+    sharded = align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu",
+                                  mesh=make_pair_mesh(2, device="cpu"))
+    assert sharded == align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu")
+    cuda_mesh = PairMesh((torch.device("cuda", 0),), 0, 1, 1, 0)
+    with pytest.raises(ValueError, match="mesh on cuda devices"):
+        align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu", mesh=cuda_mesh)
     assert batch.choose_route("cuda", 5000, batch.TB_BYTES_BUDGET // 5000, True) == \
         "checkpointed"
     want = align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu")

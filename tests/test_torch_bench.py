@@ -7,8 +7,8 @@ VMEM is shared memory; ``vmem_utilization`` has no counterpart, as the
 port's DP moves no stream of bytes through shared memory).  The
 ``wprobe`` config holds every tensor it writes against ``x``.  The ``tracks`` workload through the port gives
 the JAX package's results.  The op counter behind ``dp_lane_ops_per_step``
-counts a known function exactly, ``scaling`` and ``ring`` exit non-zero,
-and the default device is the card.
+counts a known function exactly, ``ring`` exits non-zero (``scaling`` now
+runs), and the default device is the card.
 """
 
 import ast
@@ -42,6 +42,7 @@ TINY = {
     "msa": dict(n=5, L=30),
     "preprofile": dict(n=5, L=30),
     "modes": dict(n=6, L=30),
+    "scaling": dict(B=10, L=15, nprof=4, runs=1),
     "wprobe": dict(shape=(4, 256, 256), blocks={"2x128x128": (2, 128, 128)}, hs_bucket=31,
                    hs_batches=(2, 3), reps=1),
 }
@@ -49,7 +50,7 @@ TINY = {
 ROOT_FUNCTION = {"cells": "bench", "utilization": "bench_utilization",
                  "pairwise": "bench_pairwise", "allpairs100": "bench_allpairs100",
                  "tracks": "bench_tracks", "msa": "bench_msa", "preprofile": "bench_msa",
-                 "modes": "bench_modes"}
+                 "modes": "bench_modes", "scaling": "bench_scaling"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -138,13 +139,23 @@ def test_lane_op_counter_counts_a_known_function():
     assert bench.count_step_lane_ops() > 10
 
 
-def test_scaling_and_ring_exit_nonzero(capsys):
-    for name in ("scaling", "ring"):
-        assert bench.main([name, "--device", "cpu"]) == 2
-        assert "dist/ on torch.distributed" in capsys.readouterr().err
+def test_scaling_and_ring_exit_nonzero(capsys, monkeypatch):
+    """``ring`` still exits 2, naming ``dist/ring.py``; ``scaling`` runs on
+    the pair mesh (tiny here) and prints one JSON line."""
+    assert bench.main(["ring", "--device", "cpu"]) == 2
+    assert "dist/ring.py on torch.distributed" in capsys.readouterr().err
     res = subprocess.run([sys.executable, "-m", "praline_tpu_torch.bench", "ring", "--device",
                           "cpu"], cwd=ROOT, capture_output=True, text=True)
-    assert res.returncode == 2 and "dist/" in res.stderr and not res.stdout
+    assert res.returncode == 2 and "dist/ring.py" in res.stderr and not res.stdout
+    monkeypatch.setitem(bench.CONFIGS, "scaling",
+                        functools.partial(bench.bench_scaling, **TINY["scaling"]))
+    assert bench.main(["scaling", "--device", "cpu"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    out = json.loads(line)
+    assert out["metric"] == "scaling_efficiency" and set(out["wallclock_s"]) == {"1", "2", "4", "8"}
+    assert out["parallel_efficiency"] == out["value"] == out["efficiency"]["8"]
+    one = bench.bench_scaling("cpu", **dict(TINY["scaling"], shard_counts=(1,)))
+    assert one["metric"] == "sharded_allpairs_wallclock" and "parallel_efficiency" not in one
 
 
 def test_main_prints_one_json_line(monkeypatch, capsys):

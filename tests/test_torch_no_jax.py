@@ -44,6 +44,8 @@ def test_importing_the_port_leaves_jax_out():
     assert "praline_tpu_torch.kernels.compose" in modules
     assert "praline_tpu_torch.msa.device_merge" in modules
     assert "praline_tpu_torch.util.accuracy" in modules  # the long-routes slice's modules
+    assert {"praline_tpu_torch.msa.homology", "praline_tpu_torch.dist",
+            "praline_tpu_torch.dist.mesh", "praline_tpu_torch.dist.allpairs"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -82,12 +82,24 @@ def test_cli_cpu_run_matches_golden(tmp_path):
     ["--devices", "2"], ["--blast-db", "db"], ["--devices", "2", "--profile-dir", "p"],
     ["--backend", "xla"], ["--backend", "pallas"],
 ])
-def test_cli_refuses_unported_knobs(tmp_path, capsys, flags):
-    """``--profile-dir`` is ported (``tests/test_torch_profiling.py``); it
-    does not lift the refusal of a knob that is not."""
-    rc = main([str(TESTDATA / "family10.fasta"), str(tmp_path / "o.fasta"), *flags])
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_refuses_unported_knobs(tmp_path, capsys, monkeypatch, flags):
+    """Only the JAX package's backends are refused as not ported.
+    ``--devices`` and ``--blast-db`` are ported: on the CPU ``--devices 2``
+    (with ``--profile-dir``, ``tests/test_torch_profiling.py``) gives the
+    golden bytes, and ``--blast-db`` with no ``psiblast`` on PATH fails
+    cleanly (``tests/test_torch_homology.py`` drives a stub)."""
+    monkeypatch.setenv("PATH", str(tmp_path))  # no psiblast
+    flags = [str(tmp_path / f) if f == "p" else f for f in flags]
+    out = tmp_path / "o.fasta"
+    rc = main([str(TESTDATA / "family10.fasta"), str(out), "--device", "cpu", *flags])
+    err = capsys.readouterr().err
+    if flags[0] == "--backend":
+        assert rc == 2 and "not ported" in err
+    elif flags[0] == "--blast-db":
+        assert rc == 2 and "--blast-db" in err and "psiblast" in err
+    else:
+        assert rc == 0
+        assert out.read_text() == (TESTDATA / "family10.default.golden.fasta").read_text()
 
 
 def test_cli_without_a_card_fails_cleanly(tmp_path, capsys, monkeypatch):
@@ -98,12 +110,15 @@ def test_cli_without_a_card_fails_cleanly(tmp_path, capsys, monkeypatch):
 
 
 def test_msa_align_refuses_jax_backends_and_meshes():
+    """The JAX backends are refused; a mesh is not any more: two CPU shards
+    give the golden bytes (``tests/test_torch_dist.py``)."""
     seqs = load_sequence_fasta(TESTDATA / "family10.fasta", ALPHABET_AA)
     m = builtin_score_matrix("blosum62")
     with pytest.raises(ValueError):
         msa_align(seqs, m, PralineConfig(backend="xla"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        msa_align(seqs, m, PralineConfig(mesh_shape=(2,)), device="cpu")
+    aln = msa_align(seqs, m, PralineConfig(mesh_shape=(2,)), device="cpu")
+    assert format_alignment_fasta(aln) == \
+        (TESTDATA / "family10.default.golden.fasta").read_text()
 
 
 def test_msa_align_with_a_mesh_checks_its_input_first(tmp_path):

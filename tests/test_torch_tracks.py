@@ -28,6 +28,7 @@ from praline_tpu.oracle import align_tracksets as jax_oracle
 from praline_tpu.types import Profile as JaxProfile
 from praline_tpu_torch import builtin_score_matrix
 from praline_tpu_torch.convert import profile_from_arrays
+from praline_tpu_torch.dist import make_pair_mesh
 from praline_tpu_torch.kernels import batch, tiled_dp, wavefront
 from praline_tpu_torch.kernels.scores import composite_skewed_scores
 
@@ -184,9 +185,9 @@ def test_validation_and_exactness_errors():
     with pytest.raises(ValueError) as jax_err:
         jax_tracksets(pairs, [jb62, jpam], (1.0, 1.0), (11, 1), "global")
     assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="dist/ on torch.distributed"):
-        batch.align_tracksets_batched([], [b62], (1.0,), (11, 1), "global", device="cpu",
-                                      mesh=object())
+    # a mesh is no longer refused: no pairs give no results on one as without
+    assert batch.align_tracksets_batched([], [b62], (1.0,), (11, 1), "global", device="cpu",
+                                         mesh=make_pair_mesh(2, device="cpu")) == []
 
 
 @pytest.mark.parametrize("traceback", [False, True])
