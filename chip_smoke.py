@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the ten Hopper kernel sources (the score producer's two tiers,
+Builds the eleven Hopper kernel sources (the score producer's two tiers,
 tensor-core and scalar, wavefront DP, fused producer + DP and lane-tiled
-DP on two sources, its checkpointed launches and the in-place composite,
-each on a thread-block cluster a problem, traceback walk, the device
-merge's profile composition, and the benchmark's probes) from
+DP on two sources, its checkpointed launches, the in-place composite and
+the ring's launch, each on a thread-block cluster a problem, traceback
+walk, the device merge's profile composition, and the benchmark's probes)
+from
 ``praline_tpu_torch/csrc`` with nvcc, one process per source, with
 ``-Xptxas -v`` (registers and spills of the producers, the DPs, the probes
 and the composition are printed, and the fused and tiled kernels'
@@ -22,8 +23,9 @@ those shapes, past the two-kernel lane cap (3000x3000), at a long y
 (600x4000), at every cluster size (1 to 8 CTAs) and with lx leaving the
 high ranks idle, the tiled kernel against its plain version at 4 x
 700x600 (every mode, four series of 1, 2, 3 and 15 levels, both score
-sources, scores and traceback, NaN-poisoned, at every cluster size from 1
-to 16 CTAs with 1, 2 or 3 tiles a CTA) and, on one 4600x4400 traceback
+sources, scores and traceback, NaN-poisoned, each cluster size from 1 to
+16 CTAs with 1, 2 or 3 tiles a CTA in every mode at one of the series in
+turn) and, on one 4600x4400 traceback
 problem (at its default and three other geometries) and one 9000x500
 problem in place, against the plain DP; the probes at the benchmark's
 shapes (K7 f32[256, 1024] through 131072 links, into the subnormal range;
@@ -37,8 +39,9 @@ beside the fused kernel at 3000x3000 and 2303x2303 and beside the
 whole-row DP and the fused kernel at buckets 1023 and 2047, K9 beside
 ``torch.full``.  The DP over hs (K2/K4) is held against the plain DP on
 both its geometries (throughput, built for four and for five CTAs an SM,
-and latency) at the three buckets in every
-mode at 1, 2, 3 and 15 gap levels, scores and traceback, NaN-poisoned, and
+and latency) at the three buckets in every mode (at 1, 2, 3 and 15 gap
+levels at 63x127, one series a mode in turn at 1023 and 2047), scores and
+traceback, NaN-poisoned, and
 on problems at the band's edges; ``[dp-times]`` times it on its default
 geometry and six others beside the tiled kernel over the same hs at the
 headline chunk (2945 x 1023), B64 at buckets 1023 and 2047, the tracks
@@ -79,7 +82,9 @@ to the same results.  The long routes (``[long=...]`` lines): at B2 x
 terminals equal the traceback launch's, every block's resumed bytes its
 rows of tb and the block walk's tapes ``replay_moves``'s; the forward
 launch (terminals and snapshot), one resume and one block walk against
-their plain versions; the in-place two-track composite against the tiled
+their plain versions, and at several tiles a CTA at B2 x 3000 x 400 (the
+same lanes, fewer diagonals) every launch against its plain version; the
+in-place two-track composite against the tiled
 kernel over the materialized composite and the plain DP; a titin-length
 pair (34,350 aa) by the full traceback and checkpointed (budget lowered
 in this process, enqueued under ``set_sync_debug_mode("error")``), byte
@@ -104,9 +109,25 @@ both on ``cuda:0``, the kernels already built): msa128 on a mesh across
 both with a shared checkpoint directory, long8's all-pairs stage (the
 tiled route) and the ``tracks`` pairs, each equal to the single-process
 results, only rank 0 writing checkpoints; a rank that fails or hangs past
-its timeout fails the run.  The CLI runs msa128 with ``--profile-dir``, whose trace
+its timeout fails the run.  The ring (``dist/ring.py``): ``[ring=kernel]``
+holds the ring's launch (K6 built with its ring flag,
+``csrc/tiled_ring.cu``) against ``ring_superstep_plain`` bit for bit,
+every output poisoned, in the three modes at 1, 2, 3 and 15 levels, chunks
+of 1, 7, 32 and 200 diagonals, on ranks with and without lane 0 (and the
+pad lane), with the carries in registers, shared memory and the
+device-memory scratch, and times one launch at the titin pair's rank shape
+on five geometries; ``[ring]`` runs ``ring_wavefront_dp`` on a one-shard
+mesh at ``bench.py``'s 1 x 2000 x 1500 (intervals 1, 8, 32, 128, the
+traceback and the checkpointed walk) to K6's ordinary launch's bytes;
+``[ring=two-ranks]`` starts this script twice as ``ring-rank`` (gloo, both
+on ``cuda:0``): the same runs and the titin pair (scores, and the
+checkpointed traceback) across both ranks, equal to the single card's
+(the titin pair's score, terminal and tape to ``[long=titin]``'s), with
+each run's wall clock, exchange and wait seconds, launches and peak
+memory a rank.  The CLI runs msa128 with ``--profile-dir``, whose trace
 must hold ``dispatch:`` spans.  ``python3 chip_smoke.py long-routes``
-runs the build and these phases alone; ``python3 chip_smoke.py
+runs the build and these phases alone, ``python3 chip_smoke.py dist`` the
+pair mesh's, homology's and the ring's; ``python3 chip_smoke.py
 tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
 (for the parent beside this tree in one call).  One more run of each of the
 first five main paths under ``torch.profiler`` gives the device time per
@@ -338,6 +359,7 @@ def phase_build():
                ("walk_kernel", "tiled_ckpt", "source", "hs", TILED_HS_CKPT),
                ("walk_kernel", "tiled_ckpt", "source", "rows", TILED_ROWS_CKPT),
                ("walk_kernel", "tiled_composite", "source", "composite", TILED_COMPOSITE),
+               ("walk_kernel", "tiled_ring", "source", "ring", TILED_RING),
                ("walk_kernel", "wavefront_dp", "min_blocks", 4, DP_WALK.format(n=4, k="{k}")),
                ("walk_kernel", "wavefront_dp", "min_blocks", 5, DP_WALK.format(n=5, k="{k}")),
                ("fused_cluster_kernel", "fused_dp", "tier", "mma", FUSED_MMA),
@@ -375,10 +397,10 @@ def phase_build():
 
 # Mangled names of the DP kernels at k = {k} levels: the fused kernel on
 # either tier, csrc/cluster_walk.cuh's walk_kernel<Src, K, BAND, MAXW, MINB,
-# CKPT> as the tiled kernel (on hs or in place, 512 threads, with the
+# CKPT, RING> as the tiled kernel (on hs or in place, 512 threads, with the
 # checkpointed launches built in or not; walk_kernel_params on the
-# composite) and as the DP over hs (the band on, 128 threads, at least {n}
-# CTAs an SM).
+# composite; the ring's launch on its source) and as the DP over hs (the
+# band on, 128 threads, at least {n} CTAs an SM).
 FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1E"
 FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0E"
 TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb0E"
@@ -386,6 +408,7 @@ TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb0E"
 TILED_HS_CKPT = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_ROWS_CKPT = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_COMPOSITE = r"walk_kernel_paramsI.*CompositeSourceELi{k}ELb0ELi512ELi1ELb1E"
+TILED_RING = r"walk_kernelI.*RingSourceELi{k}ELb0ELi512ELi1ELb0ELb1E"
 DP_WALK = r"walk_kernelI.*HsSourceELi{k}ELb1ELi128ELi{n}E"
 
 
@@ -1151,9 +1174,11 @@ def tiled_vs_plain(source, lx, ly, series, mode, want, what, **geometry) -> floa
 def phase_tiled_vs_plain(dev) -> float:
     """The tiled kernel against its plain version at TILED_SHAPE: every
     mode, TILED_SERIES, both score sources (hs from the producer, and in
-    place), scores and traceback, at each of TILED_GEOMETRIES, each output
-    NaN-poisoned.  The plain version's result does not depend on the
-    geometry, so it runs once a case (256-lane tiles, 32 diagonals a box)."""
+    place), scores and traceback, each output NaN-poisoned; each of
+    TILED_GEOMETRIES in every mode on both sources, at one of the series
+    in turn (a series a mode takes four geometries).  The plain version's
+    result does not depend on the geometry, so it runs once a case (256-lane
+    tiles, 32 diagonals a box)."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
@@ -1165,14 +1190,19 @@ def phase_tiled_vs_plain(dev) -> float:
     rng = np.random.default_rng(SEED + 6)
     B, bx, by, lo = TILED_SHAPE
     err, t0, shapes, carries = 0.0, time.perf_counter(), set(), set()
-    for mode in MODES:
-        for series in TILED_SERIES:
+    for mi, mode in enumerate(MODES):
+        for si, series in enumerate(TILED_SERIES):
             ops = stacked_operands(rng, dev, s, B, bx, by, lo)
             sources = (("hs", fused_skewed_scores(*ops[:5], tier=producer_tier(ops))),
                        ("rows", ops[:5]))
             want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, True,
                                             tile_lanes=256, steps_per_visit=32)
-            for R, W, T in TILED_GEOMETRIES:
+            # geometry gi at series (gi + mi + 1) mod 4 in mode mi: the one
+            # geometry whose carries go to the device-memory scratch (R = 1,
+            # m = 2, 15 levels on hs) falls in local mode
+            turn = [g for gi, g in enumerate(TILED_GEOMETRIES)
+                    if (gi + mi + 1) % len(TILED_SERIES) == si]
+            for R, W, T in turn:
                 for name, source in sources:
                     g = tiled_geometry(bx + 1, len(series), name, ctas=R, tile_lanes=W, steps=T)
                     shapes.add((g.R, g.m, g.W, g.T))
@@ -1188,6 +1218,7 @@ def phase_tiled_vs_plain(dev) -> float:
                              f"store: {sorted(shapes)} {carries}")
     say("tiled=plain", shape=f"B{B}x{bx}x{by}", lanes=bx + 1, modes=",".join(MODES),
         series="|".join(",".join(map(str, g)) for g in TILED_SERIES), sources="hs,rows",
+        geometries="each in every mode at one series in turn",
         R_m_W_T="|".join(",".join(map(str, g)) for g in sorted(shapes)),
         carries=",".join(sorted(carries)), traceback="both",
         result="bit-equal(all outputs, all tb bytes; NaN-poisoned)",
@@ -1375,10 +1406,12 @@ def dp_vs_plain(hs, lx, ly, series, mode, want, what, geometry) -> float:
 
 
 def phase_dp_vs_plain(dev) -> dict:
-    """K2 against the plain DP at KERNEL_SHAPES in every mode, DP_SERIES,
-    scores and traceback, on both geometries (the throughput one built for
-    four and for five CTAs an SM), each output NaN-poisoned; then the band's
-    edges (DP_EDGES) at bucket 1023 in every mode, scores and traceback.
+    """K2 against the plain DP at KERNEL_SHAPES in every mode, scores and
+    traceback, on both geometries (the throughput one built for four and for
+    five CTAs an SM), each output NaN-poisoned: every one of DP_SERIES in
+    every mode at 63x127, one a mode in turn at buckets 1023 and 2047 (the
+    four over the two); then the band's edges (DP_EDGES) at bucket 1023 in
+    every mode, scores and traceback.
     The geometry the batch driver takes for each shape is printed, with the
     cluster occupancy and the registers of each level count."""
     import numpy as np
@@ -1394,8 +1427,12 @@ def phase_dp_vs_plain(dev) -> dict:
     rng = np.random.default_rng(SEED + 11)
     err, t0, seen = 0.0, time.perf_counter(), set()
     for B, bx, by, lo in KERNEL_SHAPES:
-        for mode in MODES:
-            for series in DP_SERIES:
+        for mi, mode in enumerate(MODES):
+            # the plain DP's diagonals dominate: the long buckets take a
+            # series a mode, 1023 from the first and 2047 from the last
+            sweep = DP_SERIES if bx < 1023 else (
+                DP_SERIES[(mi + 3 * (bx > 1023)) % len(DP_SERIES)],)
+            for series in sweep:
                 ops = stacked_operands(rng, dev, s, B, bx, by, lo)
                 hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
                 k = len(series)
@@ -1411,7 +1448,9 @@ def phase_dp_vs_plain(dev) -> dict:
                                                    f"{mode} {series} B{B}x{bx}x{by}", g))
                 del hs, want
         say("dp=plain", shape=f"B{B}x{bx}x{by}", modes=",".join(MODES),
-            series="|".join(",".join(map(str, g)) for g in DP_SERIES), traceback="both",
+            series="|".join(",".join(map(str, g)) for g in DP_SERIES) if bx < 1023 else
+            "one a mode: " + "|".join(",".join(map(str, DP_SERIES[(mi + 3 * (bx > 1023)) % 4]))
+                                      for mi in range(len(MODES))), traceback="both",
             geometries="throughput(min_blocks=4,5),latency(R=3,R=tiles)",
             default_geometry=repr(wavefront.dp_geometry(B, bx + 1, 2, False)),
             default_geometry_traceback=repr(wavefront.dp_geometry(B, bx + 1, 2, True)),
@@ -2066,9 +2105,12 @@ FORCED_TB_BUDGET = 1 << 24  # lowered in this process to force the checkpointed 
 # (gap series, geometry, carries in the scratch) of the checks at several
 # tiles a CTA, as the main paths run (titin m = 5, carries in shared
 # memory; the 75,000-nt pair m = 10, carries in the device-memory scratch):
-# m = 6 at LONG_CHECK's 3001 lanes
+# m = 6 at LONG_CHECK's 3001 lanes, on LONG_MANY_TILES_SHAPE: the same
+# lanes, a short y (the plain checkpointed walk's time goes with the
+# diagonals)
 LONG_MANY_TILES = (((11, 1), dict(ctas=2, tile_lanes=256), False),
                    ((13, 7, 1), dict(ctas=1, tile_lanes=512), True))
+LONG_MANY_TILES_SHAPE = (2, 3000, 400, 300)  # B, bx, by, shortest
 
 
 def mutated(rng, root, alphabet_size, indels=20):
@@ -2253,10 +2295,18 @@ def phase_long_kernels(dev) -> dict:
     # (BLOSUM62 + PAM250, weights 1 and 0.5; local mode), against plain
     t1 = time.perf_counter()
     pam = matrix_to_torch(builtin_score_matrix("pam250"), dev)
-    tracks = [ops[:5], (*ops[:4], pam)]  # the same columns under two matrices
     weights = (1.0, 0.5)
-    comp = tiled_dp.Composite(*[tuple(t[i] for t in tracks) for i in range(5)], weights)
-    comp_hs = composite_skewed_scores(*[[t[i] for t in tracks] for i in range(5)], weights)
+
+    def composite(o):  # the same columns under two matrices
+        tracks = [o[:5], (*o[:4], pam)]
+        return (tiled_dp.Composite(*[tuple(t[i] for t in tracks) for i in range(5)], weights),
+                composite_skewed_scores(*[[t[i] for t in tracks] for i in range(5)], weights))
+
+    mB, mbx, mby, mlo = LONG_MANY_TILES_SHAPE
+    mops = stacked_operands(np.random.default_rng(SEED + 21), dev, s, mB, mbx, mby, mlo)
+    mhs = plain_scores(*mops[:5])
+    mcomp, mcomp_hs = composite(mops)
+    mR = default_ckpt_interval(mbx + mby + 1)
     geometries = []
     for series, geometry, scratch in LONG_MANY_TILES:
         for kind in tiled_dp.SOURCES:
@@ -2266,16 +2316,18 @@ def phase_long_kernels(dev) -> dict:
         geometries.append(f"R{g.R}xm{g.m}xW{g.W}:k{len(series)}:"
                           f"{'scratch' if scratch else 'smem'}")
         for mode in LONG_CHECK_MODES:
-            cases = [(hs, (("hs", hs), ("rows", ops[:5])))]
+            cases = [(mhs, (("hs", mhs), ("rows", mops[:5])))]
             if mode == "local":
-                cases.append((comp_hs, (("composite", comp),)))
+                cases.append((mcomp_hs, (("composite", mcomp),)))
             for scores, sources in cases:
-                plain = plain_checkpointed(scores, lx, ly, series, mode, R0)
+                plain = plain_checkpointed(scores, mops[5], mops[6], series, mode, mR)
                 for name, source in sources:
-                    many_tiles_vs_plain(source, lx, ly, series, mode, R0, plain, geometry,
-                                        f"{mode} {name} {geometry} k={len(series)}")
+                    many_tiles_vs_plain(source, mops[5], mops[6], series, mode, mR, plain,
+                                        geometry, f"{mode} {name} {geometry} k={len(series)}")
                 del plain
-    say("long=many-tiles", shape=f"B{B}x{bx}x{by}", R=R0, geometries=",".join(geometries),
+    del mops, mhs, mcomp, mcomp_hs
+    comp, comp_hs = composite(ops)
+    say("long=many-tiles", shape=f"B{mB}x{mbx}x{mby}", R=mR, geometries=",".join(geometries),
         modes=",".join(LONG_CHECK_MODES), sources="hs,rows,composite(local)",
         result="forward terminals and snapshot, every block's bytes, the block walk's tape and "
                "the traceback launch (terminals, all bytes) bit-equal to plain",
@@ -2448,7 +2500,8 @@ def phase_titin_pair(dev) -> dict:
            "score": float(full["score"][0])}
     say("long=titin", **out, result="score, terminal and tape byte-equal; the checkpointed "
         "route enqueued under sync_debug_mode('error')")
-    return out
+    # what [ring=two-ranks] holds the ring to
+    return out | {"result": terminal_lists(full)}
 
 
 def run_dna_long(dev) -> dict:
@@ -2856,6 +2909,458 @@ def phase_two_ranks(dev, msa_text, long8_seqs, tracks_res, tracks_tb) -> dict:
     return res | {"launches": launches}
 
 
+# ---- the ring: one alignment's lanes over ranks (dist/ring.py) ----
+# [ring=kernel]: B, Lx, Ly, shortest, ranks: 234 lanes a rank (not a multiple
+# of 32), the last rank with one pad lane.
+RING_SHAPE = (2, 700, 600, 500, 3)
+RING_SERIES = ((5,), (11, 1), (13, 7, 1), tuple(range(30, 0, -2)))  # 1, 2, 3, 15 levels
+RING_CHUNKS = (1, 7, 32, 200)
+# m = 1 (carries in registers), m = 2 and m = 8 (carries in shared memory)
+RING_GEOMETRIES = ({}, dict(ctas=2, tile_lanes=64), dict(ctas=1, tile_lanes=32))
+# carries in the device-memory scratch: 751 lanes a rank on one CTA of two
+# 512-lane tiles at 15 levels (B, Lx, Ly, shortest, ranks)
+RING_SCRATCH = (1, 1500, 400, 1400, 2)
+RING_BENCH = (1, 2000, 1500)  # bench.py:669, the JAX package's ring shape
+RING_INTERVALS = (1, 8, 32, 128)
+RING_CKPT = (32, 256)  # interval, ckpt_interval
+# ring launch geometries timed at the titin pair's rank shape (K = 32):
+# (ctas, tile_lanes, steps_per_visit); None: the default (T = 2)
+RING_TIMES = ((None, None, None), (None, None, 32), (None, None, 8), (None, None, 4),
+              (2, 512, 2))
+RING_TIMEOUT_S = 600  # a rank that fails or hangs fails [ring=two-ranks]
+
+
+def ring_bits(t):
+    """A float tensor's bits (NaN-safe equality)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def ring_vs_plain(rows, lx, ly, series, mode, d0, K, carries, heads, cand, geometry,
+                  what) -> None:
+    """The ring launch on ``geometry``, scores and traceback, into
+    NaN-poisoned carries, tails, candidate and 0xAB bytes, held bit for bit
+    against ``ring_superstep_plain`` on the same inputs."""
+    import torch
+
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.scan import edge_values, ring_superstep_plain
+
+    nd = min(K, rows.D - d0)
+    shape_t = (K, edge_values(len(series)), rows.B)
+    want = dict(carries=torch.empty_like(carries), tails=torch.zeros(shape_t, device=lx.device),
+                cand=torch.empty_like(cand),
+                tb=torch.zeros((nd, rows.B, rows.Lpn), dtype=torch.uint8, device=lx.device))
+    ring_superstep_plain(rows, lx, ly, series, mode, True, d0, K, carries, heads,
+                         want["tails"], cand, tb=want["tb"], tb_row0=d0 - 2,
+                         carries_out=want["carries"], cand_out=want["cand"])
+    for traceback in (False, True):
+        got = dict(carries=torch.full_like(carries, float("nan")),
+                   tails=torch.full(shape_t, float("nan"), device=lx.device),
+                   cand=torch.full_like(cand, float("nan")),
+                   tb=torch.full_like(want["tb"], 0xAB))
+        before = tiled_dp.ring_launches
+        tiled_dp.wavefront_dp_tiled_ring(
+            rows, lx, ly, series, mode, traceback, d0, K, carries, heads, got["tails"], cand,
+            tb=got["tb"] if traceback else None, tb_row0=d0 - 2, carries_out=got["carries"],
+            cand_out=got["cand"], **geometry)
+        torch.cuda.synchronize()
+        if tiled_dp.ring_launches != before + 1:
+            raise AssertionError("ring: no launch counted")
+        for key in ("carries", "tails", "cand") + (("tb",) if traceback else ()):
+            g, w = got[key], want[key]
+            if key == "tails":
+                g, w = g[:nd], w[:nd]
+            if not torch.equal(ring_bits(g), ring_bits(w)):
+                raise AssertionError(f"ring {what} traceback={traceback}: {key} differs from "
+                                     "plain")
+
+
+def ring_entry(dev, ops, series, mode, Lp_pad, d0):
+    """Every lane's carries at diagonal d0 - 1 (``f32[B, NS, Lp_pad]``): K6's
+    forward launch snapshots them at the last diagonal 2 + 32 q before d0,
+    the plain ring walks the rest; the pad lanes start at d = 1 as the
+    ring's do."""
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.scan import (
+        edge_values, ring_candidate, ring_carries, ring_rows, ring_superstep_plain,
+    )
+    import torch
+
+    cx, ivx, cy, ivy, s, lx, ly = ops
+    whole = ring_rows(cx, ivx, cy, ivy, s, 0, Lp_pad)
+    carries = ring_carries(whole, series, mode)
+    q = (d0 - 2) // 32
+    if q:
+        _, snap = tiled_dp.wavefront_dp_tiled_forward(ops[:5], lx, ly, series, mode, 32 * q)
+        carries[:, :, :cx.shape[1] + 1] = snap[1]
+    ds = 2 + 32 * q
+    if d0 > ds:
+        tails = torch.empty((d0 - ds, edge_values(len(series)), cx.shape[0]), device=dev)
+        ring_superstep_plain(whole, lx, ly, series, mode, False, ds, d0 - ds, carries, None,
+                             tails, ring_candidate(lx, ly, series, mode).to(dev))
+    return carries
+
+
+def ring_case(dev, ops, series, mode, n, p, K, d0, geometry, what) -> None:
+    """The ring launch of rank p of n at chunk d0 .. d0 + K - 1, from the
+    true DP state (:func:`ring_entry`), its heads from the plain ring on
+    the lanes before it, against the plain version (:func:`ring_vs_plain`)."""
+    import torch
+
+    from praline_tpu_torch.kernels.scan import (
+        edge_values, ring_candidate, ring_rows, ring_superstep_plain,
+    )
+
+    cx, ivx, cy, ivy, s, lx, ly = ops
+    Lpn = -(-(cx.shape[1] + 1) // n)
+    entry = ring_entry(dev, ops, series, mode, Lpn * n, d0)
+    base = p * Lpn
+    cand = ring_candidate(lx, ly, series, mode).to(dev)
+    heads = None
+    if base:
+        left = ring_rows(cx, ivx, cy, ivy, s, 0, base)
+        heads = torch.zeros((K, edge_values(len(series)), cx.shape[0]), device=dev)
+        ring_superstep_plain(left, lx, ly, series, mode, False, d0, K,
+                             entry[:, :, :base].contiguous(), None, heads, cand.clone())
+    rows = ring_rows(cx, ivx, cy, ivy, s, base, Lpn)
+    ring_vs_plain(rows, lx, ly, series, mode, d0, K, entry[:, :, base:base + Lpn].contiguous(),
+                  heads, cand, geometry, what)
+
+
+def cells_in_lanes(lx, ly, d0, d1, i0, i1) -> float:
+    """Cells 1 <= i <= lx, 1 <= j <= ly with d0 <= i + j <= d1 and i0 <= i
+    <= i1, summed over the problems."""
+    import numpy as np
+
+    total = 0.0
+    for a, b in zip(lx.tolist(), ly.tolist()):
+        i = np.arange(max(1, i0), min(a, i1) + 1)
+        lo, hi = np.maximum(d0 - i, 1), np.minimum(d1 - i, b)
+        total += float(np.clip(hi - lo + 1, 0, None).sum())
+    return total
+
+
+def phase_ring_kernel(dev, usage=None) -> dict:
+    """``[ring=kernel]``: the ring launch against ``ring_superstep_plain``
+    on the card, bit for bit, every output poisoned (:func:`ring_case`): at
+    RING_SHAPE over three ranks every mode at 1, 2, 3 and 15 gap levels,
+    each at one of RING_CHUNKS, on rank 0, 1 or 2 (base 0, 234, 468: the
+    pad lane) and one of RING_GEOMETRIES, the chunk on the rank's border
+    diagonal or its last cells; at RING_SCRATCH the carries in the
+    device-memory scratch on both ranks.  Then one launch timed at the
+    titin pair's rank shape (K = 32) on RING_TIMES, beside the plain
+    version and its bound."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import ALPHABET_AA, builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.scan import (
+        edge_values, ring_candidate, ring_carries, ring_rows, ring_superstep_plain,
+    )
+
+    t0 = time.perf_counter()
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 23)
+    B, bx, by, lo, n = RING_SHAPE
+    Lpn = -(-(bx + 1) // n)
+    cases, shapes = [], set()
+    for mi, mode in enumerate(MODES):
+        for si, series in enumerate(RING_SERIES):
+            ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+            K, p = RING_CHUNKS[(mi + si) % 4], (mi + 2 * si) % n
+            geometry = RING_GEOMETRIES[(mi + si) % 3]
+            lx0, ly0 = int(ops[5][0]), int(ops[6][0])
+            # the rank's border diagonal, or the last cells of problem 0
+            target = p * Lpn + Lpn // 2 if (mi + si) % 2 else lx0 + ly0
+            d0 = max(2, min(target - K // 2, bx + by - 1))
+            g = tiled_dp.tiled_geometry(Lpn, len(series), "rows", steps=tiled_dp.ring_steps(K),
+                                        **{k: v for k, v in geometry.items()})
+            shapes.add((g.R, g.m, g.W, g.T, "scratch" if g.carry_scratch else
+                        "smem" if g.m > 1 else "registers"))
+            what = f"{mode} {series} K={K} rank {p}/{n} d0={d0} {geometry}"
+            ring_case(dev, ops, series, mode, n, p, K, d0, geometry, what)
+            cases.append(f"{mode}:k{len(series)}:K{K}:r{p}:d{d0}")
+    B, bx, by, lo, n = RING_SCRATCH
+    ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+    series, geometry = RING_SERIES[3], dict(ctas=1, tile_lanes=512)
+    for p, mode in ((0, "global"), (1, "local")):
+        g = tiled_dp.tiled_geometry(-(-(bx + 1) // n), 15, "rows", steps=32, **geometry)
+        if not g.carry_scratch:
+            raise AssertionError(f"ring: {g} keeps its carries in shared memory")
+        shapes.add((g.R, g.m, g.W, g.T, "scratch"))
+        ring_case(dev, ops, series, mode, n, p, 32, 1000, geometry,
+                  f"{mode} k15 rank {p}/{n} scratch")
+        cases.append(f"{mode}:k15:K32:r{p}:d1000:scratch")
+    if {c for *_, c in shapes} != {"registers", "smem", "scratch"}:
+        raise AssertionError(f"ring=kernel missed a carry store: {sorted(shapes)}")
+    say("ring=kernel", shape=f"B{RING_SHAPE[0]}x{RING_SHAPE[1]}x{RING_SHAPE[2]}",
+        ranks=RING_SHAPE[4], lanes_a_rank=Lpn, cases=",".join(cases),
+        R_m_W_T_carries="|".join(",".join(map(str, g)) for g in sorted(shapes)),
+        result="carries, tails, candidate and tb bytes bit-equal to ring_superstep_plain "
+               "(scores and traceback; NaN-poisoned)", seconds=round(time.perf_counter() - t0, 3))
+
+    # one launch at the titin pair's rank shape: rank 1 of 2, K = 32, mid-walk
+    t1 = time.perf_counter()
+    x, y = long_pair(SEED + 22, TITIN_LENGTH, ALPHABET_AA)
+    cx, ivx, cy, ivy, lx, ly = stack_pair(dev, x, y, ALPHABET_AA)
+    Lpn = -(-(cx.shape[1] + 1) // 2)
+    rows = ring_rows(cx, ivx, cy, ivy, s, Lpn, Lpn)
+    series, mode, K = (11, 1), "global", 32
+    d0 = Lpn + cy.shape[1] // 2
+    carries = ring_carries(rows, series, mode)
+    nx = edge_values(2)
+    heads = torch.zeros((K, nx, 1), device=dev)
+    tails = torch.empty_like(heads)
+    cand = ring_candidate(lx, ly, series, mode).to(dev)
+    outs = dict(carries_out=torch.empty_like(carries), cand_out=torch.empty_like(cand))
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(ring_superstep_plain(
+        rows, lx, ly, series, mode, False, d0, K, carries, heads, tails, cand, **outs)), 1,
+        warm_up=False)
+    times = {}
+    for ctas, lanes, steps in RING_TIMES:
+        kw = dict(ctas=ctas, tile_lanes=lanes, steps_per_visit=steps)
+        g = tiled_dp.tiled_geometry(Lpn, 2, "rows", ctas=ctas, tile_lanes=lanes,
+                                    steps=steps or tiled_dp.ring_steps(K))
+        ring_vs_plain(rows, lx, ly, series, mode, d0, K, carries, heads, cand, kw,
+                      f"titin rank R={g.R} m={g.m} W={g.W} T={g.T}")
+        times[f"R{g.R}_m{g.m}_W{g.W}_T{g.T}"] = cuda_ms(
+            lambda: tiled_dp.wavefront_dp_tiled_ring(rows, lx, ly, series, mode, False, d0, K,
+                                                     carries, heads, tails, cand, **outs, **kw),
+            10)
+    g = tiled_dp.tiled_geometry(Lpn, 2, "rows", steps=tiled_dp.ring_steps(K))
+    default = f"R{g.R}_m{g.m}_W{g.W}_T{g.T}"
+    A = s.shape[0]
+    cells = cells_in_lanes(lx, ly, d0, d0 + K - 1, Lpn, 2 * Lpn - 1)
+    y_cols = min(K + Lpn, cy.shape[1])  # the y columns the chunk reads
+    nbytes_ = (Lpn + y_cols) * (A + 1) * 4 + A * A * 4 + 2 * nbytes(carries) + \
+        2 * nbytes(heads) + 2 * nbytes(cand)
+    out = {"ms": times[default], "plain_ms": plain_ms,
+           **bound(nbytes_, cells * (2 * A + 2 + DP_OPS_PER_CELL)),
+           "shape": f"rank 1 of 2 of B1x{cx.shape[1]}x{cy.shape[1]} (Lpn {Lpn}), K={K} at "
+                    f"d0={d0}, global, scores",
+           "geometry": default, "variants": times}
+    if usage is not None:
+        out["registers"] = {f"k{k}": "{}regs/{}B-spill-stores/{}B-spill-loads".format(
+            *kernel_usage(usage, TILED_RING.format(k=k))) for k in (1, 2, 3, 15)}
+    say("ring=kernel-times", **{k: (round(v, 4) if isinstance(v, float) else v)
+                               for k, v in out.items() if k != "variants"},
+        **{f"{k}_ms": round(v, 4) for k, v in times.items()},
+        seconds=round(time.perf_counter() - t1, 3))
+    return out
+
+
+def ring_operands(dev):
+    """RING_BENCH's operands (``bench.ring_workload``, the root's), on
+    ``dev``."""
+    import torch
+
+    from praline_tpu_torch.bench import ring_workload
+
+    return [torch.from_numpy(a).to(dev) for a in ring_workload(*RING_BENCH)]
+
+
+def terminal_lists(out) -> dict:
+    """A result's terminals (and move count and tape digest) as lists."""
+    import hashlib
+
+    res = {k: out[k].cpu().tolist() for k in ("score", "length", "ti", "tj", "tcode")}
+    if "moves" in out:
+        n = int(out["nmoves"][0])
+        res["nmoves"] = out["nmoves"].cpu().tolist()
+        res["moves"] = hashlib.sha256(out["moves"][0, :n].cpu().numpy().tobytes()).hexdigest()
+    return res
+
+
+def phase_ring(dev) -> tuple[dict, dict]:
+    """``[ring]``: ``ring_wavefront_dp`` in this process on a one-shard mesh
+    on the card at RING_BENCH, scores at each of RING_INTERVALS and with
+    traceback at the default interval, equal to K6's ordinary launch (rows
+    source: terminals, every tb byte); the checkpointed ring (RING_CKPT)
+    equal to ``replay_moves`` over that launch's bytes.  Returns the
+    single-card results that ``[ring=two-ranks]`` compares against, and the
+    ring path's launch counts (the reference launches come before the
+    counted run)."""
+    import torch
+
+    from praline_tpu_torch.dist import make_pair_mesh, ring_wavefront_dp
+    from praline_tpu_torch.kernels.replay import replay_moves
+    from praline_tpu_torch.kernels.tiled_dp import wavefront_dp_tiled
+
+    t0 = time.perf_counter()
+    ops = ring_operands(dev)
+    lx, ly = ops[5], ops[6]
+    full = wavefront_dp_tiled(ops[:5], lx, ly, (11, 1), "global", True)
+    D = full["tb"].shape[0] + 2
+    moves, nmv = replay_moves(full["tb"], full["ti"], full["tj"], full["tcode"], (11, 1),
+                              "global", D - 1)
+    want = terminal_lists(full) | {"nmoves": nmv.cpu().tolist()}
+    want_ckpt = terminal_lists({**full, "moves": moves, "nmoves": nmv})
+    mesh = make_pair_mesh(1, device="cuda")
+    if mesh.devices != (dev,):
+        raise AssertionError(f"make_pair_mesh(1) drives {mesh.devices}, not {dev}")
+    walls = {}
+
+    def run():
+        got = {}
+        for iv in RING_INTERVALS:
+            t = time.perf_counter()
+            got[iv] = ring_wavefront_dp(mesh, *ops, interval=iv)
+            walls[f"interval_{iv}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        got["tb"] = ring_wavefront_dp(mesh, *ops, traceback=True)
+        walls["traceback"] = time.perf_counter() - t
+        t = time.perf_counter()
+        got["ckpt"] = ring_wavefront_dp(mesh, *ops, interval=RING_CKPT[0], traceback=True,
+                                        ckpt_interval=RING_CKPT[1])
+        walls["ckpt"] = time.perf_counter() - t
+        return got
+
+    got, counts = counted("ring", run)
+    scores = {k: v for k, v in want.items() if k != "nmoves"}
+    for iv in RING_INTERVALS:
+        if terminal_lists(got[iv]) != scores:
+            raise AssertionError(f"ring: interval {iv} differs from K6's launch")
+    if terminal_lists(got["tb"]) != scores or not torch.equal(got["tb"]["tb"], full["tb"].cpu()):
+        raise AssertionError("ring: the traceback differs from K6's launch")
+    if terminal_lists(got["ckpt"]) != want_ckpt:
+        raise AssertionError("ring: the checkpointed tape differs from replay_moves over K6's")
+    B, bx, by = RING_BENCH
+    say("ring", shape=f"B{B}x{bx}x{by}", shards=1, device=str(dev),
+        intervals=",".join(map(str, RING_INTERVALS)), ckpt=f"{RING_CKPT[0]}/{RING_CKPT[1]}",
+        result="terminals and every tb byte equal to K6's ordinary launch; checkpointed tape "
+               "equal to replay_moves", **{f"{k}_s": round(v, 4) for k, v in walls.items()},
+        launches=counts["ring"], seconds=round(time.perf_counter() - t0, 3))
+    return {"bench": scores, "bench_ckpt": want_ckpt, "walls_s": walls}, counts
+
+
+def ring_rank(argv) -> int:
+    """``ring-rank RANK PORT DIR``: one of the two ranks of
+    ``[ring=two-ranks]`` (gloo, both on ``cuda:0``): the ring across both at
+    RING_BENCH (scores at RING_INTERVALS, then RING_CKPT checkpointed) and
+    on the titin pair (global scores, then the checkpointed traceback at the
+    default interval); the terminals and tape digests, wall clocks, the
+    exchange's seconds (the ``ring:exchange`` spans, and the ``ring:wait``
+    spans inside them: the launches before the host copy), peak memory and the
+    launch counts (set to 0 just before each run, read just after) go to
+    DIR/rank{RANK}.json."""
+    rank, port, out_dir = int(argv[0]), int(argv[1]), Path(argv[2])
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from praline_tpu_torch import ALPHABET_AA, METRICS, builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.dist import (
+        initialize_distributed, make_pair_mesh, ring_wavefront_dp, shutdown_distributed,
+    )
+    from praline_tpu_torch.kernels.scan import default_ckpt_interval
+
+    initialize_distributed(f"localhost:{port}", 2, rank, timeout_s=TWO_RANKS_COLLECTIVE_S)
+    try:
+        mesh = make_pair_mesh(device="cuda")
+        dev = torch.device("cuda", 0)
+        if mesh.shards != 2 or mesh.devices != (dev,):
+            raise AssertionError(f"rank {rank}: mesh {mesh}")
+        out = {"launches": {}, "walls_s": {}, "exchange_s": {}, "wait_s": {}, "peak_bytes": {}}
+
+        def run(name, fn):
+            METRICS.reset()
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = fn()
+            out["walls_s"][name] = time.perf_counter() - t
+            out["launches"][name] = read_launches()
+            out["exchange_s"][name] = METRICS.stage("ring:exchange").seconds
+            out["wait_s"][name] = METRICS.stage("ring:wait").seconds
+            out["peak_bytes"][name] = torch.cuda.max_memory_allocated()
+            out[name] = terminal_lists(res)
+
+        ops = ring_operands(dev)
+        for iv in RING_INTERVALS:
+            run(f"bench_{iv}", lambda: ring_wavefront_dp(mesh, *ops, interval=iv))
+        run("bench_ckpt", lambda: ring_wavefront_dp(mesh, *ops, interval=RING_CKPT[0],
+                                                    traceback=True, ckpt_interval=RING_CKPT[1]))
+        x, y = long_pair(SEED + 22, TITIN_LENGTH, ALPHABET_AA)
+        titin = (*stack_pair(dev, x, y, ALPHABET_AA),)
+        cx, ivx, cy, ivy, lx, ly = titin
+        s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+        args = (cx, ivx, cy, ivy, s, lx, ly)
+        R = default_ckpt_interval(cx.shape[1] + cy.shape[1] + 1)
+        run("titin_scores", lambda: ring_wavefront_dp(mesh, *args))
+        run("titin_ckpt", lambda: ring_wavefront_dp(mesh, *args, traceback=True,
+                                                    ckpt_interval=R))
+        out["titin_ckpt_interval"] = R
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def phase_ring_two_ranks(dev, single, titin) -> dict:
+    """``[ring=two-ranks]``: this script twice as ``ring-rank`` (two gloo
+    processes on ``cuda:0``, the kernels built by this process before they
+    start), each with a timeout; every rank's exit code is checked and both
+    ranks' results must equal the single card's: RING_BENCH's terminals at
+    every interval and its checkpointed tape (``[ring]``'s ``single``), the
+    titin pair's score, terminal and tape (``[long=titin]``'s ``titin``).
+    Each run's launches, both ranks' summed, are checked (``[launches]
+    path=two-ranks-ring``) and returned under ``launches``."""
+    import shutil
+    import socket
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="praline_ring_"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "ring-rank",
+                               str(rank), str(port), str(tmp)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RING_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"ring=two-ranks: rank {rank} exited {p.returncode}:\n"
+                                 f"{log[-3000:]}")
+    outs = [json.loads((tmp / f"rank{rank}.json").read_text()) for rank in (0, 1)]
+    shutil.rmtree(tmp)
+    want = {f"bench_{iv}": single["bench"] for iv in RING_INTERVALS}
+    want["bench_ckpt"] = single["bench_ckpt"]
+    want["titin_scores"] = {k: v for k, v in titin.items() if k not in ("nmoves", "moves")}
+    want["titin_ckpt"] = titin
+    for rank, out in enumerate(outs):
+        for key, w in want.items():
+            if out[key] != w:
+                raise AssertionError(f"ring=two-ranks: rank {rank}'s {key} {out[key]} differs "
+                                     f"from the single card's {w}")
+    launches = {k: sum(o["launches"][run][k] for o in outs for run in want) for k in KERNELS}
+    check_launches("two-ranks-ring", launches)
+    res = {"wall_s": wall, **{f"{k}_a_rank": [o[k] for o in outs]
+                              for k in ("walls_s", "exchange_s", "wait_s", "peak_bytes")},
+           "titin_ckpt_interval": outs[0]["titin_ckpt_interval"],
+           "launches_a_run": {run: [o["launches"][run]["ring"] for o in outs] for run in want}}
+    say("ring=two-ranks", ranks=2, device=f"{dev} both", backend="gloo",
+        results="bench terminals (intervals " + ",".join(map(str, RING_INTERVALS)) +
+                ") and checkpointed tape, titin score, terminal and tape equal to one card",
+        **{k: json.dumps(v) for k, v in res.items()})
+    return res | {"launches": launches}
+
+
 PSIBLAST_STUB = """#!/bin/sh
 query=""
 while [ $# -gt 0 ]; do
@@ -3034,7 +3539,7 @@ def phase_profile(name, fn):
 
 KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "tiled",
            "walk", "compose", "alu_chains", "smem_chain", "write_blocks", "tiled_forward",
-           "tiled_resume", "tiled_composite", "walk_block")
+           "tiled_resume", "tiled_composite", "walk_block", "ring")
 # The launches of the long routes, which only the long paths make.
 LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block")
 # The kernels each main path must launch, and the only ones of the tiled,
@@ -3066,7 +3571,10 @@ PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fu
                 # [two-ranks]: both ranks' launches, summed
                 "two-ranks-msa128": ("scores_mma", "dp", "walk"),
                 "two-ranks-long8": ("scores_mma", "tiled"),
-                "two-ranks-tracks": ("scores_mma", "dp", "walk")}
+                "two-ranks-tracks": ("scores_mma", "dp", "walk"),
+                # the ring (dist/ring.py): [ring] in one process, [ring=two-ranks]
+                # both ranks' launches summed; the checkpointed runs walk blocks
+                "ring": ("ring", "walk_block"), "two-ranks-ring": ("ring", "walk_block")}
 
 
 def reset_launches() -> None:
@@ -3094,7 +3602,7 @@ def read_launches() -> dict:
             | {"tiled_forward": tiled_dp.forward_launches,
                "tiled_resume": tiled_dp.resume_launches,
                "tiled_composite": tiled_dp.composite_launches,
-               "walk_block": replay.block_launches})
+               "walk_block": replay.block_launches, "ring": tiled_dp.ring_launches})
 
 
 def check_launches(name: str, counts: dict) -> None:
@@ -3115,6 +3623,8 @@ def check_launches(name: str, counts: dict) -> None:
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
     if any(counts[k] for k in LONG_KERNELS if k not in allowed):
         raise AssertionError(f"{name}: a path within the budgets took a long route")
+    if counts["ring"] and "ring" not in allowed:
+        raise AssertionError(f"{name}: a path without a ring launched the ring's kernel")
 
 
 def counted(name, phase):
@@ -3185,9 +3695,10 @@ def tree_only(argv) -> int:
 
 
 def dist_only() -> int:
-    """``dist``: the build and the phases of the pair mesh and homology
-    alone (``[mesh]``, ``[homology]``, ``[two-ranks]``, with the msa128,
-    long8 and ``tracks`` runs they compare against)."""
+    """``dist``: the build and the phases of the pair mesh, homology and the
+    ring alone (``[mesh]``, ``[homology]``, ``[two-ranks]``, with the msa128,
+    long8 and ``tracks`` runs they compare against; ``[ring=kernel]``,
+    ``[ring]``, ``[long=titin]`` and ``[ring=two-ranks]``)."""
     smi = phase_environment()
     from praline_tpu_torch.device import resolve_device
 
@@ -3208,6 +3719,10 @@ def dist_only() -> int:
     homology, _ = counted("homology", lambda: phase_homology(dev, msa_seqs))
     homology_scalar_vs_plain(homology.pop("scalar_ops"))
     phase_two_ranks(dev, mesh_out["msa_text"], long8_family(), tracks_res, tracks_tb)
+    phase_ring_kernel(dev)
+    ring_single, _ = phase_ring(dev)
+    titin = phase_titin_pair(dev)
+    phase_ring_two_ranks(dev, ring_single, titin["result"])
     print(smi)
     return 0
 
@@ -3215,6 +3730,8 @@ def dist_only() -> int:
 def main() -> int:
     if sys.argv[1:2] == ["two-ranks-rank"]:
         return two_ranks_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["ring-rank"]:
+        return ring_rank(sys.argv[2:])
     if sys.argv[1:2] == ["dist"]:
         return dist_only()
     if sys.argv[1:2] in (["dp-times"], ["tiled-times"]):
@@ -3241,6 +3758,8 @@ def main() -> int:
     phase_goldens(dev)
     long_kernels = phase_long_kernels(dev)
     titin = phase_titin_pair(dev)
+    titin_result = titin.pop("result")
+    ring_kernel = phase_ring_kernel(dev, usage)
     probe_times = phase_probes_vs_plain(dev)
     matrix, pairs, cells = headline_pairs()
     all_pairs_run = all_pairs_runner(dev, matrix, pairs)
@@ -3270,6 +3789,7 @@ def main() -> int:
     tracks_long, c10 = counted("tracks-long", lambda: run_tracks_long(dev))
     mesh_out, c11 = counted("mesh", lambda: phase_mesh(dev, matrix, pairs, msa_seqs))
     homology, c12 = counted("homology", lambda: phase_homology(dev, msa_seqs))
+    ring_single, c13 = phase_ring(dev)
     # ---- end of the main paths; [two-ranks] counts its own, in each rank ----
     scalar_err = homology_scalar_vs_plain(homology.pop("scalar_ops"))
     for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
@@ -3278,8 +3798,9 @@ def main() -> int:
                                  f"for {n} chunks of two tracks")
     check_tracks(dev, track_pairs, track_mats, track_w, tracks_res, tracks_tb)
     two_ranks = phase_two_ranks(dev, mesh_out["msa_text"], long8_seqs, tracks_res, tracks_tb)
-    paths = (c1, c2, c3, c4, c5, c6, c7, c8, c9, c10, c11, c12,
-             *two_ranks.pop("launches").values())
+    ring_two = phase_ring_two_ranks(dev, ring_single, titin_result)
+    paths = (c1, c2, c3, c4, c5, c6, c7, c8, c9, c10, c11, c12, c13,
+             *two_ranks.pop("launches").values(), ring_two.pop("launches"))
     launches = {k: sum(c[k] for c in paths) for k in KERNELS}
     check_all_pairs(dev, matrix, pairs, res)
     say_all_pairs("two_kernel", cells, walls, gcs, sampled_vs_plain="64/64 bit-equal")
@@ -3414,10 +3935,22 @@ def main() -> int:
             "launches": launches[key], "max_abs_err": t.get("err", 0.0), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"]})
+    kernels.append({
+        "name": "wavefront_dp_tiled_ring", "route": "cuda",
+        "source": "praline_tpu_torch/csrc/tiled_ring.cu",
+        "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the "
+                    "superstep of praline_tpu/kernels/scan.py:668-731 (the ring of "
+                    "praline_tpu/dist/ring.py:147)",
+        "launches": launches["ring"], "max_abs_err": 0.0, "ms": ring_kernel["ms"],
+        "plain_ms": ring_kernel["plain_ms"], "bound_ms": ring_kernel["bound_ms"],
+        "bound_by": ring_kernel["bound_by"], "library_ms": None, "shape": ring_kernel["shape"],
+        "geometry": ring_kernel["geometry"], "variants": ring_kernel["variants"],
+        "registers": ring_kernel["registers"]})
     say("long-routes", titin=json.dumps(titin), paths=json.dumps(long_res),
         tracks_long=json.dumps(tracks_long), cli_profile=json.dumps(cli_profile))
     say("dist", mesh=json.dumps({k: v for k, v in mesh_out.items() if k != "msa_text"}),
-        two_ranks=json.dumps(two_ranks), homology=json.dumps(homology))
+        two_ranks=json.dumps(two_ranks), homology=json.dumps(homology),
+        ring=json.dumps(ring_single["walls_s"]), ring_two_ranks=json.dumps(ring_two))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,17 @@
 // carries, exported before each step as in any box), walks the block's
 // diagonals only, writes their bytes into a block buffer and picks no
 // terminal.
+//
+// The ring's launch (K6 only, walk_kernel built with RING, RingLaunch;
+// csrc/tiled_ring.cu, dist/ring.py): one rank's block of Lp lanes, global
+// lanes base .., walks one chunk of diagonals d0 .. d1.  Every lane loads
+// its carries at the first box and stores them after the last; lane
+// indices for the borders, the scores and the terminals are global (i =
+// base + the storage lane); CTA rank 0's first lane takes its left
+// neighbour before each step from the left rank's values (heads), and the
+// rank's last lane hands its own before each step to the right rank
+// (tails); the terminal candidate is read from and written back to the
+// rank's buffer (out's fields), so a rank holds it across launches.
 
 #pragma once
 
@@ -138,6 +149,31 @@ struct Snapshots {
   float cum0 = 0.0f;
 };
 
+// One ring launch (RING): the rank's first global lane; the chunk d0 .. d1
+// with cum0 the border run cost of diagonal d0 - 1; carries f32[B, NS, Lp]
+// in (carry_in) and out (carry_out, which may be carry_in); heads and tails
+// f32[d1 - d0 + 1, NX, B], value v of step s of problem b at (s NX + v) B
+// + b (heads nullptr on the rank of lane 0); the candidate f32[5, B] in
+// and out (cand_in, cand_out, which may be one buffer; out's fields are
+// cand_out's rows); with traceback, out.tb's row r is diagonal 2 + tb_row0
+// + r.
+struct RingLaunch {
+  int base = 0, d0 = 2, d1 = 2, tb_row0 = 0;
+  float cum0 = 0.0f;
+  const float* carry_in = nullptr;
+  float* carry_out = nullptr;
+  const float* heads = nullptr;
+  float* tails = nullptr;
+  const float* cand_in = nullptr;
+  float* cand_out = nullptr;
+};
+
+// The candidate of problem b in a ring's f32[5, B] buffer.
+__device__ __forceinline__ Cand read_candidate(const float* c, int b, int B) {
+  return {c[b], c[B + b], __float_as_int(c[2 * B + b]), __float_as_int(c[3 * B + b]),
+          __float_as_int(c[4 * B + b])};
+}
+
 // Where the band flag is on (BAND, csrc/wavefront_dp.cu), scores mode runs
 // only the visits that hold a cell of the problem's band 0 <= j <= ly
 // (rows past lane_end are never walked).  A visit of box d0 .. d1 on the
@@ -154,12 +190,14 @@ struct Snapshots {
 // their lengths and the stay bits); so a tile's carries may stay at their
 // d = 1 values until its first visit in the band, and values past j = ly
 // flow only to larger j.  Traceback mode walks every lane of every box.
-template <int K, bool TILES, bool BAND = false, bool CKPT = false, class Visits>
+template <int K, bool TILES, bool BAND = false, bool CKPT = false, bool RING = false,
+          class Visits>
 __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const WalkSmem& sm,
                                              const WalkShape& w, const Problem& p,
                                              const Gaps& gaps, const Outs& out, int dend,
                                              int lane_end, const CarryStore& store,
-                                             Visits& visits, const Snapshots ck = Snapshots()) {
+                                             Visits& visits, const Snapshots ck = Snapshots(),
+                                             const RingLaunch rl = RingLaunch()) {
   using C = Carries<K, 1>;
   constexpr int NX = C::NX;
   const int W = w.W, T = w.T, R = w.R, m = TILES ? w.m : 1;
@@ -168,18 +206,25 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
   const int tile0 = r * m;
   // tiles of this CTA with a lane to compute (uniform over the CTA)
   const int tiles = max(0, min(m, lane_end / W + 1 - tile0));
-  const int nbox = (dend - 2) / T + 1;
+  // the global index of storage lane 0 and the first diagonal of box 0
+  const int gbase = RING ? rl.base : 0, dbase = RING ? rl.d0 : 2;
+  const int nbox = (dend - dbase) / T + 1;
   const bool resume = CKPT && ck.snap && ck.resume >= 0;
   const int kfirst = resume ? ck.resume * ck.every : 0;  // the first box walked
   // lane carries of snapshot q (this problem's rows)
   auto snap_at = [&](int q) { return ck.snap + ((size_t)q * p.B + p.b) * C::NS * p.Lp; };
+  // a ring lane's carries at the chunk's entry (past the rank's lanes: d = 1's)
+  auto ring_load = [&](C& c, int li, int i) {
+    if (li < p.Lp) c.load(0, rl.carry_in + (size_t)p.b * C::NS * p.Lp, p.Lp, li);
+    else c.init(0, i, p.mode, gaps.g[0]);
+  };
   const bool band = BAND && !p.traceback;
   float* next_ring = r + 1 < R ? cluster.map_shared_rank(sm.ring, r + 1) : nullptr;
   // The steps first .. last of visit (box kb, tile jj), and whether it runs:
   // with the band, whether a step of it holds a cell of the band (the step
   // past the band alone is no visit).
   auto steps_of = [&](int kb, int jj, int& first, int& last) {
-    const int d0 = 2 + kb * T, d1 = min(d0 + T - 1, dend);
+    const int d0 = dbase + kb * T, d1 = min(d0 + T - 1, dend);
     const int i0 = (tile0 + jj) * W, ie = min(i0 + W - 1, lane_end);
     first = d0;
     last = d1;
@@ -210,32 +255,37 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
 
   C c;
   if (!TILES || m == 1) {
-    const int i = tile0 * W + t;
-    if (resume && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
+    const int li = tile0 * W + t, i = li + gbase;
+    if (RING) ring_load(c, li, i);
+    else if (resume && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
     else c.init(0, i, p.mode, gaps.g[0]);
   }
-  Cand best = first_candidate<K>(p.mode, tile0 == 0 && t == 0, p.lx, p.ly);
+  // the ring's diagonal-1 candidates are in the rank's buffer already
+  Cand best = first_candidate<K>(p.mode, !RING && tile0 == 0 && t == 0, p.lx, p.ly);
   Border<K> box_border(gaps);  // the border run at diagonal d0 - 1
   if (resume) box_border.cum = ck.cum0;
+  if (RING) box_border.cum = rl.cum0;
   cluster.sync();  // every CTA of the cluster runs before any writes another's ring
 
   for (int ph = 0; ph < nbox - kfirst + R - 1; ++ph) {
     const int k = kfirst + ph - r;
     if (tiles > 0 && k >= kfirst && k < nbox) {  // uniform over the CTA
-      const int d0 = 2 + k * T, d1 = min(d0 + T - 1, dend);
+      const int d0 = dbase + k * T, d1 = min(d0 + T - 1, dend);
       Border<K> border = box_border;
       for (int jj = 0; jj < tiles; ++jj) {
-        const int i0 = (tile0 + jj) * W, i = i0 + t;
+        // storage lane li, global lane i
+        const int i0 = (tile0 + jj) * W, li = i0 + t, i = li + gbase;
         border = box_border;
-        const int ci = store.global ? i : jj * W + t;
+        const int ci = store.global ? li : jj * W + t;
         int first, last;
         const bool runs = steps_of(k, jj, first, last);
         float* right = jj + 1 < tiles ? sm.edge
                        : (jj == m - 1 && next_ring ? next_ring + (k & 1) * T * NX : nullptr);
         if (TILES && m > 1 && (runs || t == W - 1)) {
           // a tile's first visit in the band starts from its d = 1 carries
-          if (resume && k == kfirst && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
-          else if (k == kfirst || (band && d0 <= i0) || (store.global && i >= p.Lp))
+          if (RING && k == kfirst) ring_load(c, li, i);
+          else if (resume && k == kfirst && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
+          else if (k == kfirst || (band && d0 <= i0) || (store.global && li >= p.Lp))
             c.init(0, i, p.mode, gaps.g[0]);
           else c.load(0, store.base, store.stride, ci);
         }
@@ -248,6 +298,10 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
           continue;
         }
         const float* left = jj > 0 ? sm.edge : (r > 0 ? sm.ring + (k & 1) * T * NX : nullptr);
+        // the ring's first lane: the left rank's values before each step
+        const float* head = RING && jj == 0 && r == 0 && rl.heads
+                                ? rl.heads + (size_t)(d0 - dbase) * NX * p.B + p.b
+                                : nullptr;
         int nk = k, nj = jj + 1;
         if (band) {
           next_visit(k, jj, nk, nj);
@@ -255,7 +309,7 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
           nk = k + 1 < nbox ? k + 1 : -1;
           nj = 0;
         }
-        const int nd0 = nk < 0 ? -1 : 2 + nk * T;
+        const int nd0 = nk < 0 ? -1 : dbase + nk * T;
         const int ni0 = (tile0 + nj) * W;
         const auto score = visits.prepare(d0, i0, nd0, ni0);
         for (int d = d0; d <= last; ++d) {
@@ -269,6 +323,10 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
 #pragma unroll
             for (int v = 0; v < NX; ++v) sh[v] = left[s * NX + v];
           }
+          if (RING && t == 0 && head) {
+#pragma unroll
+            for (int v = 0; v < NX; ++v) sh[v] = head[((size_t)s * NX + v) * p.B];
+          }
           __syncthreads();
           // this lane's values before step s, for the next tile's first lane
           if (t == W - 1 && right) c.export_x(0, right + s * NX);
@@ -278,12 +336,21 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
             for (int v = 0; v < NX; ++v) sh[v] = x[v];
           }
           if (i == 0) C::border_x(sh);
-          if (i <= lane_end) c.step(0, i, d, sh, border.cum, score, gaps, p, out, best);
+          if (RING && rl.tails && li == p.Lp - 1) {  // the rank's last lane, for the right rank
+            float x[NX];
+            c.export_x(0, x);
+            float* tail = rl.tails + (size_t)(d - dbase) * NX * p.B + p.b;
+#pragma unroll
+            for (int v = 0; v < NX; ++v) tail[(size_t)v * p.B] = x[v];
+          }
+          if (li <= lane_end) c.step(0, i, d, sh, border.cum, score, gaps, p, out, best);
         }
         // the loop above stepped diagonals first .. last
         if (out.slots && t == 0) atomicAdd(out.slots, (unsigned long long)(last - first + 1) * W);
-        if (TILES && m > 1 && (!store.global || i < p.Lp))
+        if (TILES && m > 1 && (!store.global || li < p.Lp))
           c.store(0, store.base, store.stride, ci);
+        if (RING && k == nbox - 1 && li < p.Lp)  // the carries at the chunk's last diagonal
+          c.store(0, rl.carry_out + (size_t)p.b * C::NS * p.Lp, p.Lp, li);
         if (jj + 1 < tiles) __syncthreads();  // the next visit reuses edge and xbuf
       }
       if constexpr (BAND) {
@@ -306,9 +373,19 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
         const Cand o = *cluster.map_shared_rank(sm.red + nw, q);
         if (beats(o, pick, local)) pick = o;
       }
+      if (RING) {  // the rank's candidate from the chunks before
+        const Cand prev = read_candidate(rl.cand_in, p.b, p.B);
+        if (beats(prev, pick, local)) pick = prev;
+      }
       write_terminal(pick, p.b, out);
     }
     cluster.sync();  // no CTA leaves while rank 0 reads its candidate
+  } else if (RING && r == 0 && t == 0) {
+    // global: the step at (lx, ly) wrote the terminal where this launch
+    // holds it; else the candidate passes on
+    const int dt = p.lx + p.ly;
+    if (!(dt >= dbase && dt <= dend && p.lx >= gbase && p.lx < gbase + p.Lp))
+      write_terminal(read_candidate(rl.cand_in, p.b, p.B), p.b, out);
   }
 }
 
@@ -403,11 +480,14 @@ inline bool walk_snapshots(WalkArgs* a, float* snap, int interval, int block, fl
 // One problem a cluster, its scores from Src: Src::HS (the hs source's
 // boxes hbuf in shared memory), src.visits(a, b, dend, hbuf) the visit
 // functor of problem b.  CKPT (never with BAND) builds the checkpointed
-// launches in; without it none of their code is there, so the ordinary
+// launches in, RING (with neither) the ring's launch (src.ring, a
+// RingLaunch; a.Lp the rank's lanes, a.out.tb its uint8[rows, B, Lp]
+// bytes); without them none of their code is there, so the ordinary
 // launches run the walk as it was.
-template <class Src, int K, bool BAND, bool CKPT>
+template <class Src, int K, bool BAND, bool CKPT, bool RING = false>
 __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) {
   static_assert(!(BAND && CKPT), "the band and the checkpoints exclude each other");
+  static_assert(!(RING && (BAND || CKPT)), "the ring's launch takes neither");
   using C = Carries<K, 1>;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -436,6 +516,21 @@ __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) 
       }
     }
   }
+  RingLaunch rl;
+  if constexpr (RING) {  // the chunk, every lane of the rank, global lanes
+    rl = src.ring;
+    dend = rl.d1;
+    lane_end = Lp - 1;
+    float* cand = rl.cand_out;
+    out.score = cand;
+    out.length = cand + a.B;
+    out.ti = reinterpret_cast<int*>(cand + 2 * a.B);
+    out.tj = reinterpret_cast<int*>(cand + 3 * a.B);
+    out.tcode = reinterpret_cast<int*>(cand + 4 * a.B);
+    // the step writes global lane i of diagonal d at row d - 2 (stride Lp):
+    // the buffer's row d - 2 - tb_row0, storage lane i - base
+    if (a.traceback) out.tb -= (size_t)rl.tb_row0 * a.B * Lp + rl.base;
+  }
   const CarryStore store =
       L.carry >= 0
           ? CarryStore{reinterpret_cast<float*>(smem + L.carry), a.m * a.W, false}
@@ -445,15 +540,15 @@ __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) 
                        reinterpret_cast<float*>(smem + L.edge),
                        reinterpret_cast<Cand*>(smem + L.red)};
   auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.hbuf));
-  cluster_walk<K, true, BAND, CKPT>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p, a.gaps,
-                                    out, dend, lane_end, store, visits, ck);
+  cluster_walk<K, true, BAND, CKPT, RING>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p,
+                                          a.gaps, out, dend, lane_end, store, visits, ck, rl);
 }
 
 // walk_problem as a kernel, built for CTAs of at most MAXW threads, at
 // least MINB of them an SM (the launch bound).
-template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false>
+template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false, bool RING = false>
 __global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
-  walk_problem<Src, K, BAND, CKPT>(a, src);
+  walk_problem<Src, K, BAND, CKPT, RING>(a, src);
 }
 
 // The same for a source that its functor reads in place from the kernel's
@@ -469,12 +564,12 @@ __global__ void __launch_bounds__(MAXW, MINB)
 // clusters != nullptr, asks how many clusters of this shape fit on the
 // card at once: cudaOccupancyMaxActiveClusters).
 template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false,
-          bool PARAMS = false>
+          bool PARAMS = false, bool RING = false>
 int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
   const int smem = walk_layout(K, Src::HS, a.W, a.m, a.T, a.budget).total;
   auto kern = [] {
     if constexpr (PARAMS) return walk_kernel_params<Src, K, BAND, MAXW, MINB, CKPT>;
-    else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT>;
+    else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT, RING>;
   }();
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

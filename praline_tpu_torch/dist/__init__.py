@@ -1,5 +1,6 @@
-"""Distribution on ``torch.distributed``: pair meshes and pair-space
-sharding (the counterpart of ``praline_tpu/dist/``, less ``ring.py``)."""
+"""Distribution on ``torch.distributed``: pair meshes, pair-space sharding
+and the ring-parallel single alignment (the counterpart of
+``praline_tpu/dist/``)."""
 
 from .allpairs import sharded_wavefront_dp
 from .mesh import (
@@ -12,6 +13,7 @@ from .mesh import (
     shutdown_distributed,
     single_device_mesh,
 )
+from .ring import ring_wavefront_dp
 
 __all__ = [
     "PAIR_AXIS",
@@ -19,6 +21,7 @@ __all__ = [
     "initialize_distributed",
     "make_pair_mesh",
     "process_index",
+    "ring_wavefront_dp",
     "shard_bounds",
     "sharded_wavefront_dp",
     "shutdown_distributed",

@@ -143,6 +143,12 @@ def load_library() -> ctypes.CDLL:
                                                    p]
         lib.praline_tiled_dp_clusters.restype = i
         lib.praline_tiled_dp_clusters.argtypes = [i, i, i, i, i, i, p]
+        lib.praline_tiled_ring.restype = i
+        lib.praline_tiled_ring.argtypes = [*[p] * 7, *[i] * 11, f, *[i] * 4, *[p] * 8, i, i, p]
+        lib.praline_tiled_ring_prep.restype = i
+        lib.praline_tiled_ring_prep.argtypes = [*[p] * 5, *[i] * 4, p]
+        lib.praline_tiled_ring_clusters.restype = i
+        lib.praline_tiled_ring_clusters.argtypes = [*[i] * 5, p]
         lib.praline_tiled_composite_clusters.restype = i
         lib.praline_tiled_composite_clusters.argtypes = [i, i, i, i, i, p]
         lib.praline_tiled_dp_smem.restype = i

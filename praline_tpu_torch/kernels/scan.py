@@ -33,6 +33,8 @@ or compare, in the JAX package's order, so results are bit-identical.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -513,3 +515,193 @@ def wavefront_dp_checkpointed(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1
     out["moves"] = moves
     out["nmoves"] = state[5].clone()
     return out
+
+
+# ---- one superstep of the ring (dist/ring.py) ----------------------------------
+
+
+def edge_values(k: int) -> int:
+    """f32 values one lane hands to the next at ``k`` gap levels
+    (``csrc/wavefront.cuh`` ``Carries::NX``; k = 2 collapses to one level)."""
+    return 6 + 2 * (1 if k == 2 else k)
+
+
+def pack_edge(e) -> torch.Tensor:
+    """:func:`edge_of`'s values as ``f32[NX, B]`` in ``Carries::export_x``'s
+    order (codes and the stay bit as the bits of their int32): M, best(d-2)
+    value, length and code, M length, x stay, the Ix levels and their
+    lengths."""
+    def bits(t):
+        return t.to(torch.int32).view(torch.float32)
+
+    return torch.stack([e["m1"], e["r2v"], e["r2l"], bits(e["r2c"]), e["lm1"], bits(e["psx"]),
+                        *e["ix1"], *e["lix1"]])
+
+
+def unpack_edge(rec: Recurrence, x: torch.Tensor):
+    """The edge dict of :func:`pack_edge`'s ``f32[NX, B]``."""
+    kc = rec.kc
+    rows = [x[v].contiguous() for v in range(x.shape[0])]
+    return dict(m1=rows[0], r2v=rows[1], r2l=rows[2], r2c=rows[3].view(torch.int32),
+                lm1=rows[4], psx=rows[5].view(torch.int32), ix1=rows[6:6 + kc],
+                lix1=rows[6 + kc:6 + 2 * kc])
+
+
+CANDIDATE = ("score", "length", "ti", "tj", "tcode")
+
+
+def pack_candidate(t) -> torch.Tensor:
+    """A terminal dict (:meth:`Terminals.result`) as one ``f32[5, B]``: score,
+    length, then ti, tj and tcode as the bits of their int32 (the ring's
+    per-rank candidate, ``csrc/tiled_ring.cu``)."""
+    return torch.stack([t["score"], t["length"],
+                        *(t[k].to(torch.int32).view(torch.float32) for k in CANDIDATE[2:])])
+
+
+def unpack_candidate(c: torch.Tensor):
+    """The terminal dict of :func:`pack_candidate`'s ``f32[5, B]``."""
+    rows = [c[v].contiguous() for v in range(5)]
+    return {"score": rows[0], "length": rows[1], "ti": rows[2].view(torch.int32),
+            "tj": rows[3].view(torch.int32), "tcode": rows[4].view(torch.int32)}
+
+
+@dataclasses.dataclass
+class RingRows:
+    """One rank's lanes of a ring's rows source: global lanes ``base ..
+    base + Lpn - 1`` of a problem batch with ``Lx`` x columns.  ``cx`` and
+    ``inv_x`` are lane-indexed: row l holds the x column of global lane base
+    + l (x position base + l - 1), zero counts and inverse 1 at lane 0 and
+    past Lx (the pad lanes of the last ranks), so those lanes score +0 as
+    in the JAX package's padded layout; ``cy``, ``inv_y`` and ``s`` are
+    whole.  ``scratch`` holds what the card's launches prepare once (the
+    prep kernel's T and Cy rows)."""
+
+    cx: torch.Tensor  # f32[B, Lpn, A]
+    inv_x: torch.Tensor  # f32[B, Lpn]
+    cy: torch.Tensor  # f32[B, Ly, A]
+    inv_y: torch.Tensor  # f32[B, Ly]
+    s: torch.Tensor  # f32[A, A]
+    base: int
+    Lx: int
+    scratch: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def B(self) -> int:
+        return self.cx.shape[0]
+
+    @property
+    def Lpn(self) -> int:
+        return self.cx.shape[1]
+
+    @property
+    def Ly(self) -> int:
+        return self.cy.shape[1]
+
+    @property
+    def D(self) -> int:
+        return self.Lx + self.Ly + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.cx.device
+
+
+def ring_rows(cx, inv_x, cy, inv_y, s, base: int, Lpn: int, device=None) -> RingRows:
+    """The :class:`RingRows` of the rank whose lanes start at ``base``, from
+    the whole operands (``cx f32[B, Lx, A]`` ..., as the rows source
+    takes them), on ``device`` (default: the operands')."""
+    dev = cx.device if device is None else torch.device(device)
+    B, Lx, A = cx.shape
+    lanes_cx = torch.zeros((B, Lpn, A), dtype=torch.float32, device=dev)
+    lanes_iv = torch.ones((B, Lpn), dtype=torch.float32, device=dev)
+    lo, hi = max(base, 1), min(base + Lpn - 1, Lx)  # the lanes with an x column
+    if lo <= hi:
+        lanes_cx[:, lo - base:hi - base + 1] = cx[:, lo - 1:hi].to(dev, torch.float32)
+        lanes_iv[:, lo - base:hi - base + 1] = inv_x[:, lo - 1:hi].to(dev, torch.float32)
+
+    def whole(t):
+        return t.to(dev, torch.float32).contiguous()
+
+    return RingRows(lanes_cx, lanes_iv, whole(cy), whole(inv_y), whole(s), base, Lx)
+
+
+def ring_scores(rows: RingRows, d0: int, nd: int) -> torch.Tensor:
+    """The skewed scores ``f32[nd, B, Lpn]`` of diagonals d0 .. d0 + nd - 1
+    on the rank's lanes, as the rows source produces them: ``T = Cx @ S``
+    on the rank's lanes, then ``h = T[i-1] . Cy[j-1]`` (integers below
+    2**24, so exact in any order; +0 where it is zero) and ``(h * inv_x) *
+    inv_y``; +0 outside the cells, bit for bit ``skewed_pair_scores``'s
+    rows."""
+    dev = rows.device
+    t = rows.scratch.get("T")
+    if t is None:
+        t = rows.scratch["T"] = torch.matmul(rows.cx, rows.s)
+    lane = rows.base + torch.arange(rows.Lpn, device=dev)
+    d = d0 + torch.arange(nd, device=dev)
+    j = d[:, None] - lane[None, :] - 1
+    valid = (lane[None, :] >= 1) & (j >= 0) & (j < rows.Ly)
+    jc = j.clamp(0, rows.Ly - 1)
+    h = (t[:, None] * rows.cy[:, jc]).sum(-1) + 0.0  # (B, nd, Lpn)
+    h = (h * rows.inv_x[:, None]) * rows.inv_y[:, jc]
+    return torch.where(valid, h, 0.0).permute(1, 0, 2)
+
+
+def ring_carries(rows: RingRows, gap_series, mode) -> torch.Tensor:
+    """The rank's carries at d = 1, packed (:func:`pack_carries`)."""
+    rec = Recurrence(gap_series, mode, True, rows.D)
+    lane = rows.base + torch.arange(rows.Lpn, device=rows.device, dtype=torch.int32)[None, :]
+    return pack_carries(carries_d1(rec, lane, rows.B))
+
+
+def ring_candidate(lx, ly, gap_series, mode) -> torch.Tensor:
+    """A rank's candidate before the first diagonal (:func:`pack_candidate`
+    of :class:`Terminals`' start: semiglobal's diagonal-1 border cells)."""
+    rec = Recurrence(gap_series, mode, False, 2)
+    return pack_candidate(Terminals(rec, lx.to(torch.int32), ly.to(torch.int32)).result())
+
+
+def ring_superstep_plain(rows: RingRows, lx, ly, gap_series, mode, traceback, d0: int, K: int,
+                         carries, heads, tails, cand, *, tb=None, tb_row0: int = 0,
+                         carries_out=None, cand_out=None):
+    """One superstep of the ring on one rank: diagonals d0 .. min(d0 + K -
+    1, D - 1) (a chunk; ``praline_tpu/kernels/scan.py:699-731``) on the
+    rank's lanes, the plain version of ``csrc/tiled_ring.cu``.
+
+    ``carries f32[B, NS, Lpn]`` are the lanes' carries at d0 - 1
+    (:func:`pack_carries`'s order, the stay bits of a collapsed series
+    tracked in every mode, as the card does); ``heads f32[K, NX, B]`` the
+    left rank's values before each step s (:func:`pack_edge` of its last
+    lane), None on the rank with lane 0; ``cand f32[5, B]`` the rank's
+    terminal candidate (:func:`pack_candidate`).  Writes the carries at
+    the chunk's last diagonal into ``carries_out`` (default: in place),
+    ``tails[s]`` (this rank's last lane before step s), the candidate with
+    the chunk's cells into ``cand_out`` (default: in place; the modes'
+    rules of :class:`Terminals` on global lanes) and, where ``tb`` is
+    given, each diagonal d's bytes at ``tb[d - 2 - tb_row0]``."""
+    D, base = rows.D, rows.base
+    d1 = min(d0 + K - 1, D - 1)
+    if not 2 <= d0 <= d1:
+        raise ValueError(f"chunk at diagonal {d0} is outside 2 .. {D - 1}")
+    if (heads is None) != (base == 0):
+        raise ValueError("the heads come from the left rank: none on lane 0's rank, "
+                         "required on the others")
+    rec = Recurrence(gap_series, mode, True, D)
+    dev = rows.device
+    lx = lx.to(dev, torch.int32)
+    ly = ly.to(dev, torch.int32)
+    c = unpack_carries(rec, carries)
+    lane = base + torch.arange(rows.Lpn, device=dev, dtype=torch.int32)[None, :]
+    term = Terminals(rec, lx, ly)
+    prev = unpack_candidate(cand)
+    term.tval, term.tlen, term.ti, term.tj, term.tcode = (prev[k] for k in CANDIDATE)
+    hs = ring_scores(rows, d0, d1 - d0 + 1)
+    for d in range(d0, d1 + 1):
+        s = d - d0
+        tails[s] = pack_edge(edge_of(c))
+        left = None if heads is None else unpack_edge(rec, heads[s])
+        c, cell = diagonal_step(rec, c, left, d, base, hs[s])
+        term.add(d, base, lane, cell)
+        if tb is not None and traceback:
+            tb[d - 2 - tb_row0] = cell["bits"]
+    (carries if carries_out is None else carries_out).copy_(pack_carries(c))
+    (cand if cand_out is None else cand_out).copy_(pack_candidate(term.result()))

@@ -59,18 +59,19 @@ from .fused_dp import (
     padded_alphabet, round16,
 )
 from .scan import (
-    MODES, Recurrence, Terminals, _gap_prefix, carries_d1, diagonal_step, edge_of,
-    forward_snapshots, resume_block,
+    MODES, Recurrence, RingRows, Terminals, _gap_prefix, carries_d1, diagonal_step, edge_of,
+    edge_values, forward_snapshots, resume_block, ring_superstep_plain,
 )
 from .scores import composite_skewed_scores, skewed_pair_scores, track_weight
 
 # Kernel launches (not by the plain paths): by wavefront_dp_tiled on the hs
-# and rows sources and on the composite source, and the checkpointed
-# forward and resume launches (any source).
+# and rows sources and on the composite source, the checkpointed forward
+# and resume launches (any source), and the ring's superstep launches.
 launches = 0
 forward_launches = 0
 resume_launches = 0
 composite_launches = 0
+ring_launches = 0
 
 MAX_TILE_LANES = 512  # W at most: lanes (= threads) of a CTA (csrc/tiled_dp.cu MAX_W)
 # R at most: the H100's non-portable cluster size (csrc/tiled_dp.cu MAX_R),
@@ -88,8 +89,8 @@ MAX_TRACKS = 8  # tracks of a composite on the card (csrc/tiled_composite.cu)
 
 
 def reset_launches() -> None:
-    global launches, forward_launches, resume_launches, composite_launches
-    launches = forward_launches = resume_launches = composite_launches = 0
+    global launches, forward_launches, resume_launches, composite_launches, ring_launches
+    launches = forward_launches = resume_launches = composite_launches = ring_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,7 +340,8 @@ def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
     """Clusters of this geometry the card holds at once
     (``cudaOccupancyMaxActiveClusters``) for the ordinary launches or, with
     ``ckpt``, the checkpointed ones (``csrc/tiled_ckpt.cu``; the composite
-    source has one kernel for both), asked once per shape."""
+    source has one kernel for both; source "ring": the ring's launch,
+    ``csrc/tiled_ring.cu``), asked once per shape."""
     g = geometry
     key = (k, source, g.R, g.m, g.W, g.T, ckpt)
     n = _clusters.get(key)
@@ -348,6 +350,8 @@ def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
         lib = build.load_library()
         if source == "composite":
             rc = lib.praline_tiled_composite_clusters(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
+        elif source == "ring":
+            rc = lib.praline_tiled_ring_clusters(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
         else:
             query = lib.praline_tiled_ckpt_clusters if ckpt else lib.praline_tiled_dp_clusters
             rc = query(k, int(source == "hs"), g.W, g.R, g.m, g.T, ctypes.byref(got))
@@ -569,3 +573,128 @@ def wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, interval, block,
             dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit))
     resume_launches += 1
     return out
+
+
+# ---- the ring's superstep launch (dist/ring.py) --------------------------------
+
+
+# T at most in a ring launch's default geometry.  A launch walks one chunk,
+# so its cluster fills every superstep: (K / T + R - 1) m T steps in
+# sequence, and a smaller box cuts the fill for one cluster barrier more a
+# box.  At the titin pair's rank shape (17,216 lanes, R = 15, m = 3, K = 32)
+# one launch took 1.88-1.90 ms at T = 32, 0.65-0.66 at 8, 0.47 at 4 and
+# 0.40-0.46 at 2, T = 2 the fastest in each of three runs on an H100 80GB
+# HBM3 at 700 W (chip_smoke.py's [ring=kernel-times]; PERF.md, Findings).
+RING_MAX_STEPS = 2
+
+
+def ring_steps(K: int) -> int:
+    """The box depth T of a ring launch of K diagonals: the largest divisor
+    of K up to :data:`RING_MAX_STEPS`, so that every box of a chunk is
+    whole."""
+    return max(t for t in range(1, RING_MAX_STEPS + 1) if K % t == 0)
+
+
+def _check_ring(rows: RingRows, lx, ly, gap_series, d0, K, carries, heads, tails, cand, tb,
+                tb_row0, carries_out, cand_out) -> int:
+    """Raise unless the ring launch's tensors are the contiguous f32 / int32
+    / u8 tensors of their shapes on the rows' device; the chunk's last
+    diagonal."""
+    dev, B, Lpn, D = rows.device, rows.B, rows.Lpn, rows.D
+    k = len(gap_series)
+    d1 = min(d0 + K - 1, D - 1)
+    if K < 1 or not 2 <= d0 <= d1:
+        raise ValueError(f"a chunk of {K} diagonals at {d0} is outside 2 .. {D - 1}")
+    if (heads is None) != (rows.base == 0):
+        raise ValueError("heads are required on every rank but lane 0's, and refused there")
+
+    def want(t, name, shape, dtype=torch.float32):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)} tensor on {dev}")
+
+    for name, t in (("carries", carries), ("carries_out", carries_out)):
+        if t is not None:
+            want(t, name, (B, carry_values(k), Lpn))
+    for name, t in (("heads", heads), ("tails", tails)):
+        if t is not None:
+            want(t, name, (K, edge_values(k), B))
+    for name, t in (("cand", cand), ("cand_out", cand_out)):
+        if t is not None:
+            want(t, name, (5, B))
+    for name, t in (("lx", lx), ("ly", ly)):
+        want(t, name, (B,), torch.int32)
+    if tb is not None:
+        if tb.device != dev or tb.dtype != torch.uint8 or tb.dim() != 3 \
+                or tuple(tb.shape[1:]) != (B, Lpn) or not tb.is_contiguous():
+            raise ValueError(f"tb must be a contiguous uint8[rows, {B}, {Lpn}] tensor on {dev}")
+        if not (0 <= d0 - 2 - tb_row0 and d1 - 2 - tb_row0 < tb.shape[0]):
+            raise ValueError(f"tb's rows from diagonal {2 + tb_row0} miss {d0} .. {d1}")
+    return d1
+
+
+def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback, d0: int,
+                            K: int, carries, heads, tails, cand, *, tb=None, tb_row0: int = 0,
+                            carries_out=None, cand_out=None, tile_lanes=None, ctas=None,
+                            steps_per_visit=None):
+    """One superstep of the ring on one rank (``dist/ring.py``): diagonals
+    d0 .. min(d0 + K - 1, D - 1) on the rank's lanes ``rows`` (a
+    :class:`~.scan.RingRows`), the contract of
+    :func:`~.scan.ring_superstep_plain` (carries, heads, tails, candidate
+    and the chunk's bytes, in place unless ``carries_out`` / ``cand_out`` are
+    given).  CPU tensors take the plain version; CUDA tensors launch the
+    tiled kernel built with its ring flag (``csrc/tiled_ring.cu``) on the
+    cluster of :func:`tiled_geometry` for Lpn lanes (``tile_lanes``,
+    ``ctas``; ``steps_per_visit`` T default :func:`ring_steps`), or raise
+    where the card cannot hold one cluster of it."""
+    d1 = _check_ring(rows, lx, ly, gap_series, d0, K, carries, heads, tails, cand, tb, tb_row0,
+                     carries_out, cand_out)
+    if rows.device.type == "cpu":
+        ring_superstep_plain(rows, lx, ly, gap_series, mode, traceback, d0, K, carries, heads,
+                             tails, cand, tb=tb, tb_row0=tb_row0, carries_out=carries_out,
+                             cand_out=cand_out)
+        return
+    global ring_launches
+    k = check_series(gap_series, mode)
+    if traceback and tb is None:
+        raise ValueError("a traceback launch writes into tb")
+    dev, B, Lpn = rows.device, rows.B, rows.Lpn
+    g = tiled_geometry(Lpn, k, "rows", ctas=ctas, tile_lanes=tile_lanes,
+                       steps=steps_per_visit or ring_steps(K))
+    check_geometry(g, Lpn)
+    if Lpn < 2:
+        raise ValueError(f"a ring launch takes at least 2 lanes a rank, got {Lpn}")
+    if max_active_clusters(k, "ring", g) < 1:
+        raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} threads "
+                           f"and {g.smem_bytes} B of shared memory at k={k} for the ring")
+    lib = build.load_library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    A = rows.s.shape[0]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if "t" not in rows.scratch:  # the prep kernel's rows, once a rank
+            AP = padded_alphabet(A)
+            rows.scratch["t"] = torch.empty((B, Lpn, AP), **f32)
+            rows.scratch["cyp"] = torch.empty((B, rows.Ly, AP), **f32)
+            rc = lib.praline_tiled_ring_prep(
+                rows.cx.data_ptr(), rows.cy.data_ptr(), rows.s.data_ptr(),
+                rows.scratch["t"].data_ptr(), rows.scratch["cyp"].data_ptr(), B, Lpn, rows.Ly, A,
+                stream)
+            build.check(rc, "praline_tiled_ring_prep")
+        scratch = torch.empty((B, carry_values(k), Lpn), **f32) if g.carry_scratch else None
+        gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
+        cum0 = float(_gap_prefix(tuple(gap_series), d0 - 1)[d0 - 1])
+        rc = lib.praline_tiled_ring(
+            rows.scratch["t"].data_ptr(), rows.scratch["cyp"].data_ptr(), rows.inv_x.data_ptr(),
+            rows.inv_y.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            gaps.ctypes.data_as(ctypes.c_void_p), k, MODES.index(mode), int(traceback),
+            B, rows.Lx, rows.Ly, padded_alphabet(A), Lpn, rows.base, d0, d1, cum0,
+            g.W, g.R, g.m, g.T,
+            carries.data_ptr(), (carries if carries_out is None else carries_out).data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            heads.data_ptr() if heads is not None else None, tails.data_ptr(),
+            cand.data_ptr(), (cand if cand_out is None else cand_out).data_ptr(),
+            tb.data_ptr() if traceback else None, tb.shape[0] if traceback else 0, tb_row0,
+            stream)
+    build.check(rc, "praline_tiled_ring")
+    ring_launches += 1

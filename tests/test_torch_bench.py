@@ -7,8 +7,8 @@ VMEM is shared memory; ``vmem_utilization`` has no counterpart, as the
 port's DP moves no stream of bytes through shared memory).  The
 ``wprobe`` config holds every tensor it writes against ``x``.  The ``tracks`` workload through the port gives
 the JAX package's results.  The op counter behind ``dp_lane_ops_per_step``
-counts a known function exactly, ``ring`` exits non-zero (``scaling`` now
-runs), and the default device is the card.
+counts a known function exactly, ``ring`` and ``scaling`` run through
+``main`` and print one line, and the default device is the card.
 """
 
 import ast
@@ -43,6 +43,7 @@ TINY = {
     "preprofile": dict(n=5, L=30),
     "modes": dict(n=6, L=30),
     "scaling": dict(B=10, L=15, nprof=4, runs=1),
+    "ring": dict(Lx=40, Ly=30, intervals=(1, 8), ckpt=(8, 16), runs=1),
     "wprobe": dict(shape=(4, 256, 256), blocks={"2x128x128": (2, 128, 128)}, hs_bucket=31,
                    hs_batches=(2, 3), reps=1),
 }
@@ -50,7 +51,7 @@ TINY = {
 ROOT_FUNCTION = {"cells": "bench", "utilization": "bench_utilization",
                  "pairwise": "bench_pairwise", "allpairs100": "bench_allpairs100",
                  "tracks": "bench_tracks", "msa": "bench_msa", "preprofile": "bench_msa",
-                 "modes": "bench_modes", "scaling": "bench_scaling"}
+                 "modes": "bench_modes", "scaling": "bench_scaling", "ring": "bench_ring"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -140,13 +141,23 @@ def test_lane_op_counter_counts_a_known_function():
 
 
 def test_scaling_and_ring_exit_nonzero(capsys, monkeypatch):
-    """``ring`` still exits 2, naming ``dist/ring.py``; ``scaling`` runs on
+    """``ring`` (``dist/ring.py``, ported) runs through ``main`` on 8 CPU
+    shards at TINY's size and prints one JSON line with the root
+    ``bench_ring``'s keys, from a fresh interpreter too; ``scaling`` runs on
     the pair mesh (tiny here) and prints one JSON line."""
-    assert bench.main(["ring", "--device", "cpu"]) == 2
-    assert "dist/ring.py on torch.distributed" in capsys.readouterr().err
-    res = subprocess.run([sys.executable, "-m", "praline_tpu_torch.bench", "ring", "--device",
-                          "cpu"], cwd=ROOT, capture_output=True, text=True)
-    assert res.returncode == 2 and "dist/ring.py" in res.stderr and not res.stdout
+    monkeypatch.setitem(bench.CONFIGS, "ring", functools.partial(bench.bench_ring, **TINY["ring"]))
+    assert bench.main(["ring", "--device", "cpu"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    out = json.loads(line)
+    assert root_keys()["bench_ring"] <= set(out) and out["shards"] == 8 and out["ranks"] == 1
+    assert set(out["wallclock_s"]) == {"interval_1", "interval_8"}
+    assert out["ckpt_traceback_moves"] >= TINY["ring"]["Lx"] and out["device"] == "cpu"
+    code = ("import sys, functools; from praline_tpu_torch import bench; "
+            f"bench.CONFIGS['ring'] = functools.partial(bench.bench_ring, **{TINY['ring']!r}); "
+            "sys.exit(bench.main(['ring', '--device', 'cpu']))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout)["metric"] == "ring_superstep_speedup"
     monkeypatch.setitem(bench.CONFIGS, "scaling",
                         functools.partial(bench.bench_scaling, **TINY["scaling"]))
     assert bench.main(["scaling", "--device", "cpu"]) == 0

@@ -737,3 +737,85 @@ def test_checkpointed_route_cuda_equals_cpu(cuda, monkeypatch, mode):
     for g, e in zip(got, want):
         assert g.score == e.score
         assert np.array_equal(g.cols_x, e.cols_x) and np.array_equal(g.cols_y, e.cols_y)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("interval", [1, 7, 32])
+@pytest.mark.parametrize("geometry", [{}, dict(ctas=1, tile_lanes=32)])
+def test_ring_launch_matches_plain(cuda, mode, interval, geometry):
+    """A ring of two ranks on the card (``kernels/tiled_dp.py::
+    wavefront_dp_tiled_ring``, one tile a CTA or four with the carries in
+    shared memory): every launch, into NaN-poisoned carries, tails and
+    candidate and 0xAB bytes, equals ``ring_superstep_plain`` on the same
+    inputs, and the ring's terminals and bytes equal the plain full-row
+    DP's."""
+    from praline_tpu_torch.dist.ring import merge_candidates
+    from praline_tpu_torch.kernels.scan import (
+        edge_values, ring_candidate, ring_carries, ring_rows, ring_superstep_plain,
+    )
+
+    cx, ivx, cy, ivy, s, lx, ly = operands(zlib.crc32(repr(("ring", mode)).encode()), 3, 200,
+                                           150, cuda)
+    gs, K, n = (11, 1), interval, 2
+    D, Lpn = 200 + 150 + 1, -(-201 // 2)
+    want = plain_dp(plain_scores(cx, ivx, cy, ivy, s), lx, ly, gs, mode, True)
+    ranks = [ring_rows(cx, ivx, cy, ivy, s, p * Lpn, Lpn) for p in range(n)]
+    carries = [ring_carries(r, gs, mode) for r in ranks]
+    cands = [ring_candidate(lx, ly, gs, mode).to(cuda) for _ in ranks]
+    shape = (K, edge_values(2), 3)
+    heads = [torch.zeros(shape, device=cuda) for _ in ranks]
+    tails = [torch.zeros(shape, device=cuda) for _ in ranks]
+    tb = [torch.zeros((D - 2, 3, Lpn), dtype=torch.uint8, device=cuda) for _ in ranks]
+    nchunks = -(-(D - 2) // K)
+    for step in range(nchunks + n - 1):
+        for p in range(n):
+            if not 0 <= step - p < nchunks:
+                continue
+            d0 = 2 + (step - p) * K
+            nd = min(K, D - d0)
+            h = heads[p] if p else None
+            plain = dict(carries_out=torch.empty_like(carries[p]),
+                         cand_out=torch.empty_like(cands[p]))
+            plain_tails = torch.zeros(shape, device=cuda)
+            plain_tb = torch.zeros((nd, 3, Lpn), dtype=torch.uint8, device=cuda)
+            ring_superstep_plain(ranks[p], lx, ly, gs, mode, True, d0, K, carries[p], h,
+                                 plain_tails, cands[p], tb=plain_tb, tb_row0=d0 - 2, **plain)
+            got = dict(carries_out=torch.full_like(carries[p], float("nan")),
+                       cand_out=torch.full_like(cands[p], float("nan")))
+            tails[p].fill_(float("nan"))
+            rows = tb[p][d0 - 2:d0 - 2 + nd]
+            rows.fill_(0xAB)
+            before = tiled_dp.ring_launches
+            tiled_dp.wavefront_dp_tiled_ring(ranks[p], lx, ly, gs, mode, True, d0, K,
+                                             carries[p], h, tails[p], cands[p], tb=tb[p],
+                                             **got, **geometry)
+            torch.cuda.synchronize()
+            assert tiled_dp.ring_launches == before + 1
+            for key in got:
+                assert torch.equal(got[key].view(torch.int32), plain[key].view(torch.int32)), key
+            assert torch.equal(tails[p][:nd].view(torch.int32), plain_tails[:nd].view(torch.int32))
+            assert torch.equal(rows, plain_tb)
+            carries[p], cands[p] = got["carries_out"], got["cand_out"]
+        for p in range(1, n):
+            heads[p].copy_(tails[p - 1])
+    out = merge_candidates([c.cpu() for c in cands], mode)
+    for key in ("score", "length", "ti", "tj", "tcode"):
+        assert torch.equal(out[key], want[key].cpu()), key
+    assert torch.equal(torch.cat(tb, dim=2)[:, :, :201], want["tb"])
+
+
+def test_ring_on_the_card_equals_cpu(cuda):
+    """``ring_wavefront_dp`` on a one-process mesh of two shards on the card
+    gives the CPU shards' results: scores, traceback and checkpointed."""
+    from praline_tpu_torch.dist import make_pair_mesh, ring_wavefront_dp
+
+    ops = [t.cpu() for t in operands(7, 2, 300, 200, cuda)]
+    gpu, cpu = make_pair_mesh(devices=[cuda, cuda]), make_pair_mesh(2, device="cpu")
+    for kw in (dict(mode="local", traceback=True, interval=32),
+               dict(mode="semiglobal", gap_series=(13, 7, 1), traceback=True, interval=8,
+                    ckpt_interval=64)):
+        want = ring_wavefront_dp(cpu, *ops, **kw)
+        got = ring_wavefront_dp(gpu, *ops, **kw)
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (kw, key)
