@@ -15,11 +15,14 @@ and the composition are printed, and the fused and tiled kernels'
 cluster occupancy at every cluster size), and holds each kernel against its plain
 PyTorch version on the card, bit for bit: both producer tiers at buckets
 1023, 63x127 and 2047 and at the tensor-core predicate's edges (alphabets
-4, 32 and 23, counts of 255, |T| = 32766, |H| just under 2**24, one-hot
-profiles; each output NaN-poisoned first), the other kernels at buckets
+4, 32 and 23, counts of 255, |T| = 32766, |H| just under 2**24, y counts
+of 256, 992 and 65535 that the "mma" tier takes as two u8 limbs, one-hot
+profiles; each output NaN-poisoned first; the scalar tier alone on dyadic
+counts), the other kernels at buckets
 1023, 63x127 and 2047, the DPs over every mode and three gap series at
 63x127, the fused kernel on both score tiers (NaN-poisoned outputs) at
-those shapes, past the two-kernel lane cap (3000x3000), at a long y
+those shapes, with y counts past 255 (``[fused=plain-wide]``), past the
+two-kernel lane cap (3000x3000), at a long y
 (600x4000), at every cluster size (1 to 8 CTAs) and with lx leaving the
 high ranks idle, the tiled kernel against its plain version at 4 x
 700x600 (every mode, four series of 1, 2, 3 and 15 levels, both score
@@ -37,12 +40,16 @@ kernel over the producer's hs and the plain version at the headline
 bucket, a merge level and the long family's bucket, the tiled kernel
 beside the fused kernel at 3000x3000 and 2303x2303 and beside the
 whole-row DP and the fused kernel at buckets 1023 and 2047, K9 beside
-``torch.full``.  The DP over hs (K2/K4) is held against the plain DP on
-both its geometries (throughput, built for four and for five CTAs an SM,
-and latency) at the three buckets in every mode (at 1, 2, 3 and 15 gap
-levels at 63x127, one series a mode in turn at 1023 and 2047), scores and
-traceback, NaN-poisoned, and
-on problems at the band's edges; ``[dp-times]`` times it on its default
+``torch.full``; the producer and the fused kernel also on a merge level's
+counts (y counts of 256-992) at the headline shape, the producer beside
+its scalar tier and ``torch.bmm`` (``python3 chip_smoke.py producer-times
+DIR`` times both kernels, ``[homology]`` and the ``preprofile`` bench on
+the tree at DIR alone, each on the tier that tree's predicate gives).
+The DP over hs (K2/K4) is held against the plain DP on both its geometries
+(throughput, built for four and for five CTAs an SM, and latency) at the
+three buckets in every mode (at 1, 2, 3 and 15 gap levels at 63x127, one
+series a mode in turn at 1023 and 2047), scores and traceback,
+NaN-poisoned, and on problems at the band's edges; ``[dp-times]`` times it on its default
 geometry and six others beside the tiled kernel over the same hs at the
 headline chunk (2945 x 1023), B64 at buckets 1023 and 2047, the tracks
 traceback chunk (256) and merge levels of 4 and 1 problems
@@ -132,9 +139,10 @@ tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
 (for the parent beside this tree in one call).  One more run of each of the
 first five main paths under ``torch.profiler`` gives the device time per
 kernel and the busy share.
-Every producer and fused launch of every main path but ``[homology]``'s must
-take the tensor-core tier (the launches are counted per tier; homology's
-preprofile counts pass the predicate's bounds once merged).  Every phase raises
+Every producer and fused launch of every main path must take the
+tensor-core tier (the launches are counted per tier), ``[homology]``'s too,
+whose merged preprofile counts pass 255 (``[producer=homology]`` holds its
+last producer call against plain).  Every phase raises
 on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
@@ -363,6 +371,7 @@ def phase_build():
                ("walk_kernel", "wavefront_dp", "min_blocks", 4, DP_WALK.format(n=4, k="{k}")),
                ("walk_kernel", "wavefront_dp", "min_blocks", 5, DP_WALK.format(n=5, k="{k}")),
                ("fused_cluster_kernel", "fused_dp", "tier", "mma", FUSED_MMA),
+               ("fused_cluster_kernel", "fused_dp", "tier", "mma-wide", FUSED_MMA_WIDE),
                ("fused_cluster_kernel", "fused_dp", "tier", "scalar", FUSED_SCALAR))
     for kernel, source, what, which, pattern in kernels:
         found = {}
@@ -396,13 +405,15 @@ def phase_build():
 
 
 # Mangled names of the DP kernels at k = {k} levels: the fused kernel on
-# either tier, csrc/cluster_walk.cuh's walk_kernel<Src, K, BAND, MAXW, MINB,
-# CKPT, RING> as the tiled kernel (on hs or in place, 512 threads, with the
-# checkpointed launches built in or not; walk_kernel_params on the
-# composite; the ring's launch on its source) and as the DP over hs (the
-# band on, 128 threads, at least {n} CTAs an SM).
-FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1E"
-FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0E"
+# either tier (on "mma" without and with Cy_hi), csrc/cluster_walk.cuh's
+# walk_kernel<Src, K, BAND, MAXW, MINB, CKPT, RING> as the tiled kernel (on
+# hs or in place, 512 threads, with the checkpointed launches built in or
+# not; walk_kernel_params on the composite; the ring's launch on its
+# source) and as the DP over hs (the band on, 128 threads, at least {n}
+# CTAs an SM).
+FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1ELb0E"
+FUSED_MMA_WIDE = r"fused_cluster_kernelILi{k}ELb1ELb1E"
+FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0ELb0E"
 TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb0E"
 TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb0E"
 TILED_HS_CKPT = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb1E"
@@ -521,16 +532,30 @@ def output_bytes(lx, ly, out) -> float:
     return rest + (needed_cells(lx, ly) if "tb" in out else 0.0)
 
 
-def producer_ops(lx, ly, A, tier) -> tuple[float, float]:
+def producer_ops(lx, ly, A, tier, limbs=(1, 1)) -> tuple[float, float]:
     """(f32, tensor-core int8) operations of the scores on ``tier``: T = Cx
     @ S over the true rows of x, then a needed cell's dot product of A terms
     and two scales.  On "mma" the dot product runs on the int8 tensor cores
-    and a cell's f32-rate work is the two scales and the recombination of
-    its two limbs (a multiply and an add)."""
+    once for each pair of a limb of T and a limb of Cy (``limbs``: how many
+    each has, :func:`mma_limbs`), and a cell's f32-rate work is the two
+    scales and the recombination of those products (a multiply and an add
+    each but the first)."""
     t_ops, cells = float(lx.double().sum()) * A * A * 2, needed_cells(lx, ly)
     if tier == "mma":
-        return t_ops + cells * 4, cells * 2 * A
+        products = limbs[0] * limbs[1]
+        return t_ops + cells * (2 + 2 * (products - 1)), cells * 2 * A * products
     return t_ops + cells * (2 * A + 2), 0.0
+
+
+def mma_limbs(ops) -> tuple[int, int]:
+    """The limbs the "mma" tier gives these operands: T's (1 where every
+    |Cx @ S| <= 127, else 2) and Cy's (2 where a count passes 255, else
+    1; the bands of such columns run the Cy_hi products)."""
+    import torch
+
+    cx, _, cy, _, s = ops[:5]
+    t_limbs = 1 if float(torch.matmul(cx, s).abs().max()) <= 127 else 2
+    return t_limbs, 2 if float(cy.max()) > 255 else 1
 
 
 def dp_bound(lx, ly, out) -> dict:
@@ -545,7 +570,7 @@ def fused_bound(ops, out, tier) -> dict:
     once, its outputs written once, the producer's and the DP's
     operations."""
     A, lx, ly = ops[0].shape[2], ops[5], ops[6]
-    f32_ops, int8_ops = producer_ops(lx, ly, A, tier)
+    f32_ops, int8_ops = producer_ops(lx, ly, A, tier, mma_limbs(ops))
     return bound(operand_bytes(lx, ly, A) + output_bytes(lx, ly, out),
                  f32_ops + needed_cells(lx, ly) * DP_OPS_PER_CELL, int8_ops)
 
@@ -611,7 +636,7 @@ def phase_kernels_vs_plain(dev):
             moves_bytes = 2 * float(n_k.sum()) + nbytes(n_k)
             timing.update({
                 "scores_bound": bound(operand_bytes(lx, ly, A) + needed_cells(lx, ly) * 4,
-                                      *producer_ops(lx, ly, A, "mma")),
+                                      *producer_ops(lx, ly, A, "mma", mma_limbs(ops))),
                 "dp_bound": dp_bound(lx, ly, plain_dp(hs_p, lx, ly, (11, 1), "global")),
                 "walk_bound": bound(moves_bytes, 0.0),
                 # the library yardstick of the producer: H = (Cx @ S) @ Cy^T, unskewed
@@ -637,6 +662,7 @@ def phase_kernels_vs_plain(dev):
                 "dp_err": dp_err,
                 "walk_err": walk_err,
             })
+            timing.update(producer_wide_times(dev, s, B, bx, lo))
             say("kernel-times", shape=f"B{B}x{bx}x{by}",
                 **{k: (round(v, 4) if isinstance(v, float) else json.dumps(v))
                    for k, v in timing.items()})
@@ -659,6 +685,66 @@ def phase_kernels_vs_plain(dev):
         dp="bit-equal", fused="bit-equal(mma, scalar; NaN-poisoned)",
         seconds=round(time.perf_counter() - t0, 3))
     return timing
+
+
+def merged_operands(rng, dev, s, B, bx, by, lo):
+    """Count stacks like a preprofile merge level's (``[homology]``): B
+    pairs of lo .. bucket columns, each column COUNT_LIMIT (992) counts, 256
+    to 992 of them on one residue: every row of y wide (Cy as two u8
+    limbs), T = Cx @ S past 127 (two limbs), P5 at 992 * 992 * max|S|."""
+    import numpy as np
+
+    from praline_tpu_torch import ALPHABET_AA, Profile
+    from praline_tpu_torch.convert import profiles_to_stack
+    from praline_tpu_torch.oracle.profile import COUNT_LIMIT
+
+    sides = []
+    for bucket in (bx, by):
+        profs = []
+        for _ in range(B):
+            L = int(rng.integers(min(lo, bucket), bucket + 1))
+            top = rng.integers(256, int(COUNT_LIMIT) + 1, size=L)
+            counts = np.zeros((L, ALPHABET_AA.size), np.float32)
+            counts[:, :20] = rng.multinomial(int(COUNT_LIMIT) - top, np.ones(20) / 20)
+            counts[np.arange(L), rng.integers(0, 20, size=L)] += top
+            profs.append(Profile(counts, np.zeros(L, np.float32), ALPHABET_AA))
+        sides.append(profiles_to_stack(profs, bucket, dev))
+    (cx, ivx, lx), (cy, ivy, ly) = sides
+    return cx, ivx, cy, ivy, s, lx, ly
+
+
+def producer_wide_times(dev, s, B, bx, lo) -> dict:
+    """The producer on a merge level's counts (:func:`merged_operands`,
+    every row of y wide) at the headline's shape: the "mma" tier (Cy as two
+    limbs, NaN-poisoned, bit for bit against plain) and the scalar tier
+    (``csrc/scores.cu``, what took such counts before Cy had two limbs)
+    timed in turns (mma, scalar, mma), beside ``torch.bmm(Cx @ S, Cy^T)``
+    and the bound."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
+    ops = merged_operands(np.random.default_rng(SEED + 21), dev, s, B, bx, bx, lo)
+    cx, ivx, cy, ivy, _, lx, ly = ops
+    limbs = mma_limbs(ops)
+    if producer_tier(ops) != "mma" or limbs != (2, 2):
+        raise AssertionError(f"merged operands: tier {producer_tier(ops)}, limbs {limbs}")
+    err = producer_vs_plain(ops[:5], plain_scores(*ops[:5]), "mma", f"merged B{B}x{bx}")
+    A = s.shape[0]
+    run = lambda tier: fused_skewed_scores(cx, ivx, cy, ivy, s, tier=tier)
+    out = {"scores_wide_ms": cuda_ms(lambda: run("mma"), 10),
+           "scores_wide_scalar_ms": cuda_ms(lambda: run("scalar"), 10),
+           "scores_wide_again_ms": cuda_ms(lambda: run("mma"), 10),
+           "scores_wide_library_ms": cuda_ms(
+               lambda: torch.bmm(torch.matmul(cx, s), cy.transpose(1, 2)), 10),
+           "scores_wide_bound": bound(operand_bytes(lx, ly, A) + needed_cells(lx, ly) * 4,
+                                      *producer_ops(lx, ly, A, "mma", limbs)),
+           "scores_wide_max_count": float(cy.max()), "scores_wide_err": err}
+    say("kernel-times", shape=f"B{B}x{bx}x{bx} merged (y counts 256-992)",
+        **{k: (round(v, 4) if isinstance(v, float) else json.dumps(v)) for k, v in out.items()})
+    return out
 
 
 def producer_tier(ops) -> str:
@@ -735,13 +821,47 @@ def edge_operands(rng, B, Lx, Ly, A):
 # Lx != Ly, B = 1, a single column on either side, ragged last blocks.
 PRODUCER_EDGES = ((3, 300, 200, 4), (1, 130, 70, 32), (2, 64, 1, 23), (2, 1, 257, 23),
                   (5, 1023, 511, 20))
+# (B, Lx, Ly, A, y_count, x_total, max_s) of the wide-y cases
+# (:func:`wide_operands`): y counts of 256, 992 and 65535 (both limbs 255),
+# T one-pass (x_total 1) and two-limb, |H_int| up to x_total * max_s *
+# y_count (992 * 17 * 992 and 2 * 127 * 65535 just under 2**24).
+PRODUCER_WIDE = ((3, 300, 200, 4, 256, 1, 127), (2, 130, 70, 32, 992, 992, 17),
+                 (4, 1023, 1023, 23, 992, 992, 17), (2, 1, 257, 23, 65535, 1, 127),
+                 (2, 1023, 511, 20, 65535, 2, 127))
+
+
+def wide_operands(rng, B, Lx, Ly, A, y_count, x_total, max_s):
+    """Operands with y counts past 255: S of entries in [-max_s, max_s]; x
+    columns of ``x_total`` counts; every other y column a single residue of
+    ``y_count`` counts (a wide row) and the rest 255 counts spread, so that
+    bands with and without a wide column meet in one launch.  Column 0 of x
+    is ``x_total`` copies of residue 0, whose row of S holds +max_s and
+    -max_s, and y columns 0 and 1 meet them: |H_int| = x_total * max_s *
+    y_count, of both signs."""
+    import numpy as np
+
+    s = rng.integers(-max_s, max_s + 1, size=(A, A)).astype(np.float32)
+    s[0, 1], s[0, 2] = max_s, -max_s
+    cx = rng.multinomial(x_total, np.ones(A) / A, size=(B, Lx)).astype(np.float32)
+    cy = rng.multinomial(255, np.ones(A) / A, size=(B, Ly)).astype(np.float32)
+    cy[:, ::2] = 0
+    np.put_along_axis(cy[:, ::2], rng.integers(0, A, size=(B, (Ly + 1) // 2, 1)),
+                      float(y_count), axis=-1)
+    cx[:, 0] = 0
+    cx[:, 0, 0] = x_total
+    cy[:, :2] = 0
+    cy[:, 0, 1] = cy[:, 1, 2] = y_count
+    inv = lambda c: (np.float32(1) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+    return cx, inv(cx), cy, inv(cy), s
 
 
 def phase_producer_edges(dev) -> float:
     """Both producer tiers bit for bit against the plain version at the
     tensor-core predicate's edges (PRODUCER_EDGES, every case admitted,
-    each output NaN-poisoned), and on one-hot profiles under BLOSUM62 and
-    PAM250 (every |T| <= 127: the kernel's one-pass blocks)."""
+    each output NaN-poisoned), with y counts past 255 (PRODUCER_WIDE: Cy as
+    two u8 limbs), and on one-hot profiles under BLOSUM62 and PAM250
+    (every |T| <= 127: the kernel's one-pass blocks); the scalar tier alone
+    on dyadic counts, which the predicate refuses."""
     import numpy as np
     import torch
 
@@ -751,25 +871,65 @@ def phase_producer_edges(dev) -> float:
 
     rng = np.random.default_rng(SEED + 13)
     t0, err, cases = time.perf_counter(), 0.0, []
+    both = ("mma", "scalar")
     for B, Lx, Ly, A in PRODUCER_EDGES:
-        cases.append((f"edge B{B}x{Lx}x{Ly} A{A}", edge_operands(rng, B, Lx, Ly, A)))
+        cases.append((f"edge B{B}x{Lx}x{Ly} A{A}", edge_operands(rng, B, Lx, Ly, A), both))
+    for B, Lx, Ly, A, *wide in PRODUCER_WIDE:
+        cases.append((f"wide-y B{B}x{Lx}x{Ly} A{A} y{wide[0]} x{wide[1]} S{wide[2]}",
+                      wide_operands(rng, B, Lx, Ly, A, *wide), both))
     for name in ("blosum62", "pam250"):
         s = builtin_score_matrix(name).as_f32()
         A = s.shape[0]
         side = [np.eye(A, dtype=np.float32)[rng.integers(0, 20, size=(16, L))] for L in (700, 900)]
         ones = [np.ones(c.shape[:2], np.float32) for c in side]
-        cases.append((f"one-hot {name} B16x700x900", (side[0], ones[0], side[1], ones[1], s)))
-    for what, arrs in cases:
+        cases.append((f"one-hot {name} B16x700x900", (side[0], ones[0], side[1], ones[1], s),
+                      both))
+    cx, ivx, cy, ivy, s = edge_operands(rng, 3, 300, 200, 23)
+    cases.append(("dyadic B3x300x200 A23", (cx, ivx, cy * np.float32(0.5), ivy, s), ("scalar",)))
+    for what, arrs, tiers in cases:
         ops = operands_from_numpy(*arrs, [1], [1], dev)[:5]
-        if producer_tier(ops) != "mma":
-            raise AssertionError(f"the tensor-core predicate refused {what}")
+        if producer_tier(ops) != tiers[0]:
+            raise AssertionError(f"the tensor-core predicate gave {what} another tier than "
+                                 f"{tiers[0]}")
         want = plain_scores(*ops)
         torch.cuda.synchronize()
-        for tier in ("mma", "scalar"):
+        for tier in tiers:
             err = max(err, producer_vs_plain(ops, want, tier, what))
-    say("producer=plain", cases="|".join(w for w, _ in cases), tiers="mma,scalar",
+    say("producer=plain", cases="|".join(f"{w}:{','.join(tiers)}" for w, _, tiers in cases),
         result="bit-equal(NaN-poisoned outputs)", seconds=round(time.perf_counter() - t0, 3))
     return err
+
+
+# (B, Lx, Ly, mode, wide case) of the fused kernel's wide-y checks: one
+# CTA, and a cluster of six CTAs (Lp 3001) at y counts of 65535.
+FUSED_WIDE = ((4, 700, 900, "local", (992, 992, 17)), (2, 3000, 600, "global", (65535, 2, 127)),
+              (3, 400, 300, "semiglobal", (256, 1, 127)))
+
+
+def phase_fused_wide(dev, timing) -> None:
+    """``[fused=plain-wide]``: the fused kernel on both tiers (NaN-poisoned
+    outputs) against the plain version with y counts past 255 (Cy as two
+    u8 limbs on the "mma" tier), scores and traceback, ragged lengths."""
+    import numpy as np
+
+    from praline_tpu_torch.convert import operands_from_numpy
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused_plain
+
+    rng = np.random.default_rng(SEED + 17)
+    t0, cases = time.perf_counter(), []
+    for B, Lx, Ly, mode, wide in FUSED_WIDE:
+        lens = (rng.integers(1, Lx + 1, size=B), rng.integers(1, Ly + 1, size=B))
+        lens[0][0], lens[1][0] = Lx, Ly
+        ops = operands_from_numpy(*wide_operands(rng, B, Lx, Ly, 23, *wide), *lens, dev)
+        if producer_tier(ops) != "mma" or mma_limbs(ops)[1] != 2:
+            raise AssertionError(f"fused wide-y B{B}x{Lx}x{Ly}: not the two-limb mma tier")
+        for tb in (False, True):
+            want = wavefront_dp_fused_plain(*ops, (11, 1), mode, tb)
+            timing["fused_err"] = max(timing["fused_err"], fused_vs_plain(
+                ops, (11, 1), mode, want, f"wide-y {mode} traceback={tb} B{B}x{Lx}x{Ly}"))
+        cases.append(f"B{B}x{Lx}x{Ly}:{mode}:y{wide[0]}:x{wide[1]}:S{wide[2]}")
+    say("fused=plain-wide", cases=",".join(cases), traceback="both",
+        result="bit-equal(mma, scalar; NaN-poisoned)", seconds=round(time.perf_counter() - t0, 3))
 
 
 def chain_values(rng, shape):
@@ -1147,9 +1307,34 @@ def phase_fused_times(dev):
                                         1, warm_up=False)
             d.update(fused_bound(ops, fused("mma"), "mma"))
             d["scalar_bound_ms"] = fused_bound(ops, fused("scalar"), "scalar")["bound_ms"]
+            if bx == HEADLINE_BUCKET and not tb:
+                d.update(fused_wide_times(dev, s, B, bx, lo, lambda: fused("mma")))
         say("fused-times", shape=f"B{B}x{bx}x{bx}", seconds=round(time.perf_counter() - t0, 3),
             **{f"{t}_{k}": (round(v, 4) if isinstance(v, float) else v)
                for t, d in out.items() if t.startswith(f"B{B}x") for k, v in d.items()})
+    return out
+
+
+def fused_wide_times(dev, s, B, bx, lo, fused_counts) -> dict:
+    """The fused kernel at a headline shape on a merge level's counts
+    (:func:`merged_operands`, every band wide), held bit for bit against
+    the plain version, timed on both tiers beside the same launch on the
+    headline's count profiles (no band wide), in turns: counts, merged,
+    merged on the scalar tier, merged, counts."""
+    import numpy as np
+
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused, wavefront_dp_fused_plain
+
+    ops = merged_operands(np.random.default_rng(SEED + 23), dev, s, B, bx, bx, lo)
+    run = lambda tier: wavefront_dp_fused(*ops, (11, 1), "global", False, tier=tier)
+    same_outputs(run("mma"), wavefront_dp_fused_plain(*ops, (11, 1), "global"),
+                 f"fused mma on merged counts B{B}x{bx}")
+    out = {"fused_counts_ms": cuda_ms(fused_counts, 5),
+           "fused_wide_ms": cuda_ms(lambda: run("mma"), 5),
+           "fused_wide_scalar_ms": cuda_ms(lambda: run("scalar"), 5),
+           "fused_wide_again_ms": cuda_ms(lambda: run("mma"), 5),
+           "fused_counts_again_ms": cuda_ms(fused_counts, 5)}
+    out["wide_bound_ms"] = fused_bound(ops, run("mma"), "mma")["bound_ms"]
     return out
 
 
@@ -3381,9 +3566,8 @@ def phase_homology(dev, seqs) -> dict:
     on the card is byte-equal to ``msa_align`` with
     ``find_homologs(FakeBlastFinder(the same hits))``, and the hits change
     the preprofile counts of exactly the members that have them.  The
-    operands of the first and the last producer call of the CLI run that
-    took the scalar tier are kept (references, no copies) under
-    ``scalar_ops`` for :func:`homology_scalar_vs_plain`."""
+    operands of the CLI run's last producer call are kept (references, no
+    copies) under ``last_ops`` for :func:`homology_mma_vs_plain`."""
     import tempfile
 
     import numpy as np
@@ -3419,16 +3603,13 @@ def phase_homology(dev, seqs) -> dict:
         (tmp / "in.fasta").write_text(format_sequences_fasta(seqs))
         os.environ["PATH"] = f"{tmp}{os.pathsep}{path}"
         producer = batch.fused_skewed_scores
-        scalar_ops = {}
+        last_ops = {}
 
-        def keep_scalar_operands(cx, inv_x, cy, inv_y, s, *, tier, out=None):
-            if tier == "scalar":
-                ops = (cx, inv_x, cy, inv_y, s)
-                scalar_ops.setdefault("first", ops)
-                scalar_ops["last"] = ops
+        def keep_last_operands(cx, inv_x, cy, inv_y, s, *, tier, out=None):
+            last_ops["ops"] = (cx, inv_x, cy, inv_y, s)
             return producer(cx, inv_x, cy, inv_y, s, tier=tier, out=out)
 
-        batch.fused_skewed_scores = keep_scalar_operands
+        batch.fused_skewed_scores = keep_last_operands
         try:
             t0 = time.perf_counter()
             rc = cli_main([str(tmp / "in.fasta"), str(tmp / "out.fasta"), "--device", dev.type,
@@ -3470,40 +3651,35 @@ def phase_homology(dev, seqs) -> dict:
         results="CLI --blast-db = msa_align(FakeBlastFinder hits); preprofiles changed for "
                 "exactly the members with hits", **{k: round(v, 4) if isinstance(v, float) else v
                                                    for k, v in res.items()})
-    return res | {"scalar_ops": scalar_ops}
+    return res | {"last_ops": last_ops.get("ops")}
 
 
-def homology_scalar_vs_plain(scalar_ops) -> float:
-    """The scalar producer (``csrc/scores.cu``) bit for bit against the plain
-    version on the operands ``[homology]`` gave it (its first and last
-    scalar-tier call, at their merge level's bucket shape), each output
-    NaN-poisoned.  The device merge picks a level's tier from host bounds
-    on its counts, so the first call may hold counts the predicate would
-    admit; the last (the deepest merge) must hold counts past 255 that it
-    refuses.  Run after the path's launches are read, so these launches are
-    not the path's.  Returns the largest difference (0.0)."""
-    import torch
-
+def homology_mma_vs_plain(ops, counts) -> float:
+    """``[homology]`` launched no scalar producer (``counts``, the path's
+    launches), and the tensor-core producer (``csrc/scores_mma.cu``) is bit
+    for bit the plain version, output NaN-poisoned, on the operands of its
+    last producer call (its deepest merge level, at the level's bucket
+    shape), which must hold y counts past 255: the counts that took the
+    scalar tier before Cy had two u8 limbs.  Run after the path's launches
+    are read, so this launch is not the path's.  Returns the largest
+    difference (0.0)."""
     from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
 
-    if not scalar_ops:
-        raise AssertionError("homology: no producer call took the scalar tier")
-    first, last = scalar_ops["first"], scalar_ops["last"]
-    calls = [("first", first), ("last", last)] if last is not first else [("only", last)]
-    err, shapes, top = 0.0, [], []
-    for which, ops in calls:
-        cx, _, cy, _, _ = ops
-        most = float(torch.maximum(cx.max(), cy.max()))
-        if which != "first" and (most <= 255 or producer_tier(ops) != "scalar"):
-            raise AssertionError(f"homology: the last scalar call's operands (counts up to "
-                                 f"{most}) are ones the tensor-core predicate admits")
-        want = plain_scores(*ops)
-        what = f"homology's {which} scalar call B{cx.shape[0]}x{cx.shape[1]}x{cy.shape[1]}"
-        err = max(err, producer_vs_plain(ops, want, "scalar", what))
-        shapes.append(f"{which}:B{cx.shape[0]}x{cx.shape[1]}x{cy.shape[1]}")
-        top.append(most)
-    say("producer=homology", tier="scalar", calls=",".join(shapes),
-        max_count=",".join(f"{m:g}" for m in top), result="bit-equal(NaN-poisoned output)")
+    if counts["scores_scalar"] or not counts["scores_mma"]:
+        raise AssertionError(f"homology: {counts['scores_scalar']} scalar and "
+                             f"{counts['scores_mma']} tensor-core producer launches")
+    if ops is None:
+        raise AssertionError("homology: no producer call")
+    cx, _, cy, _, _ = ops
+    most = float(cy.max())
+    if most <= 255 or producer_tier(ops) != "mma":
+        raise AssertionError(f"homology: the last producer call's y counts (up to {most}) "
+                             f"take tier {producer_tier(ops)}, not mma past 255")
+    shape = f"B{cx.shape[0]}x{cx.shape[1]}x{cy.shape[1]}"
+    err = producer_vs_plain(ops, plain_scores(*ops), "mma", f"homology's last call {shape}")
+    say("producer=homology", launches=f"mma:{counts['scores_mma']},scalar:0", tier="mma",
+        call=f"last:{shape}", max_y_count=f"{most:g}", limbs=",".join(map(str, mma_limbs(ops))),
+        result="bit-equal(NaN-poisoned output)")
     return err
 
 
@@ -3550,13 +3726,14 @@ LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block"
 # long routes have rows past the fused kernel's lanes.  The three msa_align
 # paths merge on the device walk, whose compose kernel writes each level's
 # merged profiles; on a mesh across the two ranks the merge is per level
-# (no compose).  Every path's profiles but homology's are integer counts the
-# tensor-core predicate admits, so their producer and fused launches take
-# the "mma" tier.  Homology's preprofiles hold up to 131 counts a column
-# (the master, 127 slaves and its hits), so merged nodes pass the 255 a
-# count of P2 (``fused_scores.tensor_core_exact``) and take the scalar
-# producer, which ``homology_scalar_vs_plain`` holds against the plain
-# version on the operands of that run.
+# (no compose).  Every path's profiles are integer counts the tensor-core
+# predicate admits, so their producer and fused launches take the "mma"
+# tier; no path may launch a scalar-tier kernel.  Homology's preprofiles
+# hold up to 131 counts a column (the master, 127 slaves and its hits), so
+# its merged nodes hold counts past 255, up to the rescale's 992: Cy as two
+# u8 limbs (P2 of ``fused_scores.tensor_core_exact``), which
+# ``homology_mma_vs_plain`` holds against the plain version on the
+# operands of that run.
 PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
                 "msa128": ("scores_mma", "dp", "walk", "compose"),
                 "long-family": ("fused", "walk", "compose"),
@@ -3567,7 +3744,7 @@ PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fu
                 "tracks-long": ("tiled_composite", "walk", "tiled_forward", "tiled_resume",
                                 "walk_block"),
                 "mesh": ("scores_mma", "dp", "walk", "compose"),
-                "homology": ("scores_mma", "scores_scalar", "dp", "walk", "compose"),
+                "homology": ("scores_mma", "dp", "walk", "compose"),
                 # [two-ranks]: both ranks' launches, summed
                 "two-ranks-msa128": ("scores_mma", "dp", "walk"),
                 "two-ranks-long8": ("scores_mma", "tiled"),
@@ -3670,12 +3847,50 @@ def phase_tiled_ordinary_times(dev) -> dict:
     return out
 
 
+def phase_producer_times(dev) -> dict:
+    """``producer-times``: the producer and the fused kernel at B64 x 1023,
+    each on the tier the tree's own predicate gives its operands (CUDA
+    events): the headline's count profiles, and a merge level's counts
+    (:func:`merged_operands`, y counts of 256-992, which took the scalar
+    tier before Cy had two u8 limbs); then ``[homology]`` (its CLI wall
+    clock and stages, and the phase's producer launches per tier) and the
+    ``preprofile`` bench config (msa60 with master-slave preprofiles)."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.bench import bench_msa
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    out = {}
+    for kind, make in (("counts", stacked_operands), ("merged", merged_operands)):
+        ops = make(np.random.default_rng(SEED + 21), dev, s, 64, HEADLINE_BUCKET,
+                   HEADLINE_BUCKET, 512)
+        tier = producer_tier(ops)
+        out[f"scores_{kind}"] = {"tier": tier, "ms": cuda_ms(
+            lambda: fused_skewed_scores(*ops[:5], tier=tier), 10)}
+        out[f"fused_{kind}"] = {"tier": tier, "ms": cuda_ms(
+            lambda: wavefront_dp_fused(*ops, (11, 1), "global", tier=tier), 5)}
+        del ops
+    reset_launches()
+    homology = phase_homology(dev, synthetic_family())
+    launches = read_launches()
+    out["homology"] = {**{k: v for k, v in homology.items() if k.endswith("_s")},
+                       **{k: launches[k] for k in ("scores_mma", "scores_scalar")}}
+    out["preprofile_bench_s"] = bench_msa("cuda", "global")["value"]
+    return out
+
+
 def tree_only(argv) -> int:
-    """``dp-times [DIR]`` or ``tiled-times [DIR]``: the build and the
-    [dp-times] phase (K2 and K6 over hs) or K6's ordinary launches
-    (phase_tiled_ordinary_times) alone, on the package of the tree at DIR
-    (this checkout by default), so that the parent's kernels are timed at
-    this tree's shapes in the same call."""
+    """``dp-times [DIR]``, ``tiled-times [DIR]`` or ``producer-times
+    [DIR]``: the build and the [dp-times] phase (K2 and K6 over hs), K6's
+    ordinary launches (phase_tiled_ordinary_times) or the producer's and
+    fused kernel's tiers with ``[homology]`` and the ``preprofile`` bench
+    (phase_producer_times) alone, on the package of the tree at DIR (this
+    checkout by default), so that the parent's kernels are timed at this
+    tree's shapes in the same call."""
     global ROOT
     if len(argv) > 1:
         ROOT = Path(argv[1]).resolve()
@@ -3688,7 +3903,8 @@ def tree_only(argv) -> int:
     build.build()
     build.load_library()
     say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
-    times = phase_dp_times(dev) if argv[0] == "dp-times" else phase_tiled_ordinary_times(dev)
+    times = {"dp-times": phase_dp_times, "tiled-times": phase_tiled_ordinary_times,
+             "producer-times": phase_producer_times}[argv[0]](dev)
     say(f"{argv[0]}-tree", root=str(ROOT), json=json.dumps(times))
     print(smi)
     return 0
@@ -3716,8 +3932,8 @@ def dist_only() -> int:
     tracks_res, _ = run_tracks(tracks_run, track_cells, 1, False)
     tracks_tb, _ = run_tracks(tracks_run, track_cells, 1, True)
     mesh_out, _ = counted("mesh", lambda: phase_mesh(dev, matrix, pairs, msa_seqs))
-    homology, _ = counted("homology", lambda: phase_homology(dev, msa_seqs))
-    homology_scalar_vs_plain(homology.pop("scalar_ops"))
+    homology, counts = counted("homology", lambda: phase_homology(dev, msa_seqs))
+    homology_mma_vs_plain(homology.pop("last_ops"), counts)
     phase_two_ranks(dev, mesh_out["msa_text"], long8_family(), tracks_res, tracks_tb)
     phase_ring_kernel(dev)
     ring_single, _ = phase_ring(dev)
@@ -3734,7 +3950,7 @@ def main() -> int:
         return ring_rank(sys.argv[2:])
     if sys.argv[1:2] == ["dist"]:
         return dist_only()
-    if sys.argv[1:2] in (["dp-times"], ["tiled-times"]):
+    if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["producer-times"]):
         return tree_only(sys.argv[1:])
     if sys.argv[1:2] == ["long-routes"]:
         return long_only(sys.argv[1:])
@@ -3749,6 +3965,7 @@ def main() -> int:
     timing = phase_kernels_vs_plain(dev)
     phase_fused_long(dev, timing)
     phase_fused_clusters(dev, timing)
+    phase_fused_wide(dev, timing)
     fused_times = phase_fused_times(dev)
     tiled_err = phase_tiled_vs_plain(dev)
     tiled_long = phase_tiled_long(dev, usage)
@@ -3791,7 +4008,7 @@ def main() -> int:
     homology, c12 = counted("homology", lambda: phase_homology(dev, msa_seqs))
     ring_single, c13 = phase_ring(dev)
     # ---- end of the main paths; [two-ranks] counts its own, in each rank ----
-    scalar_err = homology_scalar_vs_plain(homology.pop("scalar_ops"))
+    homology_err = homology_mma_vs_plain(homology.pop("last_ops"), c12)
     for name, c, n in (("tracks", c5, chunks), ("tracks-traceback", c6, chunks_tb)):
         if c["scores_mma"] != 2 * n or c["dp"] != n:
             raise AssertionError(f"{name}: {c['scores_mma']} producer and {c['dp']} DP launches "
@@ -3830,7 +4047,8 @@ def main() -> int:
          "replaces": "praline_tpu/kernels/fused_scores.py:359 (fused_skewed_scores_strip), "
                      "praline_tpu/kernels/fused_scores.py:119 (fused_skewed_scores)",
          "launches": launches["scores_mma"] + launches["scores_scalar"],
-         "max_abs_err": max(timing["scores_err"], timing["scores_edge_err"], scalar_err),
+         "max_abs_err": max(timing["scores_err"], timing["scores_edge_err"],
+                            timing["scores_wide_err"], homology_err),
          "ms": timing["scores_ms"], "plain_ms": timing["scores_plain_ms"],
          **timing["scores_bound"], "library_ms": timing["scores_library_ms"],
          "hs_pattern_ms": timing["scores_hs_pattern_ms"],
@@ -3841,7 +4059,12 @@ def main() -> int:
                      "ms": [timing["scores_ms"], timing["scores_again_ms"]]},
              "scalar": {"source": "praline_tpu_torch/csrc/scores.cu",
                         "launches": launches["scores_scalar"],
-                        "ms": timing["scores_scalar_ms"]}}},
+                        "ms": timing["scores_scalar_ms"]},
+             "wide_y": {"shape": "B64x1023x1023 merged counts (y 256-992, Cy two limbs)",
+                        "ms": [timing["scores_wide_ms"], timing["scores_wide_again_ms"]],
+                        "scalar_ms": timing["scores_wide_scalar_ms"],
+                        "library_ms": timing["scores_wide_library_ms"],
+                        **timing["scores_wide_bound"]}}},
         {"name": "wavefront_dp", "route": "cuda",
          "source": "praline_tpu_torch/csrc/wavefront_dp.cu",
          "replaces": "praline_tpu/kernels/strip.py:587 (wavefront_dp_strip), "
@@ -3876,7 +4099,13 @@ def main() -> int:
              "mma": {"launches": launches["fused_mma"],
                      "ms": [headline["fused_ms"], headline["fused_again_ms"]]},
              "scalar": {"launches": launches["fused_scalar"], "ms": headline["fused_scalar_ms"],
-                        "bound_ms": headline["scalar_bound_ms"]}},
+                        "bound_ms": headline["scalar_bound_ms"]},
+             "wide_y": {"shape": "B64x1023x1023 merged counts (every band wide)",
+                        "ms": [headline["fused_wide_ms"], headline["fused_wide_again_ms"]],
+                        "scalar_ms": headline["fused_wide_scalar_ms"],
+                        "counts_ms": [headline["fused_counts_ms"],
+                                      headline["fused_counts_again_ms"]],
+                        "bound_ms": headline["wide_bound_ms"]}},
          "long32_bucket": {"shape": "B32x2303x2303", "ms": long32["fused_ms"],
                            "scalar_ms": long32["fused_scalar_ms"],
                            "producer_tiled_ms": long32["producer_tiled_ms"],

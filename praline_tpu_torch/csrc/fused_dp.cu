@@ -40,7 +40,14 @@
 //            producer's tiles, limbs, prep kernel and exactness proof,
 //            csrc/scores_mma.cu) into a diagonal-major box in shared memory,
 //            from which each step reads its score; the next box's Cy band
-//            is copied by cp.async while the DP steps through this one;
+//            is copied by cp.async while the DP steps through this one.
+//            The tier is two launches of the kernel, built without and with
+//            Cy_hi (WIDE); each problem runs in the launch that matches
+//            whether a count of its y passes 255 (a "wide" problem), and
+//            its CTAs exit at once in the other.  So a problem with no such
+//            count runs the code it ran before Cy had two limbs; in a wide
+//            one each band also carries its Cy_hi columns, and a band where
+//            one of them is nonzero adds their products;
 //   "scalar" each score computed in place from T = Cx @ S and Cy rows by
 //            f32 dot products (csrc/fused_rows.cuh, bit-equal to
 //            csrc/scores.cu), for every input check_exactness admits.
@@ -81,12 +88,13 @@ struct FusedArgs {
 // Byte offsets of the dynamic shared memory: the cross-warp exchange
 // xbuf[2][W / 32][NX], the edge ring[2][T][NX], the candidates red[W / 32
 // + 1] (the last is the CTA's best, read by rank 0), and for the mma tier
-// the box hk[T][W + 4], the rows' limbs a_lo / a_hi [W][32 B], the bands
-// [2][W + T][32 B], their inverses [2][W + T] and the rows' inverses [W].
-// kernels/fused_dp.py::fused_geometry mirrors it.
+// the box hk[T][W + 4], the rows' limbs a_lo / a_hi [W][32 B], the bands'
+// Cy_lo columns band [2][W + T][32 B] (then, wide, their Cy_hi columns
+// [2][W + T][32 B]), their inverses [2][W + T] and the rows' inverses [W].
+// kernels/fused_dp.py::smem_bytes mirrors it (the wide layout).
 struct Layout {
   int xbuf, ring, red, hk, a_lo, a_hi, band, ivy, ivx, total;
-  __host__ __device__ Layout(int W, int T, int nx, bool mma) {
+  __host__ __device__ Layout(int W, int T, int nx, bool mma, bool wide) {
     const int nw = W / 32, cols = W + T;
     xbuf = 0;
     ring = xbuf + round16(2 * nw * nx * 4);
@@ -98,7 +106,7 @@ struct Layout {
       a_lo = hk + round16(T * (W + 4) * 4);
       a_hi = a_lo + W * 32;
       band = a_hi + W * 32;
-      ivy = band + 2 * cols * 32;
+      ivy = band + (wide ? 4 : 2) * cols * 32;
       ivx = ivy + round16(2 * cols * 4);
       total = ivx + round16(W * 4);
     }
@@ -116,29 +124,40 @@ struct BoxScores {
 };
 
 // The mma tier's work before box k: wait for its band, start the next
-// box's band, and fill hk with the box's scores on the tensor cores.
+// box's band, and fill hk with the box's scores on the tensor cores; WIDE:
+// the bands carry Cy_hi (a count of the problem's y passes 255).
+template <bool WIDE>
 struct BoxProducer {
   float* hk;
   const uint32_t* a_lo;
   const uint32_t* a_hi;
-  uint32_t* band;
+  uint32_t* band;  // Cy_lo columns, two buffers of W + T; then Cy_hi's, two buffers
   float* ivy;
   const float* ivx;
-  const uint4* yb;
-  const float* ivyb;
+  YRows y;
   int W, T, i0, Lx, Ly;
   bool two_pass;
 
   __device__ __forceinline__ int jbase(int d0) const { return d0 - i0 - W; }
+  // buffer q's Cy_lo columns, and its Cy_hi columns (WIDE only)
+  __device__ __forceinline__ uint32_t* lo_of(int q) const { return band + q * (W + T) * KW; }
+  __device__ __forceinline__ uint32_t* hi_of(int q) const { return lo_of(q + 2); }
 
   __device__ void fill(int k, int d0, bool more) const {
     const int cols = W + T, t = threadIdx.x;
     copy_wait_all();
-    __syncthreads();  // box k's band has landed; every step of box k - 1 is done
-    if (more)
-      start_band(band + ((k + 1) & 1) * cols * KW, ivy + ((k + 1) & 1) * cols, yb, ivyb,
-                 jbase(d0 + T), cols, Ly, t, W);
-    const uint32_t* bnd = band + (k & 1) * cols * KW;
+    // box k's band has landed; every step of box k - 1 is done; WIDE:
+    // whether a Cy_hi limb of the band is nonzero
+    bool band_wide = false;
+    if constexpr (WIDE) band_wide = __syncthreads_or(rows_nonzero(hi_of(k & 1), cols, t, W));
+    else __syncthreads();
+    if (more) {
+      const int q = (k + 1) & 1;
+      start_band(lo_of(q), WIDE ? hi_of(q) : nullptr, ivy + q * cols, y, jbase(d0 + T), cols,
+                 Ly, t, W);
+    }
+    const uint32_t* bnd = lo_of(k & 1);
+    const uint32_t* bnd_hi = hi_of(k & 1);
     const float* iv = ivy + (k & 1) * cols;
     const int warp = t >> 5, lane = t & 31, g = lane >> 2, t4 = lane & 3;
     for (int m0 = warp * 16; m0 < W; m0 += W / 2) {
@@ -155,8 +174,8 @@ struct BoxProducer {
       }
       const bool rows_all = i0 + m0 >= 1 && i0 + m0 + 15 <= Lx;
       const bool rows_none = i0 + m0 + 15 < 1 || i0 + m0 > Lx;
-      box_rows(hk, W + 4, W, T, bnd, iv, alo, ahi, two_pass, m0, g, t4, rivx, row_ok, rows_all,
-               rows_none, jbase(d0), Ly);
+      box_rows(hk, W + 4, W, T, bnd, bnd_hi, band_wide, iv, alo, ahi, two_pass, m0, g, t4,
+               rivx, row_ok, rows_all, rows_none, jbase(d0), Ly);
     }
     __syncthreads();
   }
@@ -165,9 +184,9 @@ struct BoxProducer {
 // The score source of the walk (csrc/cluster_walk.cuh) on either tier:
 // "mma" fills the box of each visit on the tensor cores (BoxProducer) and
 // reads it back; "scalar" computes each score in place.
-template <bool MMA>
+template <bool MMA, bool WIDE>
 struct FusedVisits {
-  BoxProducer box;
+  BoxProducer<WIDE> box;
   FusedRows rows;
   int W, T;
 
@@ -181,12 +200,12 @@ struct FusedVisits {
   }
 };
 
-template <int K, bool MMA>
+template <int K, bool MMA, bool WIDE>
 __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
   constexpr int NX = Carries<K, 1>::NX;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Layout L(a.W, a.T, NX, MMA);
+  const Layout L(a.W, a.T, NX, MMA, WIDE);
 
   const int W = a.W, T = a.T, R = a.R;
   const int t = threadIdx.x;
@@ -201,19 +220,24 @@ __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
   const int lane_end = a.traceback ? Lp - 1 : min(Lp - 1, lx);
   const bool active = i0 <= lane_end;  // uniform over the CTA
 
-  FusedVisits<MMA> visits{};
+  FusedVisits<MMA, WIDE> visits{};
   visits.W = W;
   visits.T = T;
   if constexpr (MMA) {
-    BoxProducer& box = visits.box;
+    // Whether a count of the problem's y passes 255, the same answer in
+    // every CTA of the cluster: the problem runs in the launch of its kind.
+    bool ywide = false;
+    const unsigned char* yw = a.op.ywide + (size_t)b * a.Ly;
+    for (int j = t; j < a.Ly; j += W) ywide |= yw[j] != 0;
+    if ((__syncthreads_or(ywide) != 0) != WIDE) return;
+    BoxProducer<WIDE>& box = visits.box;
     box.hk = reinterpret_cast<float*>(smem + L.hk);
     box.a_lo = reinterpret_cast<const uint32_t*>(smem + L.a_lo);
     box.a_hi = reinterpret_cast<const uint32_t*>(smem + L.a_hi);
     box.band = reinterpret_cast<uint32_t*>(smem + L.band);
     box.ivy = reinterpret_cast<float*>(smem + L.ivy);
     box.ivx = reinterpret_cast<const float*>(smem + L.ivx);
-    box.yb = a.op.ybytes + 2 * (size_t)b * a.Ly;
-    box.ivyb = a.ivy + (size_t)b * a.Ly;
+    box.y = y_rows(a.op, a.ivy, b, a.Ly);
     box.W = W;
     box.T = T;
     box.i0 = i0;
@@ -237,7 +261,8 @@ __global__ void __launch_bounds__(MAX_W, 1) fused_cluster_kernel(FusedArgs a) {
           ivx[m] = ok ? a.ivx[row] : 1.0f;
         }
       }
-      start_band(box.band, box.ivy, box.yb, box.ivyb, box.jbase(2), W + T, a.Ly, t, W);
+      start_band(box.lo_of(0), WIDE ? box.hi_of(0) : nullptr, box.ivy, box.y, box.jbase(2),
+                 W + T, a.Ly, t, W);
     }
     box.two_pass = __syncthreads_or(wide);
   } else {
@@ -269,10 +294,10 @@ cudaLaunchConfig_t launch_config(const FusedArgs& a, int smem, cudaStream_t st,
 
 // Launches (or, with clusters != nullptr, asks how many clusters of this
 // shape fit on the card at once: cudaOccupancyMaxActiveClusters).
-template <int K, bool MMA>
+template <int K, bool MMA, bool WIDE>
 int launch_or_query(const FusedArgs& a, cudaStream_t st, int* clusters) {
-  const int smem = Layout(a.W, a.T, Carries<K, 1>::NX, MMA).total;
-  auto kern = fused_cluster_kernel<K, MMA>;
+  const int smem = Layout(a.W, a.T, Carries<K, 1>::NX, MMA, WIDE).total;
+  auto kern = fused_cluster_kernel<K, MMA, WIDE>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -289,8 +314,12 @@ int dispatch(int k, bool mma, const FusedArgs& a, cudaStream_t st, int* clusters
   if constexpr (K < MAXK) {
     if (k != K) return dispatch<K + 1>(k, mma, a, st, clusters);
   }
-  return mma ? launch_or_query<K, true>(a, st, clusters)
-             : launch_or_query<K, false>(a, st, clusters);
+  if (!mma) return launch_or_query<K, false, false>(a, st, clusters);
+  // the mma tier: the launch without Cy_hi, then the wide one (whose
+  // shared memory, the larger, the occupancy query asks about)
+  if (clusters) return launch_or_query<K, true, true>(a, st, clusters);
+  const int rc = launch_or_query<K, true, false>(a, st, nullptr);
+  return rc ? rc : launch_or_query<K, true, true>(a, st, nullptr);
 }
 
 bool geometry_ok(int k, int tier, int Lp, int W, int R, int T) {
@@ -307,7 +336,7 @@ bool geometry_ok(int k, int tier, int Lp, int W, int R, int T) {
 extern "C" int praline_fused_dp_smem(int W, int T, int k, int tier) {
   if (k < 1 || k > MAXK || (tier != 0 && tier != 1)) return -1;
   const int kc = k == 2 ? 1 : k;
-  return Layout(W, T, 6 + 2 * kc, tier == 0).total;
+  return Layout(W, T, 6 + 2 * kc, tier == 0, tier == 0).total;
 }
 
 // How many clusters of R CTAs of W threads (k levels, tier, T) the card

@@ -9,15 +9,16 @@
 // the band of TW + TD - 1 columns j = d0 - i0 - TW + c, c = 0 .. TW + TD - 1.
 // Rectangle element (m, c) of H_int = T_rows @ band^T is cell (dd, m) with
 // dd = c + m - TW + 1.  A warp computes the 16-row m-tiles it owns with
-// m16n8k32 tiles (s8 or u8 limbs of T times u8 counts of Cy, s32
+// m16n8k32 tiles (s8 or u8 limbs of T times u8 limbs of Cy, s32
 // accumulate), scales each element in the pinned order and writes it to its
-// place in the box, staged diagonal-major: hk[dd * SS + m].  The proof that
-// this gives the plain version's bits under fused_scores.tensor_core_exact
-// is in csrc/scores_mma.cu.
+// place in the box, staged diagonal-major: hk[dd * SS + m].  A band with a
+// count past 255 (a "wide" band) adds the products of Cy's high limbs.  The
+// proof that this gives the plain version's bits under
+// fused_scores.tensor_core_exact is in csrc/scores_mma.cu.
 //
 // Also here: the prep kernel that writes the operands (T's limbs and a
-// one-pass flag a row of x, u8 counts a row of y); the cp.async helpers are
-// csrc/async_copy.cuh.
+// one-pass flag a row of x; the low and high limbs of the counts and a wide
+// flag a row of y); the cp.async helpers are csrc/async_copy.cuh.
 
 #pragma once
 
@@ -61,31 +62,47 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* op, int
   a[3] = op[(m0 + g + 8) * KW + 4 + t];
 }
 
-// The prep kernel's output in the caller's scratch, 16-byte aligned: y's u8
-// rows (32 bytes each), then x's low limbs, high limbs (32 bytes a row
-// each) and one-pass flags (a byte a row); kernels/fused_scores.py::
-// mma_scratch_bytes counts it.
+// The prep kernel's output in the caller's scratch, 16-byte aligned: y's
+// low and high limbs (Cy & 255 and Cy >> 8, u8, 32 bytes a row each), x's
+// low and high limbs (32 bytes a row each), then a byte a row of x (one
+// pass: every |T| <= 127) and a byte a row of y (wide: some count past
+// 255); kernels/fused_scores.py::mma_scratch_bytes counts it.
 struct MmaOperands {
-  uint4* ybytes;
+  uint4* ylo;
+  uint4* yhi;
   uint4* xlo;
   uint4* xhi;
   unsigned char* xwide;
+  unsigned char* ywide;
 };
 
 inline MmaOperands mma_operands(void* scratch, int B, int Lx, int Ly) {
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  unsigned char* xs = base + 32LL * B * Ly;
-  uint4* xlo = reinterpret_cast<uint4*>(xs);
-  return MmaOperands{reinterpret_cast<uint4*>(base), xlo, xlo + 2LL * B * Lx,
-                     xs + 64LL * B * Lx};
+  uint4* ylo = static_cast<uint4*>(scratch);
+  uint4* xlo = ylo + 4LL * B * Ly;
+  unsigned char* flags = reinterpret_cast<unsigned char*>(xlo + 4LL * B * Lx);
+  return MmaOperands{ylo, ylo + 2LL * B * Ly, xlo, xlo + 2LL * B * Lx, flags,
+                     flags + (long long)B * Lx};
+}
+
+// One problem's rows of y in the scratch: limbs, wide flags and inverses.
+struct YRows {
+  const uint4* lo;
+  const uint4* hi;
+  const unsigned char* wide;
+  const float* ivy;
+};
+
+__device__ __forceinline__ YRows y_rows(const MmaOperands& op, const float* inv_y, int b,
+                                        int Ly) {
+  const size_t j0 = (size_t)b * Ly;
+  return YRows{op.ylo + 2 * j0, op.yhi + 2 * j0, op.ywide + j0, inv_y + j0};
 }
 
 // One thread a row: rows of x (item < B * Lx) to T's limbs and flag, rows
-// of y to u8 counts.
+// of y to the limbs of their counts and flag.
 __global__ void __launch_bounds__(PREP_NT) skewed_scores_mma_prep_kernel(
     const float* __restrict__ cx, const float* __restrict__ cy, const float* __restrict__ s,
-    uint4* __restrict__ xlo, uint4* __restrict__ xhi, unsigned char* __restrict__ xwide,
-    uint4* __restrict__ ybytes, long long nx, long long ny, int A) {
+    MmaOperands op, long long nx, long long ny, int A) {
   // S as int32, zero padded to BOX_MAXA x BOX_MAXA: row a is 8 int4 (broadcast reads)
   __shared__ int4 s_sh[BOX_MAXA * BOX_MAXA / 4];
   int* s_int = reinterpret_cast<int*>(s_sh);
@@ -128,24 +145,35 @@ __global__ void __launch_bounds__(PREP_NT) skewed_scores_mma_prep_kernel(
         hi[w] |= ((uint32_t)(v >> 8) & 0xffu) << (8 * k);
       }
     }
-    xlo[2 * item] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    xlo[2 * item + 1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    xhi[2 * item] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    xhi[2 * item + 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-    xwide[item] = wide;
+    op.xlo[2 * item] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    op.xlo[2 * item + 1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    op.xhi[2 * item] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    op.xhi[2 * item + 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    op.xwide[item] = wide;
   } else if (item < nx + ny) {
     const long long j = item - nx;
     const float* row = cy + j * A;
-    uint32_t v[KW];
+    // Cy = 256 * (Cy >> 8) + (Cy & 255), both limbs u8 for counts up to 65535
+    uint32_t lo[KW], hi[KW];
+    bool wide = false;
 #pragma unroll
     for (int w = 0; w < KW; ++w) {
-      v[w] = 0;
+      lo[w] = 0;
+      hi[w] = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (4 * w + k < A) v[w] |= (__float2uint_rn(row[4 * w + k]) & 0xffu) << (8 * k);
+        if (4 * w + k < A) {
+          const uint32_t c = __float2uint_rn(row[4 * w + k]);
+          wide |= c > 255;
+          lo[w] |= (c & 0xffu) << (8 * k);
+          hi[w] |= ((c >> 8) & 0xffu) << (8 * k);
+        }
     }
-    ybytes[2 * j] = make_uint4(v[0], v[1], v[2], v[3]);
-    ybytes[2 * j + 1] = make_uint4(v[4], v[5], v[6], v[7]);
+    op.ylo[2 * j] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    op.ylo[2 * j + 1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    op.yhi[2 * j] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    op.yhi[2 * j + 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    op.ywide[j] = wide;
   }
 }
 
@@ -156,44 +184,98 @@ inline int launch_mma_prep(const float* cx, const float* cy, const float* s,
                            cudaStream_t st) {
   const long long nx = (long long)B * Lx, ny = (long long)B * Ly;
   skewed_scores_mma_prep_kernel<<<(unsigned)((nx + ny + PREP_NT - 1) / PREP_NT), PREP_NT, 0,
-                                  st>>>(cx, cy, s, op.xlo, op.xhi, op.xwide, op.ybytes, nx, ny,
-                                        A);
+                                  st>>>(cx, cy, s, op, nx, ny, A);
   return (int)cudaGetLastError();
 }
 
-// Start the copy of one box's band: `cols` columns j = jbase .. jbase +
-// cols - 1 of a problem (u8 rows of 32 bytes, two 16-byte pieces a column)
-// and their inverses, by `nthreads` threads; columns off the problem are
-// zero-filled (their cells are +0).  Commits one cp.async group.
-__device__ __forceinline__ void start_band(uint32_t* band, float* ivy, const uint4* __restrict__ yb,
-                                           const float* __restrict__ ivyb, int jbase, int cols,
-                                           int Ly, int tid, int nthreads) {
+// Start the copy of `cols` 32-byte rows of y (one limb) for columns j =
+// jbase .. jbase + cols - 1 of a problem into `dst`, two 16-byte pieces a
+// column, by `nthreads` threads; columns off the problem are zero-filled.
+__device__ __forceinline__ void copy_rows(uint32_t* dst, const uint4* __restrict__ src, int jbase,
+                                          int cols, int Ly, int tid, int nthreads) {
   for (int p = tid; p < 2 * cols; p += nthreads) {
     const int j = jbase + p / 2;
     const bool ok = j >= 0 && j < Ly;
-    copy_async<16>(&band[4 * p], ok ? yb + 2 * j + p % 2 : yb, ok);
+    copy_async<16>(&dst[4 * p], ok ? src + 2 * j + p % 2 : src, ok);
   }
+}
+
+// Start the copy of one box's band: `cols` columns j = jbase .. jbase +
+// cols - 1 of a problem (the low limbs into `lo`, the high limbs into `hi`
+// unless it is null) and their inverses, by `nthreads` threads; columns
+// off the problem are zero-filled (their cells are +0).  Commits one
+// cp.async group.
+__device__ __forceinline__ void start_band(uint32_t* lo, uint32_t* hi, float* ivy, const YRows& y,
+                                           int jbase, int cols, int Ly, int tid, int nthreads) {
+  copy_rows(lo, y.lo, jbase, cols, Ly, tid, nthreads);
+  if (hi) copy_rows(hi, y.hi, jbase, cols, Ly, tid, nthreads);
   for (int r = tid; r < cols; r += nthreads) {
     const int j = jbase + r;
     const bool ok = j >= 0 && j < Ly;
-    copy_async<4>(&ivy[r], ok ? ivyb + j : ivyb, ok);
+    copy_async<4>(&ivy[r], ok ? y.ivy + j : y.ivy, ok);
   }
   copy_commit();
 }
 
+// Whether one of the band's columns j = jbase .. jbase + cols - 1 that
+// this thread reads the flag of is wide (some count past 255): the band is
+// wide where that holds for some thread (__syncthreads_or).
+__device__ __forceinline__ bool band_flags(const YRows& y, int jbase, int cols, int Ly, int tid,
+                                           int nthreads) {
+  bool wide = false;
+  for (int r = tid; r < cols; r += nthreads) {
+    const int j = jbase + r;
+    wide |= j >= 0 && j < Ly && y.wide[j];
+  }
+  return wide;
+}
+
+// Whether the Cy_hi pieces this thread copied into `hi` by copy_rows
+// (`cols` columns) hold a nonzero limb, once its copies have landed: the
+// band is wide where that holds for some thread (__syncthreads_or).
+__device__ __forceinline__ bool rows_nonzero(const uint32_t* hi, int cols, int tid,
+                                             int nthreads) {
+  bool any = false;
+  for (int p = tid; p < 2 * cols; p += nthreads) {
+    const uint4 v = reinterpret_cast<const uint4*>(hi)[p];
+    any |= (v.x | v.y | v.z | v.w) != 0;
+  }
+  return any;
+}
+
+// One n-tile's product of the rows' limbs with 8 columns of one limb of Cy
+// (32-byte rows at `rows`, tile columns n0 .. n0 + 7): one pass, or the
+// two limbs of T recombined as 256 * P_hi + P_lo.
+__device__ __forceinline__ void tile_product(int (&h)[4], const uint32_t (&alo)[4],
+                                             const uint32_t (&ahi)[4], bool two_pass,
+                                             const uint32_t* rows, int n0, int g, int t4) {
+  const uint32_t b0 = rows[(n0 + g) * KW + t4];
+  const uint32_t b1 = rows[(n0 + g) * KW + 4 + t4];
+  if (two_pass) {
+    int ph[4], pl[4];
+    mma_s8u8(ph, ahi, b0, b1);
+    mma_u8u8(pl, alo, b0, b1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = ph[k] * 256 + pl[k];
+  } else {
+    mma_s8u8(h, alo, b0, b1);
+  }
+}
+
 // Rows m0 .. m0 + 15 of a box of tw lanes x td diagonals into hk (row
-// stride ss floats): the n-tiles of the band (tw + td columns, u8 rows in
-// `band`, inverses in `ivy`) whose columns hold cells of the box, on the
-// tensor cores, each element scaled into its place or set to +0 off the
-// problem.  alo / ahi: the rows' A fragments (ahi read only when
-// two_pass); ivx / row_ok: rows m0 + g and m0 + g + 8 (g = lane / 4, t4 =
-// lane % 4); rows_all / rows_none: every / no row of the m-tile is a row
-// of x; jbase: column 0's j; Ly: the problem's columns.  Warp-uniform.
+// stride ss floats): the n-tiles of the band (tw + td columns: the low
+// limbs in `band`, the high limbs in `band_hi`, read only when `wide`, the
+// inverses in `ivy`) whose columns hold cells of the box, on the tensor
+// cores, each element scaled into its place or set to +0 off the problem.
+// alo / ahi: the rows' A fragments (ahi read only when two_pass); ivx /
+// row_ok: rows m0 + g and m0 + g + 8 (g = lane / 4, t4 = lane % 4);
+// rows_all / rows_none: every / no row of the m-tile is a row of x; jbase:
+// column 0's j; Ly: the problem's columns.  Warp-uniform.
 __device__ __forceinline__ void box_rows(float* hk, int ss, int tw, int td,
-                                         const uint32_t* band, const float* ivy,
-                                         const uint32_t (&alo)[4], const uint32_t (&ahi)[4],
-                                         bool two_pass, int m0, int g, int t4,
-                                         const float (&ivx)[2], const bool (&row_ok)[2],
+                                         const uint32_t* band, const uint32_t* band_hi, bool wide,
+                                         const float* ivy, const uint32_t (&alo)[4],
+                                         const uint32_t (&ahi)[4], bool two_pass, int m0, int g,
+                                         int t4, const float (&ivx)[2], const bool (&row_ok)[2],
                                          bool rows_all, bool rows_none, int jbase, int Ly) {
   // The n-tiles whose columns hold cells of the box for rows m0..m0+15:
   // c in [tw - 16 - m0, tw - 1 - m0 + td).
@@ -208,17 +290,13 @@ __device__ __forceinline__ void box_rows(float* hk, int ss, int tw, int td,
     const bool all = rows_all && jlo >= 0 && jlo + 7 < Ly;
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (!none) {
-      const uint32_t b0 = band[(n0 + g) * KW + t4];
-      const uint32_t b1 = band[(n0 + g) * KW + 4 + t4];
       int h[4];
-      if (two_pass) {
-        int ph[4], pl[4];
-        mma_s8u8(ph, ahi, b0, b1);
-        mma_u8u8(pl, alo, b0, b1);
+      tile_product(h, alo, ahi, two_pass, band, n0, g, t4);
+      if (wide) {  // H = 256 * (T @ Cy_hi^T) + T @ Cy_lo^T, each term below 2**24
+        int hw[4];
+        tile_product(hw, alo, ahi, two_pass, band_hi, n0, g, t4);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) h[k] = ph[k] * 256 + pl[k];
-      } else {
-        mma_s8u8(h, alo, b0, b1);
+        for (int k = 0; k < 4; ++k) h[k] += hw[k] * 256;
       }
       // c0, c1: row g, columns 2t, 2t+1; c2, c3: row g+8.
       const float2 iv = *reinterpret_cast<const float2*>(&ivy[n0 + 2 * t4]);

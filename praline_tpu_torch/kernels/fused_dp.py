@@ -19,8 +19,9 @@ with the tile edge handed from CTA to CTA in distributed shared memory
 ``kernels/tiled_dp.py::wavefront_dp_tiled_plain(rows, tile_lanes=W,
 steps_per_visit=T)``.  The score tier is the caller's: ``"mma"`` (each
 box's scores on the int8 tensor cores into shared memory, only for
-operands ``fused_scores.tensor_core_exact`` admits) or ``"scalar"`` (f32
-dot products in place).  Bound on the H100: the chain of dependent
+operands ``fused_scores.tensor_core_exact`` admits; two launches, each
+problem computed by the one built for whether its y counts pass 255) or
+``"scalar"`` (f32 dot products in place).  Bound on the H100: the chain of dependent
 diagonals.  No ``hs`` tensor, so memory is ``O(B * (Lx + Ly) * A)`` and
 ``Ly`` is unbounded; lanes are bounded by the cluster: :data:`MAX_LANES_FUSED`.
 """
@@ -74,13 +75,16 @@ def round16(n: int) -> int:
 def smem_bytes(W: int, T: int, k: int, tier: str) -> int:
     """Dynamic shared memory of a CTA (``csrc/fused_dp.cu`` ``Layout``):
     the cross-warp exchange, the edge ring, the candidates and, on the
-    "mma" tier, the score box, the rows' limbs and inverses and two bands."""
+    "mma" tier, the score box, the rows' limbs and inverses and two bands
+    of ``W + T`` columns (their inverses, and 32 bytes a column of
+    ``Cy_lo`` and of ``Cy_hi``: the tier's launch for problems with counts
+    past 255, the larger of its two)."""
     nx = 6 + 2 * (1 if k == 2 else k)
     nw, cols = W // 32, W + T
     total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4)
              + round16((nw + 1) * CAND_BYTES))
     if tier == "mma":
-        total += (round16(T * (W + 4) * 4) + 2 * W * 32 + 2 * cols * 32
+        total += (round16(T * (W + 4) * 4) + 2 * W * 32 + 2 * 2 * cols * 32
                   + round16(2 * cols * 4) + round16(W * 4))
     return total
 

@@ -11,12 +11,13 @@ Two kernels compute the same bits, chosen by the caller's ``tier``:
 
 - ``"mma"`` (``csrc/scores_mma.cu``): the pair-score tile on the integer
   tensor cores, ``T = Cx @ S`` split into s8/u8 limbs against ``Cy`` as
-  u8, exact under :func:`tensor_core_exact` (the proof is in the source).
+  u8 limbs (one where no count passes 255, two up to 65535), exact under
+  :func:`tensor_core_exact` (the proof is in the source).
   The Hopper counterpart of the JAX package's provable MXU tiers
   (``praline_tpu/kernels/batch.py:999-1038``), under its own predicate.
 - ``"scalar"`` (``csrc/scores.cu``): f32 chains on the CUDA cores, exact
   for every input ``oracle/score.py::check_exactness`` admits (dyadic
-  counts, counts past 255, ``|T|`` of 2**15 and more).
+  counts, counts past 65535, ``|T|`` of 2**15 and more).
 
 The batch drivers pass :func:`score_tier` of statistics cached on the
 host per profile (:func:`side_stats`, :func:`matrix_stats`), so choosing a
@@ -97,7 +98,8 @@ def tensor_core_exact(stats_x: SideStats, stats_y: SideStats, m: MatrixStats) ->
     for these operands (the proof sits beside the kernel):
 
     - P1: every count is a non-negative integer and ``S`` is integral;
-    - P2: every ``Cy`` count is at most 255 (a u8 operand);
+    - P2: every ``Cy`` count is at most 65535 (two u8 limbs,
+      ``Cy = 256 * (Cy >> 8) + (Cy & 255)``);
     - P3: every ``|T| = |(Cx @ S)[i, c]|`` is at most 32767, so ``T >> 8``
       is an s8 and ``T & 255`` a u8;
     - P4: ``tot_x * max|S| < 2**31``: ``T``'s int32 partial sums;
@@ -106,7 +108,7 @@ def tensor_core_exact(stats_x: SideStats, stats_y: SideStats, m: MatrixStats) ->
     """
     return (
         m.integral and stats_x.ints and stats_y.ints                       # P1
-        and stats_y.cmax <= 255                                            # P2
+        and stats_y.cmax <= 65535                                          # P2
         and stats_x.tmax <= 32767                                          # P3
         and stats_x.tot * max(m.max_s, 1.0) < 2.0**31                      # P4
         and stats_x.tot * stats_y.tot * m.max_s < 2.0**24                  # P5
@@ -120,10 +122,10 @@ def score_tier(stats_x: SideStats, stats_y: SideStats, m: MatrixStats) -> str:
 
 
 def mma_scratch_bytes(B: int, Lx: int, Ly: int) -> int:
-    """Device bytes the "mma" tier's prep writes (``csrc/scores_mma.cu``):
-    32 u8 counts a row of y, two 32-byte limbs of ``T`` and a flag a row
-    of x."""
-    return 32 * B * Ly + 65 * B * Lx
+    """Device bytes the "mma" tier's prep writes (``csrc/score_box.cuh``
+    ``MmaOperands``): two 32-byte limbs and a flag a row of either side
+    (``T``'s of x, the counts' of y)."""
+    return 65 * B * (Lx + Ly)
 
 
 def tier_of(cx, cy, s) -> str:
@@ -135,19 +137,34 @@ def tier_of(cx, cy, s) -> str:
 
 def skewed_pair_scores_limbs(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
     """The "mma" tier's integer arithmetic in torch int64 on the CPU, for
-    operands :func:`tensor_core_exact` admits: ``T`` exact, split into
-    ``T >> 8`` and ``T & 255`` (one pass where every ``|T| <= 127``), each
-    limb's product with ``Cy`` recombined as ``256 * P_hi + P_lo``, then
-    the f32 conversion, the pinned scale and the skew."""
+    operands :func:`tensor_core_exact` admits, step for step as the
+    kernel's tiles (``csrc/score_box.cuh`` ``box_rows``): ``T`` exact,
+    split into ``T >> 8`` and ``T & 255`` (one pass where every ``|T| <=
+    127``), each limb's product with a limb of ``Cy`` recombined as ``256 *
+    P_hi + P_lo``; where a count passes 255, ``Cy`` split the same way and
+    ``H = T @ Cy_lo^T + 256 * (T @ Cy_hi^T)``; every value checked to stay
+    inside int32 (the proof's bounds); then the f32 conversion, the pinned
+    scale and the skew."""
     cxi, cyi = cx.to(torch.int64), cy.to(torch.int64)
     t = torch.matmul(cxi, s.to(torch.int64))
-    cyt = cyi.transpose(1, 2)
-    if bool((t.abs() <= 127).all()):
-        h_int = torch.matmul(t, cyt)
-    else:
-        hi, lo = t >> 8, t & 255
-        assert int(hi.min()) >= -128 and int(hi.max()) <= 127
-        h_int = torch.matmul(hi, cyt) * 256 + torch.matmul(lo, cyt)
+    one_pass = bool((t.abs() <= 127).all())
+    hi, lo = t >> 8, t & 255
+    assert one_pass or (int(hi.min()) >= -128 and int(hi.max()) <= 127)
+
+    def int32(h):
+        assert h.numel() == 0 or int(h.abs().max()) < 2**31
+        return h
+
+    def product(v):  # T @ V^T for a u8 limb V of Cy
+        vt = v.transpose(1, 2)
+        if one_pass:
+            return int32(torch.matmul(t, vt))
+        return int32(int32(int32(torch.matmul(hi, vt)) * 256) + int32(torch.matmul(lo, vt)))
+
+    h_int = product(cyi & 255)
+    if cyi.numel() and int(cyi.max()) > 255:
+        assert int(cyi.max()) <= 65535
+        h_int = int32(h_int + int32(product(cyi >> 8) * 256))
     assert h_int.numel() == 0 or int(h_int.abs().max()) < 2**24
     h = (h_int.to(torch.float32) * inv_x[:, :, None]) * inv_y[:, None, :]
     return skew(h, cx.shape[1], cy.shape[1])

@@ -110,10 +110,11 @@ def node_bounds(leaves: list[SideStats], tree: SequenceTree, max_s: float) -> li
 
     With these, ``tensor_core_exact`` of a join's bounds implies it of the
     true statistics (every predicate is monotone in them).  P2 (y counts at
-    most 255) is the one a family of more than 255 one-hot members fails
-    at its upper levels; P3-P5 hold wherever the merge's own guard
+    most 65535) holds at every node, whose counts are at most
+    ``COUNT_LIMIT``; P3-P5 hold wherever the merge's own guard
     ``bound**2 * max|S| < 2**24`` does, since every ``tot`` bound is at most
-    ``bound``."""
+    ``bound``.  So a level leaves the tensor cores only above a leaf whose
+    counts are not all integers (P1)."""
     out = [SideStats(st.ints, st.cmax, st.tot, st.tot * max_s) for st in leaves]
     for l, r in tree.joins:
         a, b = out[l], out[r]

@@ -94,6 +94,42 @@ def test_producer_tiers_at_the_predicate_edges(cuda, B, Lx, Ly, A_, tier):
     assert torch.equal(out.view(torch.int32), plain_scores(*ops).view(torch.int32))
 
 
+@pytest.mark.parametrize("y_count,x_total,max_s", [(992, 992, 17), (65535, 1, 127),
+                                                   (65535, 2, 127)])
+def test_mma_tier_with_wide_y_matches_plain(cuda, y_count, x_total, max_s):
+    """y counts past 255 (Cy as two u8 limbs): every other column a single
+    residue of ``y_count`` counts, so bands with and without a wide column;
+    x columns of ``x_total`` counts (one pass for 1, two limbs else), |H_int|
+    up to x_total * max_s * y_count.  The producer's and the fused kernel's
+    "mma" tiers, the producer's output NaN-poisoned, bit-equal to plain."""
+    rng = np.random.default_rng(y_count + x_total)
+    B, Lx, Ly, A_ = 3, 300, 700, 23
+    s = rng.integers(-max_s, max_s + 1, size=(A_, A_)).astype(np.float32)
+    s[0, 1], s[0, 2] = max_s, -max_s
+    cx = rng.multinomial(x_total, np.ones(A_) / A_, size=(B, Lx)).astype(np.float32)
+    cy = rng.multinomial(255, np.ones(A_) / A_, size=(B, Ly)).astype(np.float32)
+    cy[:, ::2] = 0
+    np.put_along_axis(cy[:, ::2], rng.integers(0, A_, size=(B, Ly // 2, 1)), float(y_count),
+                      axis=-1)
+    cx[:, 0] = 0
+    cx[:, 0, 0] = x_total
+    cy[:, :2] = 0
+    cy[:, 0, 1] = cy[:, 1, 2] = y_count
+    inv = lambda c: (np.float32(1) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+    assert fused_scores.tier_of(cx, cy, s) == "mma"
+    lens = [[Lx, Lx - 50, 1], [Ly, 1, Ly - 333]]
+    ops = operands_from_numpy(cx, inv(cx), cy, inv(cy), s, *lens, cuda)
+    out = torch.full((Lx + Ly + 1, B, Lx + 1), float("nan"), device=cuda)
+    fused_scores.fused_skewed_scores(*ops[:5], tier="mma", out=out)
+    assert torch.equal(out.view(torch.int32), plain_scores(*ops[:5]).view(torch.int32))
+    for traceback in (False, True):
+        want = fused_dp.wavefront_dp_fused_plain(*ops, (11, 1), "local", traceback)
+        got = fused_dp.wavefront_dp_fused(*ops, (11, 1), "local", traceback, tier="mma")
+        torch.cuda.synchronize()
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+
+
 def test_batch_driver_takes_the_tier_the_predicate_gives(cuda):
     """Integer profiles take the tensor-core tier on the card, dyadic ones
     the scalar tier, each to the CPU's results."""

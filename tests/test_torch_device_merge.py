@@ -142,6 +142,20 @@ def rescale_family(seed):
     return [p for p, _ in pairs], [j for _, j in pairs]
 
 
+def dyadic_family(seed):
+    """Four preprofile leaves within COUNT_LIMIT (totals of 300-900, so the
+    plan keeps their counts), leaf 0 with one dyadic count (half a residue):
+    every node above it has counts the tensor-core predicate refuses (P1)."""
+    rng = np.random.default_rng(seed)
+    pairs = [huge_preprofile(rng, f"s{i}", int(rng.integers(12, 30)),
+                             int(rng.integers(300, 900))) for i in range(4)]
+    port, jax = pairs[0]
+    port.profiles[TRACK_ID_PREPROFILE].counts[0, 0] += np.float32(0.5)  # the array both hold
+    assert np.array_equal(port.profiles[TRACK_ID_PREPROFILE].counts,
+                          jax.profiles[TRACK_ID_PREPROFILE].counts)
+    return [p for p, _ in pairs], [j for _, j in pairs]
+
+
 @pytest.mark.parametrize("seed", range(12))
 def test_over_limit_leaves_match_the_jax_progressive_merge(seed):
     port, jax = rescale_family(seed)
@@ -334,19 +348,21 @@ def jax_node_profiles(jax_seqs, tree: SequenceTree, cfg: JaxConfig, monkeypatch)
                                            for k in range(len(tree.joins))]
 
 
-@pytest.mark.parametrize("kind", ["one-hot", "rescale"])
+@pytest.mark.parametrize("kind", ["one-hot", "rescale", "dyadic"])
 def test_tier_bounds_hold_the_true_statistics(monkeypatch, kind):
     """For every node the host bound is at least the true count and total
     (from the JAX per-level path), so a level on "mma" has every join's
-    true statistics admitted; the one-hot family takes "mma" throughout and
-    the over-limit family "scalar" above its leaves, where true merged
-    counts pass 255 (P2)."""
+    true statistics admitted.  The one-hot family and the over-limit
+    family (merged counts past 255, up to COUNT_LIMIT: two u8 limbs of Cy)
+    take "mma" at every level; the dyadic family takes "scalar" at every
+    level holding a join whose true statistics the predicate refuses, the
+    root's among them."""
     if kind == "one-hot":
         port, jax = both(family())
         cfg = PralineConfig()
         tree = guide_tree(port, cfg)
     else:
-        port, jax = rescale_family(3)
+        port, jax = rescale_family(3) if kind == "rescale" else dyadic_family(3)
         tree = build_guide_tree(np.ones((4, 4)) - np.eye(4), "average")
         cfg = PralineConfig()
     s = B62.as_f32()
@@ -363,7 +379,9 @@ def test_tier_bounds_hold_the_true_statistics(monkeypatch, kind):
             l, r = tree.joins[k]
             if tier == "mma":
                 assert tensor_core_exact(true[l], true[r], m)
-    if kind == "one-hot":
+    if kind == "rescale":
+        assert max(true[n].cmax for n in range(len(port), len(true))) > 255
+    if kind != "dyadic":
         assert set(plan.tiers) == {"mma"}
     else:
         assert plan.tiers[-1] == "scalar"

@@ -121,15 +121,17 @@ def test_refusals_shared_with_jax(case):
 
 
 def test_y_counts_at_the_u8_edge():
-    """255 admitted, 256 refused (a u8 operand); the JAX package's bf16
-    operand takes 256, so there the two differ by design."""
+    """Counts of 255, 256 and 65535 admitted (Cy as two u8 limbs), 65536
+    refused; the JAX package's bf16 operand takes counts up to 256, so past
+    that the two differ by design."""
     cx = np.zeros((2, A), np.float32)
     cx[:, 0] = 1
-    for count, want in ((255, True), (256, False)):
+    for count, want, jax_admits in ((255, True, True), (256, True, True),
+                                    (65535, True, False), (65536, False, False)):
         cy = np.zeros((3, A), np.float32)
         cy[1, 0] = count
         port, jax = both_predicates([cx], [cy], B62.as_f32())
-        assert port is want and jax is True
+        assert port is want and jax is jax_admits
 
 
 @pytest.mark.parametrize("entry,count,want", [(7, 4681, True), (-7, 4681, True),
@@ -237,6 +239,77 @@ def test_limbs_equal_plain_and_jax_at_the_edges(B, Lx, Ly, A_):
     assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
+def wide_operands(seed, B, Lx, Ly, A_, x_total, y_count, max_s):
+    """Seeded operands with y counts past 255: x columns of ``x_total``
+    counts (one-hot for 1), S of entries in [-max_s, max_s]; every other y
+    column a single residue of ``y_count`` counts (a wide row), the rest
+    columns of at most 255 counts, so a band may hold both.  Column 0 of x
+    is ``x_total`` copies of residue 0, whose row of S holds +max_s and
+    -max_s; y columns 0 and 1 meet them (|H_int| = x_total * max_s *
+    y_count, of both signs)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(-max_s, max_s + 1, size=(A_, A_)).astype(np.float32)
+    s[0, 1], s[0, 2] = max_s, -max_s
+    cx = rng.multinomial(x_total, np.ones(A_) / A_, size=(B, Lx)).astype(np.float32)
+    cy = rng.multinomial(min(y_count, 255), np.ones(A_) / A_, size=(B, Ly)).astype(np.float32)
+    cy[:, ::2] = 0
+    np.put_along_axis(cy[:, ::2], rng.integers(0, A_, size=(B, (Ly + 1) // 2, 1)),
+                      float(y_count), axis=-1)
+    cx[:, 0] = 0
+    cx[:, 0, 0] = x_total
+    cy[:, :2] = 0
+    cy[:, 0, 1] = cy[:, 1, 2] = y_count
+    inv = lambda c: (np.float32(1.0) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+    return cx, inv(cx), cy, inv(cy), s
+
+
+@pytest.mark.parametrize("y_count,x_total,max_s", [
+    (256, 1, 127), (256, 992, 17), (992, 1, 127), (992, 992, 17),
+    (65535, 1, 127), (65535, 2, 127),
+])
+def test_limbs_equal_plain_and_jax_at_the_wide_y_edges(y_count, x_total, max_s):
+    """y counts of 256, 992 (the rescale's COUNT_LIMIT) and 65535 (both
+    limbs 255), with T one-pass (one-hot x) and two-limb (992 counts under
+    a matrix of max |S| 17, the rescale's own edge of P5; 2 counts under
+    127, |H_int| = 16,645,890 just under 2**24): the limb arithmetic with
+    Cy split in two is bit-equal to the plain and the JAX producer."""
+    B, Lx, Ly, A_ = 2, 7, 12, 23
+    cx, ivx, cy, ivy, s = wide_operands(y_count + x_total, B, Lx, Ly, A_, x_total, y_count, max_s)
+    x, y, m = stats_pair([cx.reshape(-1, A_)], [cy.reshape(-1, A_)], s)
+    assert y.cmax == y_count and m.max_s == max_s and (x.tmax <= 127) == (x_total == 1)
+    assert tensor_core_exact(x, y, m)
+    ops = operands_from_numpy(cx, ivx, cy, ivy, s, [1], [1], "cpu")[:5]
+    h_int = (torch.from_numpy(cx).double() @ torch.from_numpy(s).double()
+             @ torch.from_numpy(cy).double().transpose(1, 2))
+    assert h_int.max().item() == -h_int.min().item() == x_total * max_s * y_count
+    got = skewed_pair_scores_limbs(*ops)
+    plain = skewed_pair_scores(*ops)
+    want = np.asarray(jax_skewed(cx, ivx, cy, ivy, s))
+    assert got.shape == (Lx + Ly + 1, B, Lx + 1)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def test_operand_bytes_match_a_hand_count():
+    """The "mma" tier's scratch (``csrc/score_box.cuh`` ``MmaOperands``):
+    two 32-byte limbs and a flag byte a row of either side.  The fused
+    kernel's shared memory (``csrc/fused_dp.cu`` ``Layout``), counted by
+    hand at W = 512, T = 32, k = 15 (36 carried values) and W = 64, T = 32,
+    k = 2 (8 values): exchange 2 * W/32 * nx * 4, ring 2 * T * nx * 4,
+    candidates (W/32 + 1) * 20 rounded to 16, then on "mma" the box
+    T * (W + 4) * 4, the rows' two limbs W * 64, the bands' two limbs
+    2 * 2 * (W + T) * 32, the bands' inverses 2 * (W + T) * 4 and the
+    rows' W * 4."""
+    from praline_tpu_torch.kernels.fused_dp import smem_bytes
+
+    assert fused_scores.mma_scratch_bytes(3, 100, 70) == 3 * 100 * 65 + 3 * 70 * 65
+    assert fused_scores.mma_scratch_bytes(1, 1023, 1023) == 132_990
+    scalar = 4608 + 9216 + 352
+    assert smem_bytes(512, 32, 15, "scalar") == scalar
+    assert smem_bytes(512, 32, 15, "mma") == scalar + 66048 + 32768 + 69632 + 4352 + 2048
+    assert smem_bytes(64, 32, 2, "mma") == 128 + 2048 + 64 + 8704 + 4096 + 12288 + 768 + 256
+
+
 @pytest.mark.parametrize("matrix", [B62, PAM250])
 def test_limbs_one_pass_on_one_hot_profiles(matrix):
     """One-hot counts: every |T| <= 127, the kernel's single-pass case."""
@@ -283,14 +356,16 @@ def tiers_seen(monkeypatch):
 
 @pytest.mark.parametrize("kind,want", [
     ("onehot", ["mma"] * 3), ("members", ["mma"] * 3), ("dyadic", ["scalar"] * 3),
-    ("count_256", ["mma", "scalar", "scalar"]),
+    ("count_256", ["mma"] * 3), ("count_65535", ["mma"] * 3),
+    ("count_65536", ["mma", "scalar", "scalar"]), ("dyadic_y", ["mma", "scalar", "scalar"]),
 ])
 def test_batch_driver_routes_by_the_predicate(tiers_seen, kind, want):
     """Every chunk's producer launch takes the tier the predicate gives the
     chunk's own profiles (the plain version runs either way on the CPU).
     Chunks of two of the six pairs (0,1),(0,2) | (0,3),(1,2) | (1,3),(2,3):
-    profile 2 dyadic touches all three; a count of 256 in profile 3 (always
-    the y side) the last two."""
+    profile 2 dyadic touches all three; in profile 3 (always the y side) a
+    count of 256 or 65535 stays on the tensor cores (two u8 limbs), and a
+    count of 65536 or a dyadic count refuses the last two."""
     rng = np.random.default_rng(9)
     if kind == "onehot":
         profs = [Profile.from_tokens(rng.integers(0, 20, size=30).astype(np.int32), ALPHABET_AA)
@@ -299,8 +374,10 @@ def test_batch_driver_routes_by_the_predicate(tiers_seen, kind, want):
         profs = [member_profile(rng, 3, 30) for _ in range(4)]
         if kind == "dyadic":
             profs[2] = Profile(profs[2].counts * np.float32(0.5), profs[2].gaps, ALPHABET_AA)
-        elif kind == "count_256":
-            profs[3].counts[0, 0] = 256
+        elif kind.startswith("count_"):
+            profs[3].counts[0, 0] = int(kind.removeprefix("count_"))
+        elif kind == "dyadic_y":
+            profs[3].counts[0, 0] += np.float32(0.5)
     pairs = [(profs[i], profs[j]) for i in range(4) for j in range(i + 1, 4)]
     got = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu",
                                     bucket_sizes=(63,), batch_pairs=2)
