@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the eleven Hopper kernel sources (the score producer's two tiers,
+Builds the fifteen Hopper kernel sources (the score producer's two tiers,
 tensor-core and scalar, wavefront DP, fused producer + DP and lane-tiled
 DP on two sources, its checkpointed launches, the in-place composite and
-the ring's launch, each on a thread-block cluster a problem, traceback
-walk, the device merge's profile composition, and the benchmark's probes)
+the ring's launch, the in-place ones also on the tensor-core tier, each on
+a thread-block cluster a problem, traceback walk, the device merge's
+profile composition, and the benchmark's probes)
 from
 ``praline_tpu_torch/csrc`` with nvcc, one process per source, with
 ``-Xptxas -v`` (registers and spills of the producers, the DPs, the probes
@@ -26,9 +27,10 @@ two-kernel lane cap (3000x3000), at a long y
 (600x4000), at every cluster size (1 to 8 CTAs) and with lx leaving the
 high ranks idle, the tiled kernel against its plain version at 4 x
 700x600 (every mode, four series of 1, 2, 3 and 15 levels, both score
-sources, scores and traceback, NaN-poisoned, each cluster size from 1 to
+sources, in place on both tiers, scores and traceback, NaN-poisoned, each
+cluster size from 1 to
 16 CTAs with 1, 2 or 3 tiles a CTA in every mode at one of the series in
-turn) and, on one 4600x4400 traceback
+turn, on the tensor-core tier in one mode in turn) and, on one 4600x4400 traceback
 problem (at its default and three other geometries) and one 9000x500
 problem in place, against the plain DP; the probes at the benchmark's
 shapes (K7 f32[256, 1024] through 131072 links, into the subnormal range;
@@ -90,7 +92,10 @@ terminals equal the traceback launch's, every block's resumed bytes its
 rows of tb and the block walk's tapes ``replay_moves``'s; the forward
 launch (terminals and snapshot), one resume and one block walk against
 their plain versions, and at several tiles a CTA at B2 x 3000 x 400 (the
-same lanes, fewer diagonals) every launch against its plain version; the
+same lanes, fewer diagonals) and at the titin pair's 5 tiles of 448 lanes,
+the 75,000-nt pair's 10 of 480 and the long composites' 4 of 416
+(``[long=geometries]``) every launch against its plain version, every
+in-place launch on both tiers; the
 in-place two-track composite against the tiled
 kernel over the materialized composite and the plain DP; a titin-length
 pair (34,350 aa) by the full traceback and checkpointed (budget lowered
@@ -136,13 +141,16 @@ must hold ``dispatch:`` spans.  ``python3 chip_smoke.py long-routes``
 runs the build and these phases alone, ``python3 chip_smoke.py dist`` the
 pair mesh's, homology's and the ring's; ``python3 chip_smoke.py
 tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
-(for the parent beside this tree in one call).  One more run of each of the
+(for the parent beside this tree in one call), ``python3 chip_smoke.py
+long-times DIR`` K6's in-place launches on each tier that tree takes and
+the long routes end to end.  One more run of each of the
 first five main paths under ``torch.profiler`` gives the device time per
 kernel and the busy share.
-Every producer and fused launch of every main path must take the
-tensor-core tier (the launches are counted per tier), ``[homology]``'s too,
-whose merged preprofile counts pass 255 (``[producer=homology]`` holds its
-last producer call against plain).  Every phase raises
+Every producer, fused and in-place tiled launch of every main path must
+take the tensor-core tier (the launches are counted per tier),
+``[homology]``'s too, whose merged preprofile counts pass 255
+(``[producer=homology]`` holds its last producer call against plain); the
+ring's launch has one tier, scalar by measurement.  Every phase raises
 on failure.  The host layers are reached only through
 ``praline_tpu_torch``; the run fails if JAX or the JAX package was
 imported.  The last lines are a JSON summary of the kernels (with each
@@ -197,6 +205,9 @@ FUSED_LONG_SHAPES = ((2, 3000, 3000, 2500, "local"), (2, 600, 4000, 500, "semigl
 # (701 lanes: every tile width below leaves a ragged last tile), the gap
 # series (k = 2, 3, 1 and 15), and the cluster sizes R = 1 .. 16, each with
 # 1, 2 or 3 tiles a CTA (m = R % 3 + 1) and boxes of 32, 7 or 3 diagonals.
+# The hs source and the rows source's "scalar" tier run every geometry in
+# every mode; the "mma" tier runs geometry gi in mode gi % 3 (one mode a
+# geometry, in turn).
 TILED_SHAPE = (4, 700, 600, 1)
 TILED_SERIES = ((11, 1), (13, 7, 1), (5,), tuple(range(30, 0, -2)))
 TILED_GEOMETRIES = tuple((R, min(512, -(-(-(-701 // (R * (R % 3 + 1)))) // 32) * 32),
@@ -368,6 +379,13 @@ def phase_build():
                ("walk_kernel", "tiled_ckpt", "source", "rows", TILED_ROWS_CKPT),
                ("walk_kernel", "tiled_composite", "source", "composite", TILED_COMPOSITE),
                ("walk_kernel", "tiled_ring", "source", "ring", TILED_RING),
+               *(("walk_kernel_params", file, "source", f"{what} (mma{', wide' if w else ''})",
+                  pattern.format(w=w, k="{k}"))
+                 for file, what, pattern in (("tiled_mma", "rows", TILED_MMA),
+                                             ("tiled_ckpt_mma", "rows", TILED_MMA_CKPT),
+                                             ("tiled_composite_mma", "composite",
+                                              TILED_COMPOSITE_MMA))
+                 for w in (0, 1)),
                ("walk_kernel", "wavefront_dp", "min_blocks", 4, DP_WALK.format(n=4, k="{k}")),
                ("walk_kernel", "wavefront_dp", "min_blocks", 5, DP_WALK.format(n=5, k="{k}")),
                ("fused_cluster_kernel", "fused_dp", "tier", "mma", FUSED_MMA),
@@ -420,6 +438,11 @@ TILED_HS_CKPT = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_ROWS_CKPT = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_COMPOSITE = r"walk_kernel_paramsI.*CompositeSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_RING = r"walk_kernelI.*RingSourceELi{k}ELb0ELi512ELi1ELb0ELb1E"
+# the in-place sources on the "mma" tier (csrc/rows_box.cuh's BoxSource<WIDE,
+# tracks>, walk_kernel_params; w = 1: the launch with the Cy_hi bands)
+TILED_MMA = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi1EEELi{k}ELb0ELi512ELi1ELb0E"
+TILED_MMA_CKPT = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi1EEELi{k}ELb0ELi512ELi1ELb1E"
+TILED_COMPOSITE_MMA = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi8EEELi{k}ELb0ELi512ELi1ELb1E"
 DP_WALK = r"walk_kernelI.*HsSourceELi{k}ELb1ELi128ELi{n}E"
 
 
@@ -460,23 +483,29 @@ def phase_cluster_occupancy():
                 rows.append(f"R{R}:W{g.W}:{smem}B:{clusters}")
             say("clusters", kernel="fused_cluster_kernel", k=k, tier=tier, T=fused_dp.BOX_STEPS,
                 R_W_smem_active_clusters=",".join(rows))
+    sources = [("hs", None, False)] + [(src, tier, ckpt) for src in ("rows", "composite")
+                                       for tier in ("mma", "scalar") for ckpt in (False, True)
+                                       if src == "rows" or ckpt]
     for k in (2, 15):
-        for source in tiled_dp.SOURCES:
+        for source, tier, ckpt in sources:
             rows = []
             for R in range(1, tiled_dp.MAX_CTAS + 1):
                 for lanes in (320, 1024):
-                    g = tiled_dp.tiled_geometry(lanes * R, k, source, ctas=R)
-                    kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, int(source == "hs"))
+                    g = tiled_dp.tiled_geometry(lanes * R, k, source, ctas=R, tier=tier)
+                    code = 1 if source == "hs" else 2 if tier == "mma" else 0
+                    kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, code)
                     if kernel_smem != g.smem_bytes:
-                        raise AssertionError(f"tiled smem {g} k={k} {source}: kernel "
+                        raise AssertionError(f"tiled smem {g} k={k} {source} {tier}: kernel "
                                              f"{kernel_smem} B")
-                    clusters = tiled_dp.max_active_clusters(k, source, g)
+                    clusters = tiled_dp.max_active_clusters(k, source, g, ckpt, tier)
                     if clusters < 1:
-                        raise AssertionError(f"no cluster of {g} fits at k={k} on {source}")
+                        raise AssertionError(f"no cluster of {g} fits at k={k} on {source} "
+                                             f"{tier} ckpt={ckpt}")
                     rows.append(f"R{g.R}:m{g.m}:W{g.W}:{g.smem_bytes}B:"
                                 f"{'L2' if g.carry_scratch else 'smem'}:{clusters}")
-            say("clusters", kernel="walk_kernel", source_file="tiled_dp", k=k, score_source=source,
-                T=tiled_dp.MAX_STEPS, R_m_W_smem_carries_active_clusters=",".join(rows))
+            say("clusters", kernel="walk_kernel", k=k, score_source=source,
+                tier=tier or "none", checkpointed=ckpt, T=tiled_dp.MAX_STEPS,
+                R_m_W_smem_carries_active_clusters=",".join(rows))
 
 
 def same_outputs(got, want, what) -> float:
@@ -540,11 +569,17 @@ def producer_ops(lx, ly, A, tier, limbs=(1, 1)) -> tuple[float, float]:
     each has, :func:`mma_limbs`), and a cell's f32-rate work is the two
     scales and the recombination of those products (a multiply and an add
     each but the first)."""
-    t_ops, cells = float(lx.double().sum()) * A * A * 2, needed_cells(lx, ly)
+    f32_ops, int8_ops = score_ops(needed_cells(lx, ly), A, tier, limbs)
+    return float(lx.double().sum()) * A * A * 2 + f32_ops, int8_ops
+
+
+def score_ops(cells, A, tier, limbs=(1, 1)) -> tuple[float, float]:
+    """(f32, int8) operations of ``cells`` scores from T's rows on ``tier``
+    (:func:`producer_ops` without T = Cx @ S)."""
     if tier == "mma":
         products = limbs[0] * limbs[1]
-        return t_ops + cells * (2 + 2 * (products - 1)), cells * 2 * A * products
-    return t_ops + cells * (2 * A + 2), 0.0
+        return cells * (2 + 2 * (products - 1)), cells * 2 * A * products
+    return cells * (2 * A + 2), 0.0
 
 
 def mma_limbs(ops) -> tuple[int, int]:
@@ -575,14 +610,23 @@ def fused_bound(ops, out, tier) -> dict:
                  f32_ops + needed_cells(lx, ly) * DP_OPS_PER_CELL, int8_ops)
 
 
-def stacked_operands(rng, dev, s, B, bx, by, lo):
-    """Count-profile stacks of B pairs (lengths lo..bucket) on the card."""
+def stacked_operands(rng, dev, s, B, bx, by, lo, alphabet=None):
+    """Count-profile stacks of B pairs (lengths lo..bucket) on the card; with
+    an ``alphabet``, sequences of its residues (one-hot columns)."""
+    from praline_tpu_torch import Profile
     from praline_tpu_torch.bench import count_profiles
     from praline_tpu_torch.convert import profiles_to_stack
 
-    A = s.shape[0]
-    cx, ivx, lx = profiles_to_stack(count_profiles(rng, B, min(lo, bx), bx, A), bx, dev)
-    cy, ivy, ly = profiles_to_stack(count_profiles(rng, B, min(lo, by), by, A), by, dev)
+    def side(L):
+        if alphabet is None:
+            return count_profiles(rng, B, min(lo, L), L, s.shape[0])
+        residues = 4 if alphabet.size <= 5 else 20  # no wildcard
+        return [Profile.from_tokens(rng.integers(0, residues, size=int(rng.integers(min(lo, L),
+                                                                                  L + 1)))
+                                    .astype("int32"), alphabet) for _ in range(B)]
+
+    cx, ivx, lx = profiles_to_stack(side(bx), bx, dev)
+    cy, ivy, ly = profiles_to_stack(side(by), by, dev)
     return cx, ivx, cy, ivy, s, lx, ly
 
 
@@ -1338,10 +1382,11 @@ def fused_wide_times(dev, s, B, bx, lo, fused_counts) -> dict:
     return out
 
 
-def tiled_vs_plain(source, lx, ly, series, mode, want, what, **geometry) -> float:
-    """The tiled kernel into NaN-poisoned outputs (traceback where ``want``
-    has ``tb``), held bit for bit against the plain version's ``want``; the
-    largest score difference (0.0)."""
+def tiled_vs_plain(source, lx, ly, series, mode, want, what, tier=None, **geometry) -> float:
+    """The tiled kernel (on an in-place source, on ``tier``) into
+    NaN-poisoned outputs (traceback where ``want`` has ``tb``), held bit for
+    bit against the plain version's ``want``; the largest score difference
+    (0.0)."""
     import torch
 
     from praline_tpu_torch.kernels import tiled_dp
@@ -1349,27 +1394,37 @@ def tiled_vs_plain(source, lx, ly, series, mode, want, what, **geometry) -> floa
     out = {k: torch.full_like(v, float("nan") if v.is_floating_point()
                               else 0xAB if v.dtype == torch.uint8 else -7)
            for k, v in want.items()}
-    before = tiled_dp.launches
-    tiled_dp.wavefront_dp_tiled(source, lx, ly, series, mode, "tb" in want, out=out, **geometry)
-    if tiled_dp.launches != before + 1:
-        raise AssertionError("tiled: no launch counted")
-    return same_outputs(out, want, f"tiled {what}")
+    counts = (tiled_dp.composite_launches if tiled_dp.source_kind(source) == "composite"
+              else tiled_dp.launches)
+    key = tier or "hs"
+    before = counts[key]
+    tiled_dp.wavefront_dp_tiled(source, lx, ly, series, mode, "tb" in want, out=out, tier=tier,
+                                **geometry)
+    if counts[key] != before + 1:
+        raise AssertionError(f"tiled: no launch counted on {key}")
+    return same_outputs(out, want, f"tiled {what} {key}")
 
 
 def phase_tiled_vs_plain(dev) -> float:
     """The tiled kernel against its plain version at TILED_SHAPE: every
     mode, TILED_SERIES, both score sources (hs from the producer, and in
-    place), scores and traceback, each output NaN-poisoned; each of
-    TILED_GEOMETRIES in every mode on both sources, at one of the series
-    in turn (a series a mode takes four geometries).  The plain version's
-    result does not depend on the geometry, so it runs once a case (256-lane
-    tiles, 32 diagonals a box)."""
+    place on both tiers), scores and traceback, each output NaN-poisoned;
+    each of TILED_GEOMETRIES in every mode on hs and the rows source's
+    "scalar" tier, and in one mode in turn on its "mma" tier, at one of the
+    series in turn (a series a mode takes four geometries).  The result does
+    not depend on the geometry, so the plain version runs once a case, as
+    the plain DP over the plain scores (``kernels/scan.py::wavefront_dp``,
+    the kernel's contract and the tiled plain version's result, bit for
+    bit): one step a diagonal, where the tiled plain version takes one a
+    diagonal a tile."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
     from praline_tpu_torch.convert import matrix_to_torch
     from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
-    from praline_tpu_torch.kernels.tiled_dp import tiled_geometry, wavefront_dp_tiled_plain
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+    from praline_tpu_torch.kernels.tiled_dp import tiled_geometry
 
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     rng = np.random.default_rng(SEED + 6)
@@ -1378,32 +1433,36 @@ def phase_tiled_vs_plain(dev) -> float:
     for mi, mode in enumerate(MODES):
         for si, series in enumerate(TILED_SERIES):
             ops = stacked_operands(rng, dev, s, B, bx, by, lo)
-            sources = (("hs", fused_skewed_scores(*ops[:5], tier=producer_tier(ops))),
-                       ("rows", ops[:5]))
-            want = wavefront_dp_tiled_plain(ops[:5], ops[5], ops[6], series, mode, True,
-                                            tile_lanes=256, steps_per_visit=32)
+            sources = (("hs", fused_skewed_scores(*ops[:5], tier=producer_tier(ops)), None),
+                       ("rows", ops[:5], "mma"), ("rows", ops[:5], "scalar"))
+            want = plain_dp(plain_scores(*ops[:5]), ops[5], ops[6], series, mode, True)
             # geometry gi at series (gi + mi + 1) mod 4 in mode mi: the one
             # geometry whose carries go to the device-memory scratch (R = 1,
             # m = 2, 15 levels on hs) falls in local mode
-            turn = [g for gi, g in enumerate(TILED_GEOMETRIES)
+            turn = [(gi, g) for gi, g in enumerate(TILED_GEOMETRIES)
                     if (gi + mi + 1) % len(TILED_SERIES) == si]
-            for R, W, T in turn:
-                for name, source in sources:
-                    g = tiled_geometry(bx + 1, len(series), name, ctas=R, tile_lanes=W, steps=T)
+            for gi, (R, W, T) in turn:
+                for name, source, tier in sources:
+                    if tier == "mma" and gi % len(MODES) != mi:
+                        continue
+                    g = tiled_geometry(bx + 1, len(series), name, ctas=R, tile_lanes=W, steps=T,
+                                       tier=tier)
                     shapes.add((g.R, g.m, g.W, g.T))
                     carries.add("L2" if g.carry_scratch else "smem" if g.m > 1 else "registers")
                     for w in (want, scores_only(want)):
                         err = max(err, tiled_vs_plain(
                             source, ops[5], ops[6], series, mode, w,
                             f"{name} {mode} {series} traceback={'tb' in w} R={R} W={W} T={T} "
-                            f"B{B}x{bx}x{by}", ctas=R, tile_lanes=W, steps_per_visit=T))
+                            f"B{B}x{bx}x{by}", tier=tier, ctas=R, tile_lanes=W,
+                            steps_per_visit=T))
     if {R for R, *_ in shapes} != set(range(1, 17)) or {m for _, m, *_ in shapes} != {1, 2, 3} \
             or carries != {"registers", "smem", "L2"}:
         raise AssertionError(f"tiled=plain missed a cluster size, a tile count or a carry "
                              f"store: {sorted(shapes)} {carries}")
     say("tiled=plain", shape=f"B{B}x{bx}x{by}", lanes=bx + 1, modes=",".join(MODES),
-        series="|".join(",".join(map(str, g)) for g in TILED_SERIES), sources="hs,rows",
-        geometries="each in every mode at one series in turn",
+        series="|".join(",".join(map(str, g)) for g in TILED_SERIES),
+        sources="hs,rows(mma),rows(scalar)",
+        geometries="each in every mode at one series in turn (rows(mma): in one mode in turn)",
         R_m_W_T="|".join(",".join(map(str, g)) for g in sorted(shapes)),
         carries=",".join(sorted(carries)), traceback="both",
         result="bit-equal(all outputs, all tb bytes; NaN-poisoned)",
@@ -1415,8 +1474,8 @@ def phase_tiled_long(dev, usage) -> dict:
     """One problem past the fused kernel's 4096 lanes, with traceback: the
     tiled kernel (default geometry, hs source) against the plain DP, timed
     beside TILED_LONG_GEOMETRIES (each held to the same bits) and the rows
-    source; then scores mode past 8192 lanes on the rows source
-    (TILED_PAST_8192) against the plain DP."""
+    source on both tiers; then scores mode past 8192 lanes on the rows
+    source, both tiers (TILED_PAST_8192), against the plain DP."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
@@ -1436,8 +1495,9 @@ def phase_tiled_long(dev, usage) -> dict:
                        1, warm_up=False)
     want = plain[0]
 
-    def tiled(source=hs, **geometry):
-        return wavefront_dp_tiled(source, ops[5], ops[6], (11, 1), mode, True, **geometry)
+    def tiled(source=hs, tier=None, **geometry):
+        return wavefront_dp_tiled(source, ops[5], ops[6], (11, 1), mode, True, tier=tier,
+                                  **geometry)
 
     err = tiled_vs_plain(hs, ops[5], ops[6], (11, 1), mode, want, f"{mode} B{B}x{bx}x{by}")
     ms = cuda_ms(tiled, 5)
@@ -1448,9 +1508,17 @@ def phase_tiled_long(dev, usage) -> dict:
                        ctas=R, tile_lanes=W)
         others[f"R{g.R}_m{g.m}_W{g.W}_ms"] = cuda_ms(lambda: tiled(ctas=R, tile_lanes=W), 5)
     others["again_ms"] = cuda_ms(tiled, 5)
-    tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want, f"rows {mode} B{B}x{bx}x{by}")
-    others["rows_ms"] = cuda_ms(lambda: tiled(ops[:5]), 3)
+    for tier in ("mma", "scalar"):
+        tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want,
+                       f"rows {mode} B{B}x{bx}x{by}", tier=tier)
+        others[f"rows_{tier}_ms"] = cuda_ms(lambda: tiled(ops[:5], tier), 3)
     out = {"err": err, "ms": ms, "plain_ms": plain_ms, **dp_bound(ops[5], ops[6], want)}
+    gr = tiled_geometry(bx + 1, 2, "rows", tier="mma")
+    out["rows"] = {"ms": others["rows_mma_ms"], "scalar_ms": others["rows_scalar_ms"],
+                   "plain_ms": plain_ms, **fused_bound(ops, want, "mma"),
+                   "shape": f"B{B}x{bx}x{by} {mode} traceback",
+                   "geometry": {"R": gr.R, "m": gr.m, "W": gr.W, "T": gr.T,
+                                "smem_bytes": gr.smem_bytes}}
     g = tiled_geometry(bx + 1, 2)
     regs, spill_st, spill_ld = kernel_usage(usage, TILED_HS.format(k=2))
     out["geometry"] = {"R": g.R, "m": g.m, "W": g.W, "T": g.T, "smem_bytes": g.smem_bytes,
@@ -1468,14 +1536,16 @@ def phase_tiled_long(dev, usage) -> dict:
     t0 = time.perf_counter()
     ops = stacked_operands(np.random.default_rng(SEED + 15), dev, s, B, bx, by, lo)
     want = wavefront_dp_fused_plain(*ops, (11, 1), mode)
-    out["err"] = max(out["err"], tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want,
-                                                f"rows {mode} B{B}x{bx}x{by}"))
-    g = tiled_geometry(bx + 1, 2, "rows")
-    past = out["past_8192"] = {
-        "shape": f"B{B}x{bx}x{by}", "R": g.R, "m": g.m, "W": g.W,
-        "ms": cuda_ms(lambda: wavefront_dp_tiled(ops[:5], ops[5], ops[6], (11, 1), mode), 3)}
+    g = tiled_geometry(bx + 1, 2, "rows", tier="mma")
+    past = out["past_8192"] = {"shape": f"B{B}x{bx}x{by}", "R": g.R, "m": g.m, "W": g.W}
+    for tier in ("mma", "scalar"):
+        out["err"] = max(out["err"], tiled_vs_plain(ops[:5], ops[5], ops[6], (11, 1), mode, want,
+                                                    f"rows {mode} B{B}x{bx}x{by}", tier=tier))
+        past[f"{tier}_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], ops[5], ops[6], (11, 1),
+                                                                mode, tier=tier), 3)
     say("tiled-long", shape=past["shape"], mode=mode, lanes=bx + 1, source="rows",
-        R=g.R, m=g.m, W=g.W, scores="bit-equal to the plain DP", tiled_ms=round(past["ms"], 4),
+        R=g.R, m=g.m, W=g.W, scores="bit-equal to the plain DP (mma, scalar)",
+        mma_ms=round(past["mma_ms"], 4), scalar_ms=round(past["scalar_ms"], 4),
         seconds=round(time.perf_counter() - t0, 3))
     return out
 
@@ -1509,7 +1579,9 @@ def phase_tiled_times(dev):
             out[f"{tag}_tiled_ms"] = cuda_ms(lambda: wavefront_dp_tiled(hs, *args), 5)
             out[f"{tag}_producer_tiled_ms"] = cuda_ms(
                 lambda: wavefront_dp_tiled(fused_skewed_scores(*ops[:5], tier=tier), *args), 5)
-            out[f"{tag}_tiled_in_place_ms"] = cuda_ms(lambda: wavefront_dp_tiled(ops[:5], *args), 5)
+            for t in ("mma", "scalar"):
+                out[f"{tag}_tiled_in_place_{t}_ms"] = cuda_ms(
+                    lambda: wavefront_dp_tiled(ops[:5], *args, tier=t), 5)
             out[f"{tag}_fused_ms"] = cuda_ms(
                 lambda: wavefront_dp_fused(*ops, (11, 1), "global", tb, tier="mma"), 5)
             out[f"{tag}_fused_scalar_ms"] = cuda_ms(
@@ -1884,8 +1956,7 @@ def phase_compose(dev, shapes):
             route = batch.choose_route("cuda", C, C, True)
             tier = tier_of(counts[0::2][:J], counts[1::2][:J], s.cpu().numpy())
             walk = batch.dispatch(route, *ops, s, table.lens[li.long()], table.lens[ri.long()],
-                                  gap_series=(11, 1), mode=mode, traceback=True,
-                                  tier=tier if batch.takes_tier(route, C, C, dev) else None)
+                                  gap_series=(11, 1), mode=mode, traceback=True, tier=tier)
             moves, nm, ti, tj = walk["moves"], walk["nmoves"], walk["ti"], walk["tj"]
             lens = table.lens.cpu().numpy()
             if mode != "global" and J >= 3:
@@ -2292,10 +2363,21 @@ FORCED_TB_BUDGET = 1 << 24  # lowered in this process to force the checkpointed 
 # memory; the 75,000-nt pair m = 10, carries in the device-memory scratch):
 # m = 6 at LONG_CHECK's 3001 lanes, on LONG_MANY_TILES_SHAPE: the same
 # lanes, a short y (the plain checkpointed walk's time goes with the
-# diagonals)
+# diagonals); each geometry in one of LONG_CHECK_MODES, in turn
 LONG_MANY_TILES = (((11, 1), dict(ctas=2, tile_lanes=256), False),
                    ((13, 7, 1), dict(ctas=1, tile_lanes=512), True))
 LONG_MANY_TILES_SHAPE = (2, 3000, 400, 300)  # B, bx, by, shortest
+# The main paths' tiles a CTA at a size the plain versions take, one CTA:
+# the titin pair's (m = 5 of 448 lanes) and the 75,000-nt pair's (m = 10 of
+# 480) on the rows source, the long composites' (m = 4 of 416) on the
+# composite: (tag, (B, bx, by, shortest), geometry, matrix, mode, source)
+LONG_GEOMETRIES = (("titin-like", (2, 1800, 100, 1700), dict(ctas=1, tile_lanes=448),
+                    "blosum62", "local", "rows"),
+                   ("dna-like", (1, 4400, 60, 4350), dict(ctas=1, tile_lanes=480),
+                    "dna_simple", "global", "rows"),
+                   ("tracks-like", (2, 1300, 100, 1250), dict(ctas=1, tile_lanes=416),
+                    "blosum62", "semiglobal", "composite"))
+LONG_GEOMETRY_TILES = {"titin-like": (5, 448), "dna-like": (10, 480), "tracks-like": (4, 416)}
 
 
 def mutated(rng, root, alphabet_size, indels=20):
@@ -2350,15 +2432,29 @@ def cells_in_block(lx, ly, d0, d1) -> float:
     return total
 
 
-def checkpointed_vs_full(source, lx, ly, series, mode, R, full, want_moves, want_n, what):
+def in_place_launch(source, tier) -> dict:
+    """The keyword arguments of a checkpointed launch on ``source``: on an
+    in-place source its ``tier`` and the operands made once
+    (``tiled_dp.prepare_operands``), as the checkpointed route makes them;
+    none on hs."""
+    from praline_tpu_torch.kernels import tiled_dp
+
+    return {} if tier is None else dict(tier=tier,
+                                        operands=tiled_dp.prepare_operands(source, tier))
+
+
+def checkpointed_vs_full(source, lx, ly, series, mode, R, full, want_moves, want_n, what,
+                         tier=None):
     """The forward launch's terminals, every block's resumed bytes and the
-    block walk's tape against the full traceback launch and its walk."""
+    block walk's tape against the full traceback launch and its walk (on an
+    in-place source, on ``tier``)."""
     import torch
 
     from praline_tpu_torch.kernels import replay, tiled_dp
 
     D, B, Lp = full["tb"].shape[0] + 2, full["tb"].shape[1], full["tb"].shape[2]
-    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R)
+    launch = in_place_launch(source, tier)
+    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R, **launch)
     for key in ("score", "length", "ti", "tj", "tcode"):
         if not torch.equal(out[key], full[key]):
             raise AssertionError(f"{what}: forward {key} differs from the traceback launch")
@@ -2366,7 +2462,9 @@ def checkpointed_vs_full(source, lx, ly, series, mode, R, full, want_moves, want
     moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=lx.device)
     block = torch.empty((R, B, Lp), dtype=torch.uint8, device=lx.device)
     for q in range(snap.shape[0] - 1, -1, -1):
-        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R, q, snap, out=block)
+        block.fill_(0xAB)
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R, q, snap, out=block,
+                                           **launch)
         rows = min(R, D - 2 - q * R)
         if not torch.equal(block[:rows], full["tb"][q * R: q * R + rows]):
             raise AssertionError(f"{what}: block {q} of {R} diagonals differs from tb")
@@ -2395,16 +2493,18 @@ def plain_checkpointed(hs, lx, ly, series, mode, R):
     return out, snap, blocks, moves, state[5]
 
 
-def many_tiles_vs_plain(source, lx, ly, series, mode, R, plain, geometry, what):
-    """At ``geometry``: the forward launch's terminals and snapshot, every
-    block's resumed bytes, the block walk's tape, and the full traceback
+def many_tiles_vs_plain(source, lx, ly, series, mode, R, plain, geometry, what, tier=None):
+    """At ``geometry`` (on an in-place source, on ``tier``): the forward
+    launch's terminals and snapshot, every block's resumed bytes
+    (NaN-poisoned: 0xAB), the block walk's tape, and the full traceback
     launch's terminals and bytes against :func:`plain_checkpointed`'s."""
     import torch
 
     from praline_tpu_torch.kernels import replay, tiled_dp
 
     want_out, want_snap, want_blocks, want_moves, want_n = plain
-    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R, **geometry)
+    launch = in_place_launch(source, tier) | geometry
+    out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R, **launch)
     torch.cuda.synchronize()
     for key in want_out:
         if not torch.equal(out[key], want_out[key]):
@@ -2415,8 +2515,9 @@ def many_tiles_vs_plain(source, lx, ly, series, mode, R, plain, geometry, what):
     moves = torch.zeros_like(want_moves)
     block = torch.empty_like(want_blocks[0])
     for q in range(snap.shape[0] - 1, -1, -1):
+        block.fill_(0xAB)
         tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R, q, snap, out=block,
-                                           **geometry)
+                                           **launch)
         rows = min(R, want_moves.shape[1] - 1 - q * R)  # rows past D - 1 are not written
         if not torch.equal(block[:rows], want_blocks[q][:rows]):
             raise AssertionError(f"{what}: block {q} differs from plain")
@@ -2424,21 +2525,24 @@ def many_tiles_vs_plain(source, lx, ly, series, mode, R, plain, geometry, what):
     torch.cuda.synchronize()
     if not (torch.equal(moves, want_moves) and torch.equal(state[5], want_n)):
         raise AssertionError(f"{what}: the block walk's tape differs from plain")
-    full = tiled_dp.wavefront_dp_tiled(source, lx, ly, series, mode, True, **geometry)
-    rows = full["tb"].shape[0]
-    want_tb = torch.cat(want_blocks)[:rows]
-    same_outputs(full, {**want_out, "tb": want_tb}, f"{what}: the traceback launch")
+    rows = want_moves.shape[1] - 1
+    want = {**want_out, "tb": torch.cat(want_blocks)[:rows]}
+    tiled_vs_plain(source, lx, ly, series, mode, want, f"{what}: the traceback launch", tier=tier,
+                   **geometry)
 
 
 def phase_long_kernels(dev) -> dict:
     """The checkpointed launches at B2 x 3000 x 2800: in global and local
-    modes on both sources, at R = the default and 64, the forward launch's
+    modes on both sources (rows on both tiers), at R = the default and 64,
+    the forward launch's
     terminals equal the traceback launch's, every block's resumed bytes its
     rows of tb (all cells) and the block walk's tapes replay_moves's; the
     forward launch's snapshot and one block's bytes and walk against their
     plain versions, bit for bit; the in-place composite (BLOSUM62 + PAM250,
     weights 1 and 0.5) bit-equal to the tiled kernel over the materialized
-    composite hs, and against the plain DP.  Each new launch timed."""
+    composite hs, and against the plain DP; every launch at the titin and
+    DNA pairs' tiles a CTA (LONG_GEOMETRIES) against its plain version.
+    Each in-place launch timed on both tiers."""
     import numpy as np
     import torch
 
@@ -2465,14 +2569,15 @@ def phase_long_kernels(dev) -> dict:
         full = tiled_dp.wavefront_dp_tiled(hs, lx, ly, series, mode, True)
         want_moves, want_n = replay.replay_moves(full["tb"], full["ti"], full["tj"],
                                                  full["tcode"], series, mode, D - 1)
-        for name, source in (("hs", hs), ("rows", ops[:5])):
+        for name, source, tier in (("hs", hs, None), ("rows", ops[:5], "mma"),
+                                   ("rows", ops[:5], "scalar")):
             for R in (R0, 64):
-                blocks[f"{mode}:{name}:R{R}"] = checkpointed_vs_full(
+                blocks[f"{mode}:{name}{'/' + tier if tier else ''}:R{R}"] = checkpointed_vs_full(
                     source, lx, ly, series, mode, R, full, want_moves, want_n,
-                    f"{mode} {name} R={R}")
+                    f"{mode} {name} R={R}", tier)
         del full
     say("long=checkpointed", shape=f"B{B}x{bx}x{by}", modes=",".join(LONG_CHECK_MODES),
-        sources="hs,rows", intervals=f"{R0},64", blocks=json.dumps(blocks),
+        sources="hs,rows(mma),rows(scalar)", intervals=f"{R0},64", blocks=json.dumps(blocks),
         result="forward terminals = traceback launch; every block's bytes = tb rows (all "
                "cells); block-walk tapes = replay_moves", seconds=round(time.perf_counter() - t0, 3))
 
@@ -2493,62 +2598,106 @@ def phase_long_kernels(dev) -> dict:
     mcomp, mcomp_hs = composite(mops)
     mR = default_ckpt_interval(mbx + mby + 1)
     geometries = []
-    for series, geometry, scratch in LONG_MANY_TILES:
+    for gi, (series, geometry, scratch) in enumerate(LONG_MANY_TILES):
         for kind in tiled_dp.SOURCES:
             g = tiled_dp.tiled_geometry(Lp, len(series), kind, **geometry)
             if g.m < 2 or g.carry_scratch != scratch:
                 raise AssertionError(f"{geometry} on {kind}: {g}, not the geometry checked")
         geometries.append(f"R{g.R}xm{g.m}xW{g.W}:k{len(series)}:"
                           f"{'scratch' if scratch else 'smem'}")
+        # both modes on hs and the "scalar" tier; the "mma" tier in one mode a
+        # geometry, in turn
+        mma_mode = LONG_CHECK_MODES[gi % len(LONG_CHECK_MODES)]
         for mode in LONG_CHECK_MODES:
-            cases = [(mhs, (("hs", mhs), ("rows", mops[:5])))]
+            tiers = ("scalar", "mma") if mode == mma_mode else ("scalar",)
+            cases = [(mhs, (("hs", mhs, None), *(("rows", mops[:5], t) for t in tiers)))]
             if mode == "local":
-                cases.append((mcomp_hs, (("composite", mcomp),)))
+                cases.append((mcomp_hs, tuple(("composite", mcomp, t) for t in tiers)))
             for scores, sources in cases:
                 plain = plain_checkpointed(scores, mops[5], mops[6], series, mode, mR)
-                for name, source in sources:
+                for name, source, tier in sources:
                     many_tiles_vs_plain(source, mops[5], mops[6], series, mode, mR, plain,
-                                        geometry, f"{mode} {name} {geometry} k={len(series)}")
+                                        geometry, f"{mode} {name} {geometry} k={len(series)}",
+                                        tier)
                 del plain
+        geometries[-1] += f":mma-{mma_mode}"
     del mops, mhs, mcomp, mcomp_hs
-    comp, comp_hs = composite(ops)
     say("long=many-tiles", shape=f"B{mB}x{mbx}x{mby}", R=mR, geometries=",".join(geometries),
-        modes=",".join(LONG_CHECK_MODES), sources="hs,rows,composite(local)",
+        modes=",".join(LONG_CHECK_MODES),
+        sources="hs,rows(scalar; mma in one mode a geometry),"
+                "composite(local; scalar, mma where the geometry's mode is local)",
         result="forward terminals and snapshot, every block's bytes, the block walk's tape and "
                "the traceback launch (terminals, all bytes) bit-equal to plain",
         seconds=round(time.perf_counter() - t1, 3))
 
-    # against the plain versions (global, rows source, R0), timed
+    # the titin-like and DNA-like tiles a CTA (m = 5 of 448 lanes, m = 10 of
+    # 480), every launch of the rows source and the composite on both tiers
+    t1 = time.perf_counter()
+    for tag, (gB, gbx, gby, glo), geometry, matrix, mode, name in LONG_GEOMETRIES:
+        gm = builtin_score_matrix(matrix)
+        gops = stacked_operands(np.random.default_rng(SEED + 26), dev, matrix_to_torch(gm, dev),
+                                gB, gbx, gby, glo, None if matrix == "blosum62" else gm.alphabet)
+        g = tiled_dp.tiled_geometry(gbx + 1, 2, name, tier="mma", **geometry)
+        if (g.m, g.W) != LONG_GEOMETRY_TILES[tag]:
+            raise AssertionError(f"{tag}: {g}, not the geometry checked")
+        gR = default_ckpt_interval(gbx + gby + 1)
+        source, scores = ((gops[:5], plain_scores(*gops[:5])) if name == "rows"
+                          else composite(gops))
+        plain = plain_checkpointed(scores, gops[5], gops[6], series, mode, gR)
+        for tier in ("mma", "scalar"):
+            many_tiles_vs_plain(source, gops[5], gops[6], series, mode, gR, plain, geometry,
+                                f"{tag} {mode} {name}", tier)
+        del gops, source, scores, plain
+    say("long=geometries", cases=",".join(
+        f"{tag}:{name}:{mode}:B{sh[0]}x{sh[1]}x{sh[2]}:m{LONG_GEOMETRY_TILES[tag][0]}:"
+        f"W{LONG_GEOMETRY_TILES[tag][1]}:{matrix}"
+        for tag, sh, _, matrix, mode, name in LONG_GEOMETRIES),
+        sources="rows,composite(blosum62+pam250)", tiers="mma,scalar",
+        result="forward, every resumed block (poisoned), the block walk and the traceback "
+               "launch bit-equal to plain", seconds=round(time.perf_counter() - t1, 3))
+    comp, comp_hs = composite(ops)
+
+    # against the plain versions (global, rows source, R0), timed on both
+    # tiers, the operands made once as the checkpointed route makes them
     mode, source = "global", ops[:5]
     plain = []
     plain_fwd_ms = cuda_ms(lambda: plain.append(forward_snapshots(hs, lx, ly, series, mode, R0)),
                            1, warm_up=False)
     want_out, want_snap = plain[0]
-    got, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R0)
-    torch.cuda.synchronize()
-    if not all(torch.equal(got[k], want_out[k]) for k in want_out) or \
-            not torch.equal(snap.view(torch.int32), want_snap.view(torch.int32)):
-        raise AssertionError("forward launch: terminals or snapshot differ from plain")
-    fwd_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode,
-                                                                 R0), 3)
-    q = snap.shape[0] // 2
+    launches = {tier: in_place_launch(source, tier) for tier in ("mma", "scalar")}
+    fwd_ms, resume_ms, comp_ms, comp_err = {}, {}, {}, 0.0
+    q = want_snap.shape[0] // 2
     d0 = 2 + q * R0
     block = torch.empty((R0, B, Lp), dtype=torch.uint8, device=dev)
     pblock = []
-    plain_resume_ms = cuda_ms(lambda: pblock.append(resume_block(hs, snap, q, R0, series, mode)),
-                              1, warm_up=False)
-    tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, q, snap, out=block)
-    torch.cuda.synchronize()
-    if not torch.equal(block, pblock[0]):
-        raise AssertionError(f"resume launch: block {q} differs from plain")
-    resume_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_resume(
-        source, lx, ly, series, mode, R0, q, snap, out=block), 5)
+    plain_resume_ms = cuda_ms(lambda: pblock.append(resume_block(hs, want_snap, q, R0, series,
+                                                                 mode)), 1, warm_up=False)
+    for tier, launch in launches.items():
+        got, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, series, mode, R0,
+                                                        **launch)
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[k], want_out[k]) for k in want_out) or \
+                not torch.equal(snap.view(torch.int32), want_snap.view(torch.int32)):
+            raise AssertionError(f"forward launch ({tier}): terminals or snapshot differ from "
+                                 "plain")
+        fwd_ms[tier] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_forward(
+            source, lx, ly, series, mode, R0, **launch), 3)
+        block.fill_(0xAB)
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, q, snap, out=block,
+                                           **launch)
+        torch.cuda.synchronize()
+        if not torch.equal(block, pblock[0]):
+            raise AssertionError(f"resume launch ({tier}): block {q} differs from plain")
+        resume_ms[tier] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_resume(
+            source, lx, ly, series, mode, R0, q, snap, out=block, **launch), 5)
     # the block walk from the state where the walks enter block q
+    launch = launches["mma"]
     state = replay.walk_state(got["ti"], got["tj"], got["tcode"], len(series))
     moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=dev)
     bits = torch.empty_like(block)
     for p in range(snap.shape[0] - 1, q, -1):
-        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, p, snap, out=bits)
+        tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, p, snap, out=bits,
+                                           **launch)
         replay.replay_block(bits, state, moves, p, series, mode)
     entry = (state.clone(), moves.clone())
     st_p, mv_p = entry[0].clone(), entry[1].clone()
@@ -2566,38 +2715,46 @@ def phase_long_kernels(dev) -> dict:
 
     walk_ms = cuda_ms(walk_again, 10)
 
-    # the in-place composite beside the materialized composite hs
+    # the in-place composite on both tiers beside the materialized composite hs
     want = tiled_dp.wavefront_dp_tiled(comp_hs, lx, ly, series, "local", True)
-    got_c = tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "local", True)
-    same_outputs(got_c, want, "composite source vs the tiled kernel over the composite hs")
     pl = []
     comp_plain_ms = cuda_ms(lambda: pl.append(plain_dp(comp_hs, lx, ly, series, "global")),
                             1, warm_up=False)
-    comp_err = same_outputs(tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "global"), pl[0],
-                            "composite source vs the plain DP")
-    comp_ms = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled(comp, lx, ly, series, "global"), 3)
-    del comp_hs, want, got_c, pl
+    for tier in ("mma", "scalar"):
+        tiled_vs_plain(comp, lx, ly, series, "local", want,
+                       "composite source vs the tiled kernel over the composite hs", tier=tier)
+        comp_err = max(comp_err, tiled_vs_plain(comp, lx, ly, series, "global", pl[0],
+                                                "composite source vs the plain DP", tier=tier))
+        comp_ms[tier] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled(
+            comp, lx, ly, series, "global", tier=tier), 3)
+    del comp_hs, want, pl
 
-    # bounds: operands read once, outputs (snapshot, block bytes, tape) written once
+    # bounds on the tier the path takes ("mma"): operands read once,
+    # outputs (snapshot, block bytes, tape) written once
     A = s.shape[0]
     cells = needed_cells(lx, ly)
-    ops_rows = producer_ops(lx, ly, A, "scalar")[0] + cells * DP_OPS_PER_CELL
+    limbs = mma_limbs(ops)
+    f32_ops, int8_ops = producer_ops(lx, ly, A, "mma", limbs)
     snap_bytes = nbytes(snap)
-    fwd_bound = bound(operand_bytes(lx, ly, A) + snap_bytes + 5 * 4 * B, ops_rows)
+    fwd_bound = bound(operand_bytes(lx, ly, A) + snap_bytes + 5 * 4 * B,
+                      f32_ops + cells * DP_OPS_PER_CELL, int8_ops)
     blk_cells = cells_in_block(lx, ly, d0, d0 + R0 - 1)
+    blk_f32, blk_int8 = score_ops(blk_cells, A, "mma", limbs)
     resume_bound = bound(operand_bytes(lx, ly, A) + snap_bytes / snap.shape[0] + blk_cells,
-                         blk_cells * (2 * A + 2 + DP_OPS_PER_CELL))
+                         blk_f32 + blk_cells * DP_OPS_PER_CELL, blk_int8)
     walk_bound = bound(2 * emitted + 2 * nbytes(state), 0.0)
     comp_bound = bound(2 * operand_bytes(lx, ly, A) + 5 * 4 * B,
-                       2 * producer_ops(lx, ly, A, "scalar")[0] + cells * (2 + DP_OPS_PER_CELL))
+                       2 * f32_ops + cells * (2 + DP_OPS_PER_CELL), 2 * int8_ops)
     out = {
-        "forward": {"ms": fwd_ms, "plain_ms": plain_fwd_ms, **fwd_bound,
-                    "shape": f"B{B}x{bx}x{by} global rows R={R0}"},
-        "resume": {"ms": resume_ms, "plain_ms": plain_resume_ms, **resume_bound,
+        "forward": {"ms": fwd_ms["mma"], "scalar_ms": fwd_ms["scalar"], "plain_ms": plain_fwd_ms,
+                    **fwd_bound, "shape": f"B{B}x{bx}x{by} global rows R={R0}"},
+        "resume": {"ms": resume_ms["mma"], "scalar_ms": resume_ms["scalar"],
+                   "plain_ms": plain_resume_ms, **resume_bound,
                    "shape": f"B{B}x{bx}x{by} global rows R={R0} block {q}"},
         "walk_block": {"ms": walk_ms, "plain_ms": plain_walk_ms, **walk_bound,
                        "shape": f"B{B} block {q} of {R0} diagonals, {int(emitted)} moves"},
-        "composite": {"ms": comp_ms, "plain_ms": comp_plain_ms, **comp_bound, "err": comp_err,
+        "composite": {"ms": comp_ms["mma"], "scalar_ms": comp_ms["scalar"],
+                      "plain_ms": comp_plain_ms, **comp_bound, "err": comp_err,
                       "shape": f"B{B}x{bx}x{by} two tracks global scores"},
     }
     say("long=plain", shape=f"B{B}x{bx}x{by}", R=R0, block=q,
@@ -2605,8 +2762,8 @@ def phase_long_kernels(dev) -> dict:
                "composite source = tiled over the composite hs (local traceback, all bytes) "
                "= plain DP (global scores)",
         **{f"{k}_{m}": round(v[m], 4) for k, v in out.items()
-           for m in ("ms", "plain_ms", "bound_ms")},
-        seconds=round(time.perf_counter() - t0, 3))
+           for m in ("ms", "scalar_ms", "plain_ms", "bound_ms") if m in v},
+        tier="ms: mma, scalar_ms: scalar", seconds=round(time.perf_counter() - t0, 3))
     return out
 
 
@@ -2654,7 +2811,8 @@ def phase_titin_pair(dev) -> dict:
     cx, ivx, cy, ivy, lx, ly = stack_pair(dev, x, y, ALPHABET_AA)
     s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
     bx, by = cx.shape[1], cy.shape[1]
-    kw = dict(gap_series=(11, 1), mode="global", traceback=True, tier=None)
+    kw = dict(gap_series=(11, 1), mode="global", traceback=True,
+              tier=producer_tier((cx, ivx, cy, ivy, s)))
     route = batch.choose_route(dev, bx, by, True)
     if route != "tiled" or batch.tiled_source(bx, by, dev) != "rows":
         raise AssertionError(f"titin {bx}x{by}: route {route}, not the tiled rows source")
@@ -2718,7 +2876,8 @@ def run_dna_long(dev) -> dict:
             if not np.array_equal(cols[cols != GAP], np.arange(toks.size)):
                 raise AssertionError(f"dna {length}: the alignment does not degap to its input")
         entry = {"lengths": f"{len(x)}x{len(y)}", "route": route, "s": secs,
-                 "peak_bytes": peak, "score": r.score, "columns": int(r.cols_x.size)}
+                 "peak_bytes": peak, "score": r.score, "columns": int(r.cols_x.size),
+                 "digest": results_digest(res)}
         if name == "past":
             scores = batch.align_pairs_batched(pairs, m, (11, 1), "global", device=dev)
             if scores[0].score != r.score:
@@ -2739,6 +2898,8 @@ def titin_family():
 def run_titin_family(dev, seqs) -> dict:
     """``msa_align`` of the titin-length family, unforced and with the
     traceback budget lowered: the same FASTA bytes."""
+    import hashlib
+
     from praline_tpu_torch import (
         METRICS, PralineConfig, builtin_score_matrix, format_alignment_fasta, msa_align,
     )
@@ -2755,7 +2916,9 @@ def run_titin_family(dev, seqs) -> dict:
         texts.append(format_alignment_fasta(aln))
         out[name] = {"s": secs, "peak_bytes": peak, "columns": aln.num_columns,
                      "routes": dict(batch.route_counts),
-                     "checkpointed_chunks": batch.checkpointed_chunks}
+                     "checkpointed_chunks": batch.checkpointed_chunks,
+                     "stages_s": {k: round(v.seconds, 4) for k, v in METRICS.stages.items()},
+                     "fasta_sha256": hashlib.sha256(texts[-1].encode()).hexdigest()}
         say("long=titin-family", run=name, sequences=len(seqs),
             lengths=f"{min(q.length for q in seqs)}-{max(q.length for q in seqs)}",
             **out[name], merge_walk="per-level")
@@ -2799,7 +2962,8 @@ def run_tracks_long(dev) -> dict:
         if route != want:
             raise AssertionError(f"tracks-long {name}: took {route}, not {want}")
         results.append(res)
-        out[name] = {"route": route, "s": secs, "peak_bytes": peak}
+        out[name] = {"route": route, "s": secs, "peak_bytes": peak,
+                     "digest": results_digest(res)}
         say("long=tracks", run=name, pairs=len(pairs), **out[name])
     for a, b in zip(*results):
         if a.score != b.score or not (np.array_equal(a.cols_x, b.cols_x)
@@ -3178,7 +3342,8 @@ def ring_entry(dev, ops, series, mode, Lp_pad, d0):
     carries = ring_carries(whole, series, mode)
     q = (d0 - 2) // 32
     if q:
-        _, snap = tiled_dp.wavefront_dp_tiled_forward(ops[:5], lx, ly, series, mode, 32 * q)
+        _, snap = tiled_dp.wavefront_dp_tiled_forward(ops[:5], lx, ly, series, mode, 32 * q,
+                                                      tier=producer_tier(ops))
         carries[:, :, :cx.shape[1] + 1] = snap[1]
     ds = 2 + 32 * q
     if d0 > ds:
@@ -3263,7 +3428,7 @@ def phase_ring_kernel(dev, usage=None) -> dict:
             target = p * Lpn + Lpn // 2 if (mi + si) % 2 else lx0 + ly0
             d0 = max(2, min(target - K // 2, bx + by - 1))
             g = tiled_dp.tiled_geometry(Lpn, len(series), "rows", steps=tiled_dp.ring_steps(K),
-                                        **{k: v for k, v in geometry.items()})
+                                        tier="scalar", **geometry)
             shapes.add((g.R, g.m, g.W, g.T, "scratch" if g.carry_scratch else
                         "smem" if g.m > 1 else "registers"))
             what = f"{mode} {series} K={K} rank {p}/{n} d0={d0} {geometry}"
@@ -3286,7 +3451,8 @@ def phase_ring_kernel(dev, usage=None) -> dict:
         ranks=RING_SHAPE[4], lanes_a_rank=Lpn, cases=",".join(cases),
         R_m_W_T_carries="|".join(",".join(map(str, g)) for g in sorted(shapes)),
         result="carries, tails, candidate and tb bytes bit-equal to ring_superstep_plain "
-               "(scores and traceback; NaN-poisoned)", seconds=round(time.perf_counter() - t0, 3))
+               "(scores and traceback; NaN-poisoned)",
+        seconds=round(time.perf_counter() - t0, 3))
 
     # one launch at the titin pair's rank shape: rank 1 of 2, K = 32, mid-walk
     t1 = time.perf_counter()
@@ -3309,7 +3475,7 @@ def phase_ring_kernel(dev, usage=None) -> dict:
     times = {}
     for ctas, lanes, steps in RING_TIMES:
         kw = dict(ctas=ctas, tile_lanes=lanes, steps_per_visit=steps)
-        g = tiled_dp.tiled_geometry(Lpn, 2, "rows", ctas=ctas, tile_lanes=lanes,
+        g = tiled_dp.tiled_geometry(Lpn, 2, "rows", ctas=ctas, tile_lanes=lanes, tier="scalar",
                                     steps=steps or tiled_dp.ring_steps(K))
         ring_vs_plain(rows, lx, ly, series, mode, d0, K, carries, heads, cand, kw,
                       f"titin rank R={g.R} m={g.m} W={g.W} T={g.T}")
@@ -3317,15 +3483,15 @@ def phase_ring_kernel(dev, usage=None) -> dict:
             lambda: tiled_dp.wavefront_dp_tiled_ring(rows, lx, ly, series, mode, False, d0, K,
                                                      carries, heads, tails, cand, **outs, **kw),
             10)
-    g = tiled_dp.tiled_geometry(Lpn, 2, "rows", steps=tiled_dp.ring_steps(K))
+    g = tiled_dp.tiled_geometry(Lpn, 2, "rows", steps=tiled_dp.ring_steps(K), tier="scalar")
     default = f"R{g.R}_m{g.m}_W{g.W}_T{g.T}"
     A = s.shape[0]
     cells = cells_in_lanes(lx, ly, d0, d0 + K - 1, Lpn, 2 * Lpn - 1)
     y_cols = min(K + Lpn, cy.shape[1])  # the y columns the chunk reads
     nbytes_ = (Lpn + y_cols) * (A + 1) * 4 + A * A * 4 + 2 * nbytes(carries) + \
         2 * nbytes(heads) + 2 * nbytes(cand)
-    out = {"ms": times[default], "plain_ms": plain_ms,
-           **bound(nbytes_, cells * (2 * A + 2 + DP_OPS_PER_CELL)),
+    out = {"ms": times[default], "tier": "scalar", "plain_ms": plain_ms,
+           **bound(nbytes_, score_ops(cells, A, "scalar")[0] + cells * DP_OPS_PER_CELL),
            "shape": f"rank 1 of 2 of B1x{cx.shape[1]}x{cy.shape[1]} (Lpn {Lpn}), K={K} at "
                     f"d0={d0}, global, scores",
            "geometry": default, "variants": times}
@@ -3379,7 +3545,7 @@ def phase_ring(dev) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     ops = ring_operands(dev)
     lx, ly = ops[5], ops[6]
-    full = wavefront_dp_tiled(ops[:5], lx, ly, (11, 1), "global", True)
+    full = wavefront_dp_tiled(ops[:5], lx, ly, (11, 1), "global", True, tier=producer_tier(ops))
     D = full["tb"].shape[0] + 2
     moves, nmv = replay_moves(full["tb"], full["ti"], full["tj"], full["tcode"], (11, 1),
                               "global", D - 1)
@@ -3713,11 +3879,20 @@ def phase_profile(name, fn):
              for e in top]))
 
 
-KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "tiled",
-           "walk", "compose", "alu_chains", "smem_chain", "write_blocks", "tiled_forward",
-           "tiled_resume", "tiled_composite", "walk_block", "ring")
+# The tiled kernel's launches: each counted in all and by score source and
+# tier (hs, or the in-place sources' "mma" and "scalar"); the ring's launch
+# (one tier, "scalar") in all.
+TILED_KERNELS = {"tiled": ("hs", "mma", "scalar"), "tiled_forward": ("hs", "mma", "scalar"),
+                 "tiled_resume": ("hs", "mma", "scalar"), "tiled_composite": ("mma", "scalar")}
+KERNELS = ("scores_mma", "scores_scalar", "dp", "fused", "fused_mma", "fused_scalar", "walk",
+           "compose", "alu_chains", "smem_chain", "write_blocks", "walk_block", "ring",
+           *(k for name, keys in TILED_KERNELS.items()
+             for k in (name, *(f"{name}_{key}" for key in keys))))
 # The launches of the long routes, which only the long paths make.
 LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block")
+# Kernels whose "scalar" launches no main path may make unless it names them.
+TIERED_KERNELS = ("scores", "fused", "tiled", "tiled_forward", "tiled_resume",
+                  "tiled_composite")
 # The kernels each main path must launch, and the only ones of the tiled,
 # long-route and scalar-tier kernels it may launch: the all-pairs headline
 # on its default route (two-kernel) and forced onto the fused route, the
@@ -3737,21 +3912,24 @@ LONG_KERNELS = ("tiled_forward", "tiled_resume", "tiled_composite", "walk_block"
 PATH_KERNELS = {"all-pairs": ("scores_mma", "dp"), "all-pairs-fused-route": ("fused",),
                 "msa128": ("scores_mma", "dp", "walk", "compose"),
                 "long-family": ("fused", "walk", "compose"),
-                "long8": ("scores_mma", "tiled", "walk", "compose"), "tracks": ("scores_mma", "dp"),
+                "long8": ("scores_mma", "tiled_hs", "walk", "compose"),
+                "tracks": ("scores_mma", "dp"),
                 "tracks-traceback": ("scores_mma", "dp", "walk"),
                 "utilization": ("alu_chains", "smem_chain"), "wprobe": ("write_blocks",),
-                "long-routes": ("tiled", "walk", "tiled_forward", "tiled_resume", "walk_block"),
-                "tracks-long": ("tiled_composite", "walk", "tiled_forward", "tiled_resume",
+                "long-routes": ("tiled_mma", "walk", "tiled_forward_mma", "tiled_resume_mma",
                                 "walk_block"),
+                "tracks-long": ("tiled_composite_mma", "walk", "tiled_forward_mma",
+                                "tiled_resume_mma", "walk_block"),
                 "mesh": ("scores_mma", "dp", "walk", "compose"),
                 "homology": ("scores_mma", "dp", "walk", "compose"),
                 # [two-ranks]: both ranks' launches, summed
                 "two-ranks-msa128": ("scores_mma", "dp", "walk"),
-                "two-ranks-long8": ("scores_mma", "tiled"),
+                "two-ranks-long8": ("scores_mma", "tiled_hs"),
                 "two-ranks-tracks": ("scores_mma", "dp", "walk"),
                 # the ring (dist/ring.py): [ring] in one process, [ring=two-ranks]
                 # both ranks' launches summed; the checkpointed runs walk blocks
-                "ring": ("ring", "walk_block"), "two-ranks-ring": ("ring", "walk_block")}
+                "ring": ("ring", "walk_block"),
+                "two-ranks-ring": ("ring", "walk_block")}
 
 
 def reset_launches() -> None:
@@ -3771,15 +3949,19 @@ def read_launches() -> dict:
         compose, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
     )
 
-    modules = dict(zip(("dp", "tiled", "walk", "compose"), (wavefront, tiled_dp, replay, compose)))
+    modules = dict(zip(("dp", "walk", "compose"), (wavefront, replay, compose)))
+    tiled = {"tiled": tiled_dp.launches, "tiled_forward": tiled_dp.forward_launches,
+             "tiled_resume": tiled_dp.resume_launches,
+             "tiled_composite": tiled_dp.composite_launches, "ring": tiled_dp.ring_launches}
     return ({f"scores_{k}": v for k, v in fused_scores.launches.items()}
             | {"fused": sum(fused_dp.launches.values())}
             | {f"fused_{k}": v for k, v in fused_dp.launches.items()}
             | {k: m.launches for k, m in modules.items()} | probes.launches
-            | {"tiled_forward": tiled_dp.forward_launches,
-               "tiled_resume": tiled_dp.resume_launches,
-               "tiled_composite": tiled_dp.composite_launches,
-               "walk_block": replay.block_launches, "ring": tiled_dp.ring_launches})
+            | {"walk_block": replay.block_launches}
+            | {k: v for name, counts in tiled.items()
+               for k, v in (((name, counts),) if isinstance(counts, int)  # a tree before tiers
+                            else ((name, sum(counts.values())),
+                                  *((f"{name}_{key}", n) for key, n in counts.items())))})
 
 
 def check_launches(name: str, counts: dict) -> None:
@@ -3788,19 +3970,24 @@ def check_launches(name: str, counts: dict) -> None:
     kernel that PATH_KERNELS does not give it."""
     say("launches", path=name, **counts)
     allowed = PATH_KERNELS[name]
+
+    def permits(kernel):  # the kernel, or one of its sources or tiers, is the path's
+        return kernel in allowed or any(f"{kernel}_{t}" in allowed
+                                        for t in TILED_KERNELS.get(kernel, ()))
+
     missing = [k for k in allowed if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
-    for kernel in ("scores", "fused"):
+    for kernel in TIERED_KERNELS:
         if counts[f"{kernel}_scalar"] and f"{kernel}_scalar" not in allowed:
             raise AssertionError(f"{name}: {counts[f'{kernel}_scalar']} of "
                                  f"{counts[f'{kernel}_scalar'] + counts[f'{kernel}_mma']} {kernel} "
                                  "launches left the tensor-core tier")
-    if counts["tiled"] and "tiled" not in allowed:
+    if counts["tiled"] and not permits("tiled"):
         raise AssertionError(f"{name}: rows of 4096 lanes or fewer took the tiled kernel")
-    if any(counts[k] for k in LONG_KERNELS if k not in allowed):
+    if any(counts[k] for k in LONG_KERNELS if not permits(k)):
         raise AssertionError(f"{name}: a path within the budgets took a long route")
-    if counts["ring"] and "ring" not in allowed:
+    if counts["ring"] and not permits("ring"):
         raise AssertionError(f"{name}: a path without a ring launched the ring's kernel")
 
 
@@ -3822,10 +4009,22 @@ TILED_ORDINARY_SHAPES = ((1, 4600, 4400, 4000, "local", True, "hs"),
                          (32, 2303, 2303, 1800, "global", False, "hs"))
 
 
+def tier_kinds(fn) -> tuple:
+    """The score tiers of the in-place source that a tree's launch ``fn``
+    takes: "mma" and "scalar" where it takes ``tier=``; else the one it has,
+    the scalar dot products, named None (a tree before the tensor-core
+    tier)."""
+    import inspect
+
+    return ("mma", "scalar") if "tier" in inspect.signature(fn).parameters else (None,)
+
+
 def phase_tiled_ordinary_times(dev) -> dict:
     """K6's ordinary launches (``wavefront_dp_tiled``) at
-    TILED_ORDINARY_SHAPES, by CUDA events, the mean of 10 after a warm-up:
-    the launches whose code the checkpointed ones must leave as it was."""
+    TILED_ORDINARY_SHAPES, by CUDA events, the mean of 10 after a warm-up,
+    the rows source on each tier the tree takes (:func:`tier_kinds`; keys
+    ``rows_mma``, ``rows_scalar``, and ``rows`` for a tree with the scalar
+    tier alone)."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
@@ -3842,8 +4041,122 @@ def phase_tiled_ordinary_times(dev) -> dict:
         cy, ivy, ly = profiles_to_stack(count_profiles(rng, B, min(lo, by), by, 23), by, dev)
         ops = (cx, ivx, cy, ivy, s)
         src = skewed_pair_scores(*ops) if source == "hs" else ops
-        out[f"{source}_B{B}x{bx}x{by}_{mode}_{'traceback' if traceback else 'scores'}"] = \
-            cuda_ms(lambda: wavefront_dp_tiled(src, lx, ly, (11, 1), mode, traceback), 10)
+        for tier in (None,) if source == "hs" else tier_kinds(wavefront_dp_tiled):
+            kw = {} if tier is None else {"tier": tier}
+            name = source if tier is None else f"{source}_{tier}"
+            out[f"{name}_B{B}x{bx}x{by}_{mode}_{'traceback' if traceback else 'scores'}"] = \
+                cuda_ms(lambda: wavefront_dp_tiled(src, lx, ly, (11, 1), mode, traceback, **kw),
+                        10)
+    return out
+
+
+# The box depths timed on the "mma" tier at the titin and DNA pairs' rows
+# (their carries go to the L2 scratch at either).
+LONG_TIMES_STEPS = (32, 16)
+
+
+def phase_long_times(dev) -> dict:
+    """``long-times``: K6's in-place launches on each tier the tree takes
+    (:func:`tier_kinds`), by CUDA events: the rows source at the titin
+    pair's and the 75,000-nt pair's shapes (scores, default geometry, m = 5
+    and 10 tiles a CTA; on "mma" at each of LONG_TIMES_STEPS); the
+    checkpointed forward launch and one resume launch at LONG_CHECK (rows,
+    global, the default interval; the operands made once where the tree
+    takes them, as its route does) and the two-track composite there; the
+    ring's launch at the titin pair's rank shape at T = 2, 4 and 8.  Then
+    the long routes end to end: the titin pair (full traceback and
+    checkpointed), the DNA pairs and the titin family (``long-routes``) and
+    the long composites (``tracks-long``), each with its wall clock."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import ALPHABET_AA, ALPHABET_DNA, builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.scan import (
+        default_ckpt_interval, edge_values, ring_candidate, ring_carries, ring_rows,
+    )
+
+    tiers = tier_kinds(tiled_dp.wavefront_dp_tiled)
+    out = {"tiers": [t or "scalar (the tree's only tier)" for t in tiers]}
+
+    def kw(tier, source=None):  # a launch's tier, and a checkpointed one's operands
+        if tier is None:
+            return {}
+        if source is None:
+            return {"tier": tier}
+        return {"tier": tier, "operands": tiled_dp.prepare_operands(source, tier)}
+
+    def label(tier):
+        return tier or "scalar"
+
+    for name, length, alphabet, matrix, seed in (
+            ("titin", TITIN_LENGTH, ALPHABET_AA, "blosum62", SEED + 22),
+            ("dna", DNA_PAST, ALPHABET_DNA, "dna_simple", SEED + 23 + DNA_PAST)):
+        x, y = long_pair(seed, length, alphabet)
+        cx, ivx, cy, ivy, lx, ly = stack_pair(dev, x, y, alphabet)
+        ops = (cx, ivx, cy, ivy, matrix_to_torch(builtin_score_matrix(matrix), dev))
+        for tier in tiers:
+            for steps in LONG_TIMES_STEPS if tier == "mma" else LONG_TIMES_STEPS[:1]:
+                g = tiled_dp.tiled_geometry(cx.shape[1] + 1, 2, "rows", steps=steps,
+                                            **({"tier": tier} if tier else {}))
+                out[f"{name}_rows_{label(tier)}_R{g.R}_m{g.m}_W{g.W}_T{steps}_ms"] = cuda_ms(
+                    lambda: tiled_dp.wavefront_dp_tiled(ops, lx, ly, (11, 1), "global",
+                                                        steps_per_visit=steps, **kw(tier)), 3)
+        del ops, cx, cy
+
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    pam = matrix_to_torch(builtin_score_matrix("pam250"), dev)
+    B, bx, by, lo = LONG_CHECK
+    ops = stacked_operands(np.random.default_rng(SEED + 20), dev, s, B, bx, by, lo)
+    lx, ly, rows = ops[5], ops[6], ops[:5]
+    R0 = default_ckpt_interval(bx + by + 1)
+    tracks = [rows, (*ops[:4], pam)]
+    comp = tiled_dp.Composite(*[tuple(t[i] for t in tracks) for i in range(5)], (1.0, 0.5))
+    block = torch.empty((R0, B, bx + 1), dtype=torch.uint8, device=dev)
+    for tier in tiers:
+        launch = kw(tier, rows)
+        _, snap = tiled_dp.wavefront_dp_tiled_forward(rows, lx, ly, (11, 1), "global", R0,
+                                                      **launch)
+        q = snap.shape[0] // 2
+        out[f"forward_{label(tier)}_ms"] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_forward(
+            rows, lx, ly, (11, 1), "global", R0, **launch), 3)
+        out[f"resume_{label(tier)}_ms"] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_resume(
+            rows, lx, ly, (11, 1), "global", R0, q, snap, out=block, **launch), 5)
+        out[f"composite_{label(tier)}_ms"] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled(
+            comp, lx, ly, (11, 1), "global", **kw(tier)), 3)
+    out["check_shape"] = f"B{B}x{bx}x{by} global R={R0} block {q}"
+    del ops, comp, snap
+
+    x, y = long_pair(SEED + 22, TITIN_LENGTH, ALPHABET_AA)
+    cx, ivx, cy, ivy, lx, ly = stack_pair(dev, x, y, ALPHABET_AA)
+    Lpn = -(-(cx.shape[1] + 1) // 2)
+    rank = ring_rows(cx, ivx, cy, ivy, s, Lpn, Lpn)
+    K, d0 = 32, Lpn + cy.shape[1] // 2
+    carries = ring_carries(rank, (11, 1), "global")
+    heads = torch.zeros((K, edge_values(2), 1), device=dev)
+    tails = torch.empty_like(heads)
+    cand = ring_candidate(lx, ly, (11, 1), "global").to(dev)
+    outs = dict(carries_out=torch.empty_like(carries), cand_out=torch.empty_like(cand))
+    for steps in (2, 4, 8):  # the ring's one tier, "scalar", on either tree
+        out[f"ring_T{steps}_ms"] = cuda_ms(
+            lambda: tiled_dp.wavefront_dp_tiled_ring(
+                rank, lx, ly, (11, 1), "global", False, d0, K, carries, heads, tails, cand,
+                steps_per_visit=steps, **outs), 10)
+    del rank, carries, cx, cy
+    say("long-times", **{k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in out.items()})
+
+    # the paths' results, digested, to hold a tree's against another's
+    titin = phase_titin_pair(dev)
+    out["titin_pair"] = {k: titin[k] for k in ("full_s", "checkpointed_s")} | {
+        "result": titin.pop("result")}
+    routes = run_long_routes(dev, titin_family())
+    out["dna"] = {k: {"s": v["s"], "digest": v["digest"]} for k, v in routes["dna"].items()}
+    out["titin_family"] = {k: {m: v[m] for m in ("s", "stages_s", "fasta_sha256")}
+                           for k, v in routes["titin_family"].items()}
+    out["tracks_long"] = {k: {"s": v["s"], "digest": v["digest"]}
+                          for k, v in run_tracks_long(dev).items()}
     return out
 
 
@@ -3884,13 +4197,14 @@ def phase_producer_times(dev) -> dict:
 
 
 def tree_only(argv) -> int:
-    """``dp-times [DIR]``, ``tiled-times [DIR]`` or ``producer-times
-    [DIR]``: the build and the [dp-times] phase (K2 and K6 over hs), K6's
-    ordinary launches (phase_tiled_ordinary_times) or the producer's and
-    fused kernel's tiers with ``[homology]`` and the ``preprofile`` bench
-    (phase_producer_times) alone, on the package of the tree at DIR (this
-    checkout by default), so that the parent's kernels are timed at this
-    tree's shapes in the same call."""
+    """``dp-times [DIR]``, ``tiled-times [DIR]``, ``long-times [DIR]`` or
+    ``producer-times [DIR]``: the build and the [dp-times] phase (K2 and K6
+    over hs), K6's ordinary launches (phase_tiled_ordinary_times), K6's
+    in-place launches and the long routes end to end (phase_long_times) or
+    the producer's and fused kernel's tiers with ``[homology]`` and the
+    ``preprofile`` bench (phase_producer_times) alone, on the package of the
+    tree at DIR (this checkout by default), so that the parent's kernels are
+    timed at this tree's shapes in the same call."""
     global ROOT
     if len(argv) > 1:
         ROOT = Path(argv[1]).resolve()
@@ -3904,7 +4218,7 @@ def tree_only(argv) -> int:
     build.load_library()
     say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
     times = {"dp-times": phase_dp_times, "tiled-times": phase_tiled_ordinary_times,
-             "producer-times": phase_producer_times}[argv[0]](dev)
+             "long-times": phase_long_times, "producer-times": phase_producer_times}[argv[0]](dev)
     say(f"{argv[0]}-tree", root=str(ROOT), json=json.dumps(times))
     print(smi)
     return 0
@@ -3950,7 +4264,7 @@ def main() -> int:
         return ring_rank(sys.argv[2:])
     if sys.argv[1:2] == ["dist"]:
         return dist_only()
-    if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["producer-times"]):
+    if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["long-times"], ["producer-times"]):
         return tree_only(sys.argv[1:])
     if sys.argv[1:2] == ["long-routes"]:
         return long_only(sys.argv[1:])
@@ -4113,7 +4427,8 @@ def main() -> int:
         {"name": "wavefront_dp_tiled", "route": "cuda",
          "source": "praline_tpu_torch/csrc/tiled_dp.cu",
          "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled)",
-         "launches": launches["tiled"], "max_abs_err": max(tiled_err, tiled_long["err"]),
+         "launches": launches["tiled_hs"] + launches["tiled_scalar"],
+         "max_abs_err": max(tiled_err, tiled_long["err"]),
          "ms": tiled_long["ms"], "plain_ms": tiled_long["plain_ms"],
          "bound_ms": tiled_long["bound_ms"], "bound_by": tiled_long["bound_by"],
          "library_ms": None, "shape": "B1x4600x4400 local traceback",
@@ -4122,6 +4437,18 @@ def main() -> int:
          # beside the fused kernel (K5) and the whole-row DP (K2), scores mode
          "beside": {shape: {k: v for k, v in t.items() if k.startswith("scores_")}
                     for shape, t in tiled_times.items()}},
+        {"name": "wavefront_dp_tiled_rows_mma", "route": "cuda",
+         "source": "praline_tpu_torch/csrc/tiled_mma.cu",
+         "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled) on the "
+                     "scores of praline_tpu/kernels/scan.py:106 (wavefront_dp_streamed, each "
+                     "diagonal's scores in the scan)",
+         "launches": launches["tiled_mma"], "max_abs_err": max(tiled_err, tiled_long["err"]),
+         **tiled_long["rows"], "library_ms": None,
+         "scalar_source": "praline_tpu_torch/csrc/tiled_dp.cu",
+         "scalar_launches": launches["tiled_scalar"],
+         "registers": {f"{tag}_k{k}": "{}regs/{}B-spill-stores/{}B-spill-loads".format(
+             *kernel_usage(usage, TILED_MMA.format(w=w, k=k)))
+             for k in (1, 2, 3, 15) for tag, w in (("one_limb", 0), ("wide", 1))}},
     ]
     for name, replaces in (("smem_chain", "bench.py:224 (bench_utilization.run_vmem)"),
                            ("alu_chains", "bench.py:256 (bench_utilization.run_alu)"),
@@ -4142,31 +4469,40 @@ def main() -> int:
         "bound_ms": compose_times["bound_ms"], "bound_by": compose_times["bound_by"],
         "library_ms": None, "shape": compose_times["shape"],
         "again_ms": compose_times["again_ms"]})
+    # the in-place launches: "ms" on the "mma" tier (source), "scalar_ms" on
+    # the scalar one (scalar_source); launches on the main paths per tier
     long_entries = (
-        ("tiled_forward", "wavefront_dp_tiled_forward", "praline_tpu_torch/csrc/tiled_ckpt.cu",
+        ("tiled_forward", "wavefront_dp_tiled_forward",
+         "praline_tpu_torch/csrc/tiled_ckpt_mma.cu", "praline_tpu_torch/csrc/tiled_ckpt.cu",
          "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the forward pass "
          "of praline_tpu/kernels/scan.py:173 (wavefront_dp_checkpointed)", "forward"),
-        ("tiled_resume", "wavefront_dp_tiled_resume", "praline_tpu_torch/csrc/tiled_ckpt.cu",
+        ("tiled_resume", "wavefront_dp_tiled_resume", "praline_tpu_torch/csrc/tiled_ckpt_mma.cu",
+         "praline_tpu_torch/csrc/tiled_ckpt.cu",
          "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the block "
          "re-derivation of praline_tpu/kernels/scan.py:173 (wavefront_dp_checkpointed)",
          "resume"),
-        ("walk_block", "replay_block", "praline_tpu_torch/csrc/replay.cu",
+        ("walk_block", "replay_block", "praline_tpu_torch/csrc/replay.cu", None,
          "praline_tpu/kernels/scan.py:979-1004 (the checkpointed walk, an XLA scan; no "
          "Pallas kernel)", "walk_block"),
         ("tiled_composite", "wavefront_dp_tiled_composite",
+         "praline_tpu_torch/csrc/tiled_composite_mma.cu",
          "praline_tpu_torch/csrc/tiled_composite.cu",
          "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled) over the composite "
          "of praline_tpu/kernels/scores.py:98-122 (the JAX package streams it)", "composite"))
-    for key, name, source, replaces, timing_key in long_entries:
+    for key, name, source, scalar_source, replaces, timing_key in long_entries:
         t = long_kernels[timing_key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": t.get("err", 0.0), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": t["shape"]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[key], "max_abs_err": t.get("err", 0.0), "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "shape": t["shape"]}
+        if scalar_source:
+            entry |= {"tier": "mma", "mma_launches": launches[f"{key}_mma"],
+                      "scalar_source": scalar_source, "scalar_ms": t["scalar_ms"],
+                      "scalar_launches": launches[f"{key}_scalar"]}
+        kernels.append(entry)
     kernels.append({
         "name": "wavefront_dp_tiled_ring", "route": "cuda",
-        "source": "praline_tpu_torch/csrc/tiled_ring.cu",
+        "source": "praline_tpu_torch/csrc/tiled_ring.cu", "tier": ring_kernel["tier"],
         "replaces": "praline_tpu/kernels/pallas_dp_tiled.py:448 (wavefront_dp_tiled), as the "
                     "superstep of praline_tpu/kernels/scan.py:668-731 (the ring of "
                     "praline_tpu/dist/ring.py:147)",

@@ -46,8 +46,12 @@
 // The kernel of the walks with m tiles a CTA (walk_kernel, its launch and
 // its occupancy query launch_walk) is here too, one template over the score
 // source, shared by K2/K4 (csrc/hs_visits.cuh's HsSource, the band on) and
-// K6 (HsSource, csrc/tiled_dp.cu's RowsSource or csrc/tiled_composite.cu's
-// CompositeSource); K5 has its own.
+// K6 (HsSource, csrc/tiled_walk.cuh's RowsSource, csrc/tiled_composite.cu's
+// CompositeSource, or csrc/rows_box.cuh's BoxSource, the two in-place
+// sources on the tensor cores); K5 has its own.  A source says how much
+// shared memory it takes (Src::smem(W, T)) and whether it takes problem b
+// (Src::takes(b): the "mma" tier is two launches, each problem run by one
+// and its CTAs leaving at once in the other).
 //
 // Checkpointed traceback (K6 only, walk_kernel built with CKPT, Snapshots):
 // the forward launch writes no
@@ -104,21 +108,23 @@ struct WalkSmem {
 
 // Byte offsets of a walking CTA's dynamic shared memory: the walk's
 // cross-warp exchange xbuf[2][W / 32][NX], ring[2][T][NX] and tile edge
-// edge[T][NX], the candidates red[W / 32 + 1]; on the hs source the
-// double-buffered scores hbuf[2][T][W] (csrc/hs_visits.cuh); with m > 1
-// the carries carry[NS][m W] where the whole fits in `budget` bytes (carry
-// = -1 where it does not: they go to a device-memory scratch).
-// kernels/tiled_dp.py::smem_layout mirrors it.
+// edge[T][NX], the candidates red[W / 32 + 1]; the score source's src_bytes
+// (Src::smem: on the hs source the double-buffered scores hbuf[2][T][W],
+// csrc/hs_visits.cuh; on the tensor cores the box and its operands,
+// csrc/rows_box.cuh); with m > 1 the carries carry[NS][m W] where the whole
+// fits in `budget` bytes (carry = -1 where it does not: they go to a
+// device-memory scratch).  kernels/tiled_dp.py::smem_layout mirrors it.
 struct WalkLayout {
-  int xbuf, ring, edge, red, hbuf, carry, total;
-  __host__ __device__ WalkLayout(int W, int T, int m, int nx, int ns, bool hs, int budget) {
+  int xbuf, ring, edge, red, src, carry, total;
+  __host__ __device__ WalkLayout(int W, int T, int m, int nx, int ns, int src_bytes,
+                                 int budget) {
     const int nw = W / 32;
     xbuf = 0;
     ring = xbuf + round16(2 * nw * nx * 4);
     edge = ring + round16(2 * T * nx * 4);
     red = edge + round16(T * nx * 4);
-    hbuf = red + round16((nw + 1) * (int)sizeof(Cand));
-    total = hbuf + (hs ? 2 * T * W * 4 : 0);
+    src = red + round16((nw + 1) * (int)sizeof(Cand));
+    total = src + src_bytes;
     carry = -1;
     if (m > 1 && total + (long long)ns * m * W * 4 <= budget) {
       carry = total;
@@ -414,31 +420,37 @@ struct WalkArgs {
   float cum0;
 };
 
-// The shared-memory layout of a walk at k levels (on the hs source: hs).
-__host__ __device__ inline WalkLayout walk_layout(int k, bool hs, int W, int m, int T,
+// The shared-memory bytes of the hs source's boxes hbuf[2][T][W]
+// (csrc/hs_visits.cuh).
+__host__ __device__ constexpr int hs_smem(int W, int T) { return 2 * T * W * 4; }
+
+// The shared-memory layout of a walk at k levels whose score source takes
+// src_bytes (Src::smem).
+__host__ __device__ inline WalkLayout walk_layout(int k, int src_bytes, int W, int m, int T,
                                                   int budget) {
   const int kc = k == 2 ? 1 : k;
-  return WalkLayout(W, T, m, 6 + 2 * kc, 10 + 4 * kc, hs, budget);
+  return WalkLayout(W, T, m, 6 + 2 * kc, 10 + 4 * kc, src_bytes, budget);
 }
 
 // Whether walk_kernel takes this geometry for rows of Lp lanes in tiles of
-// at most max_w lanes.
-inline bool walk_geometry_ok(int k, int Lp, int W, int max_w, int R, int m, int T, bool hs) {
+// at most max_w lanes, on a source of Src::smem(W, T) = src_bytes.
+inline bool walk_geometry_ok(int k, int Lp, int W, int max_w, int R, int m, int T,
+                             int src_bytes) {
   return k >= 1 && k <= MAXK && W >= 32 && W <= max_w && W % 32 == 0 && R >= 1 &&
          R <= WALK_MAX_R && m >= 1 && (long long)R * m * W >= Lp && T >= 1 &&
-         T <= WALK_MAX_T && walk_layout(k, hs, W, m, T, 0).total <= WALK_MAX_SMEM;
+         T <= WALK_MAX_T && walk_layout(k, src_bytes, W, m, T, 0).total <= WALK_MAX_SMEM;
 }
 
 // The checks and fields of a launch common to every walk; false for
-// arguments the kernel does not take.
-inline bool walk_args(WalkArgs* a, bool hs, int max_w, int budget, const int* lx,
+// arguments the kernel does not take.  src_bytes: the source's Src::smem.
+inline bool walk_args(WalkArgs* a, int src_bytes, int max_w, int budget, const int* lx,
                       const int* ly, const float* gaps_host, int k, int mode, int traceback,
                       int D, int B, int Lp, int W, int R, int m, int T, float* carry,
                       const Outs& out, void* stream) {
   if (mode < 0 || mode > 2 || B < 1 || Lp < 2 || D < Lp + 1 ||
-      (long long)B * R > 0x7fffffffLL || !walk_geometry_ok(k, Lp, W, max_w, R, m, T, hs))
+      (long long)B * R > 0x7fffffffLL || !walk_geometry_ok(k, Lp, W, max_w, R, m, T, src_bytes))
     return false;
-  if (m > 1 && walk_layout(k, hs, W, m, T, budget).carry < 0 && carry == nullptr)
+  if (m > 1 && walk_layout(k, src_bytes, W, m, T, budget).carry < 0 && carry == nullptr)
     return false;  // the carries need the device-memory scratch
   for (int l = 0; l < k; ++l) a->gaps.g[l] = gaps_host[l];
   a->lx = lx;
@@ -477,22 +489,24 @@ inline bool walk_snapshots(WalkArgs* a, float* snap, int interval, int block, fl
   return true;
 }
 
-// One problem a cluster, its scores from Src: Src::HS (the hs source's
-// boxes hbuf in shared memory), src.visits(a, b, dend, hbuf) the visit
-// functor of problem b.  CKPT (never with BAND) builds the checkpointed
-// launches in, RING (with neither) the ring's launch (src.ring, a
-// RingLaunch; a.Lp the rank's lanes, a.out.tb its uint8[rows, B, Lp]
-// bytes); without them none of their code is there, so the ordinary
-// launches run the walk as it was.
+// One problem a cluster, its scores from Src: Src::smem(W, T) bytes of
+// shared memory at L.src for the source, src.takes(b) whether this launch
+// runs problem b (else every CTA of its cluster leaves at once),
+// src.visits(a, b, dend, at) the visit functor of problem b.  CKPT (never
+// with BAND) builds the checkpointed launches in, RING (with neither) the
+// ring's launch (src.ring, a RingLaunch; a.Lp the rank's lanes, a.out.tb
+// its uint8[rows, B, Lp] bytes); without them none of their code is there,
+// so the ordinary launches run the walk as it was.
 template <class Src, int K, bool BAND, bool CKPT, bool RING = false>
 __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) {
   static_assert(!(BAND && CKPT), "the band and the checkpoints exclude each other");
   static_assert(!(RING && (BAND || CKPT)), "the ring's launch takes neither");
   using C = Carries<K, 1>;
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::HS, a.budget);
   const int b = blockIdx.x / a.R;
+  if (!src.takes(b)) return;  // uniform over the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::smem(a.W, a.T), a.budget);
   const int lx = a.lx[b], ly = a.ly[b], Lp = a.Lp;
   Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
   Outs out = a.out;
@@ -539,7 +553,7 @@ __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) 
                        reinterpret_cast<float*>(smem + L.ring),
                        reinterpret_cast<float*>(smem + L.edge),
                        reinterpret_cast<Cand*>(smem + L.red)};
-  auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.hbuf));
+  auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.src));
   cluster_walk<K, true, BAND, CKPT, RING>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p,
                                           a.gaps, out, dend, lane_end, store, visits, ck, rl);
 }
@@ -553,7 +567,7 @@ __global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
 
 // The same for a source that its functor reads in place from the kernel's
 // parameters (__grid_constant__: src's address is in parameter space, no
-// copy; csrc/tiled_composite.cu's track table).
+// copy; the track tables of csrc/tiled_composite.cu and csrc/rows_box.cuh).
 template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false>
 __global__ void __launch_bounds__(MAXW, MINB)
     walk_kernel_params(WalkArgs a, const __grid_constant__ Src src) {
@@ -566,7 +580,7 @@ __global__ void __launch_bounds__(MAXW, MINB)
 template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false,
           bool PARAMS = false, bool RING = false>
 int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
-  const int smem = walk_layout(K, Src::HS, a.W, a.m, a.T, a.budget).total;
+  const int smem = walk_layout(K, Src::smem(a.W, a.T), a.W, a.m, a.T, a.budget).total;
   auto kern = [] {
     if constexpr (PARAMS) return walk_kernel_params<Src, K, BAND, MAXW, MINB, CKPT>;
     else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT, RING>;

@@ -113,16 +113,6 @@ struct Layout {
   }
 };
 
-// The mma tier's score source for one box: cell (i, d) of the box at
-// diagonals d0 .. d0 + T - 1 and lanes i0 .. i0 + W - 1.
-struct BoxScores {
-  const float* hk;
-  int ss, d0, i0;
-  __device__ __forceinline__ float operator()(int d, int i) const {
-    return hk[(d - d0) * ss + (i - i0)];
-  }
-};
-
 // The mma tier's work before box k: wait for its band, start the next
 // box's band, and fill hk with the box's scores on the tensor cores; WIDE:
 // the bands carry Cy_hi (a count of the problem's y passes 255).
@@ -156,27 +146,8 @@ struct BoxProducer {
       start_band(lo_of(q), WIDE ? hi_of(q) : nullptr, ivy + q * cols, y, jbase(d0 + T), cols,
                  Ly, t, W);
     }
-    const uint32_t* bnd = lo_of(k & 1);
-    const uint32_t* bnd_hi = hi_of(k & 1);
-    const float* iv = ivy + (k & 1) * cols;
-    const int warp = t >> 5, lane = t & 31, g = lane >> 2, t4 = lane & 3;
-    for (int m0 = warp * 16; m0 < W; m0 += W / 2) {
-      uint32_t alo[4], ahi[4];
-      load_a(alo, a_lo, m0, g, t4);
-      load_a(ahi, a_hi, m0, g, t4);
-      float rivx[2];
-      bool row_ok[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = i0 + m0 + g + 8 * q;
-        row_ok[q] = i >= 1 && i <= Lx;
-        rivx[q] = ivx[m0 + g + 8 * q];
-      }
-      const bool rows_all = i0 + m0 >= 1 && i0 + m0 + 15 <= Lx;
-      const bool rows_none = i0 + m0 + 15 < 1 || i0 + m0 > Lx;
-      box_rows(hk, W + 4, W, T, bnd, bnd_hi, band_wide, iv, alo, ahi, two_pass, m0, g, t4,
-               rivx, row_ok, rows_all, rows_none, jbase(d0), Ly);
-    }
+    fill_box(hk, W + 4, W, T, a_lo, a_hi, two_pass, ivx, lo_of(k & 1), hi_of(k & 1), band_wide,
+             ivy + (k & 1) * cols, i0, d0, Lx, Ly);
     __syncthreads();
   }
 };

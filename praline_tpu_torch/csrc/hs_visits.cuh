@@ -64,8 +64,9 @@ struct HsVisits {
 
 // walk_kernel's score source hs f32[D, B, Lp].
 struct HsSource {
-  static constexpr bool HS = true;
   const float* hs;
+  __host__ __device__ static constexpr int smem(int W, int T) { return hs_smem(W, T); }
+  __device__ __forceinline__ bool takes(int) const { return true; }
   __device__ __forceinline__ HsVisits visits(const WalkArgs& a, int b, int dend,
                                              float* hbuf) const {
     return HsVisits{hs, hbuf, a.B, a.Lp, b, a.W, a.T, dend, 0, false};

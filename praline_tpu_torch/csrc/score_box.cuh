@@ -1,7 +1,8 @@
 // Score boxes on Hopper's integer tensor cores, shared by the kernels that
 // compute pair scores with mma.sync: csrc/scores_mma.cu (the producer's
-// "mma" tier, which stores each box to hs) and csrc/fused_dp.cu (the fused
-// DP's "mma" tier, which keeps each box in shared memory for its own steps).
+// "mma" tier, which stores each box to hs), csrc/fused_dp.cu (the fused
+// DP's "mma" tier, which keeps each box in shared memory for its own steps)
+// and csrc/rows_box.cuh (the lane-tiled DP's "mma" tier, the same a visit).
 //
 // A box is TW lanes x TD diagonals of one problem, cells (i0 + m, d0 + dd)
 // with score hs[d0 + dd, b, i0 + m] = ((Cx @ S @ Cy^T)[i-1, j] * inv_x) * inv_y,
@@ -270,13 +271,20 @@ __device__ __forceinline__ void tile_product(int (&h)[4], const uint32_t (&alo)[
 // alo / ahi: the rows' A fragments (ahi read only when two_pass); ivx /
 // row_ok: rows m0 + g and m0 + g + 8 (g = lane / 4, t4 = lane % 4);
 // rows_all / rows_none: every / no row of the m-tile is a row of x; jbase:
-// column 0's j; Ly: the problem's columns.  Warp-uniform.
+// column 0's j; Ly: the problem's columns; store(p, v) puts cell value v at
+// p (BoxStore: *p = v).  Warp-uniform.
+struct BoxStore {
+  __device__ __forceinline__ void operator()(float* p, float v) const { *p = v; }
+};
+
+template <class Store = BoxStore>
 __device__ __forceinline__ void box_rows(float* hk, int ss, int tw, int td,
                                          const uint32_t* band, const uint32_t* band_hi, bool wide,
                                          const float* ivy, const uint32_t (&alo)[4],
                                          const uint32_t (&ahi)[4], bool two_pass, int m0, int g,
                                          int t4, const float (&ivx)[2], const bool (&row_ok)[2],
-                                         bool rows_all, bool rows_none, int jbase, int Ly) {
+                                         bool rows_all, bool rows_none, int jbase, int Ly,
+                                         const Store& store = Store()) {
   // The n-tiles whose columns hold cells of the box for rows m0..m0+15:
   // c in [tw - 16 - m0, tw - 1 - m0 + td).
   const int ntile_lo = (tw - 16 - m0) / 8;
@@ -311,17 +319,64 @@ __device__ __forceinline__ void box_rows(float* hk, int ss, int tw, int td,
     const int dd0 = n0 + 2 * t4 + m0 + g - tw + 1;  // of element k = 0
     float* dst = &hk[dd0 * ss + m0 + g];
     if (n0 + m0 - tw + 1 >= 0 && n0 + m0 - tw + 1 + 22 < td) {  // the whole tile in the box
-      dst[0] = v[0];
-      dst[ss] = v[1];
-      dst[8 * ss + 8] = v[2];
-      dst[9 * ss + 8] = v[3];
+      store(dst, v[0]);
+      store(dst + ss, v[1]);
+      store(dst + 8 * ss + 8, v[2]);
+      store(dst + 9 * ss + 8, v[3]);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int dd = dd0 + (k % 2) + 8 * (k / 2);
-        if (dd >= 0 && dd < td) dst[(k % 2) * ss + (k / 2) * (8 * ss + 8)] = v[k];
+        if (dd >= 0 && dd < td) store(dst + (k % 2) * ss + (k / 2) * (8 * ss + 8), v[k]);
       }
     }
+  }
+}
+
+// The scores of a DP's box: cell (i, d) of the box at diagonals d0 .. d0 +
+// T - 1 and lanes i0 .. i0 + W - 1, diagonal-major in shared memory.
+struct BoxScores {
+  const float* hk;
+  int ss, d0, i0;
+  __device__ __forceinline__ float operator()(int d, int i) const {
+    return hk[(d - d0) * ss + (i - i0)];
+  }
+};
+
+// A DP's box on the tensor cores, by every thread of a CTA of W lanes (W a
+// multiple of 32; each warp owns the m-tiles warp * 16 and warp * 16 + W /
+// 2): the scores of lanes i0 .. i0 + W - 1 (lane i is row i - 1 of x, a row
+// where 1 <= i <= Lx) and diagonals d0 .. d0 + td - 1 into hk (row stride
+// ss), from the rows' limbs a_lo / a_hi [W][32 B] (a_hi read only when
+// two_pass) and inverses ivx [W], and the band's columns j = d0 - i0 - W ..
+// (W + td of them; the low limbs in `band`, the high limbs in `band_hi`,
+// read only when `wide`, the inverses in `ivy`), each cell put by `store`.
+// Ly: the problem's columns.  Every cell of the box is put once, by the
+// same thread whatever the operands.
+template <class Store = BoxStore>
+__device__ __forceinline__ void fill_box(float* hk, int ss, int W, int td, const uint32_t* a_lo,
+                                         const uint32_t* a_hi, bool two_pass, const float* ivx,
+                                         const uint32_t* band, const uint32_t* band_hi,
+                                         bool wide, const float* ivy, int i0, int d0, int Lx,
+                                         int Ly, const Store& store = Store()) {
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, t4 = lane & 3;
+  for (int m0 = warp * 16; m0 < W; m0 += W / 2) {
+    uint32_t alo[4], ahi[4];
+    load_a(alo, a_lo, m0, g, t4);
+    load_a(ahi, a_hi, m0, g, t4);
+    float rivx[2];
+    bool row_ok[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = i0 + m0 + g + 8 * q;
+      row_ok[q] = i >= 1 && i <= Lx;
+      rivx[q] = ivx[m0 + g + 8 * q];
+    }
+    const bool rows_all = i0 + m0 >= 1 && i0 + m0 + 15 <= Lx;
+    const bool rows_none = i0 + m0 + 15 < 1 || i0 + m0 > Lx;
+    box_rows(hk, ss, W, td, band, band_hi, wide, ivy, alo, ahi, two_pass, m0, g, t4, rivx,
+             row_ok, rows_all, rows_none, d0 - i0 - W, Ly, store);
   }
 }
 

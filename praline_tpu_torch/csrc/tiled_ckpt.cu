@@ -4,9 +4,10 @@
 // budget (kernels/batch.py::choose_route's "checkpointed").
 //
 // The same walk_kernel, built with the checkpoint code in (CKPT;
-// csrc/cluster_walk.cuh, Snapshots), on the hs and rows sources; the
-// ordinary launches of csrc/tiled_dp.cu are built without it, so they run
-// as before.  Two launches:
+// csrc/cluster_walk.cuh, Snapshots), on the hs source and the rows source's
+// "scalar" tier (its "mma" tier: csrc/tiled_ckpt_mma.cu); the ordinary
+// launches of csrc/tiled_dp.cu are built without it, so they run as
+// before.  Two launches:
 //   - forward (block -1): the traceback launch's terminals and no bytes;
 //     where a tile enters a box whose first diagonal is 2 + q interval,
 //     each thread stores its lane's carries (10 + 4 k' floats) into
@@ -45,18 +46,18 @@ extern "C" int praline_tiled_ckpt_hs(const float* hs, const int* lx, const int* 
                         stream);
 }
 
-// praline_tiled_dp_rows's arguments, then the checkpoints as above.
-extern "C" int praline_tiled_ckpt_rows(const float* cx, const float* inv_x, const float* cy,
-                                       const float* inv_y, const float* s, const int* lx,
+// praline_tiled_dp_rows's arguments, then the checkpoints as above (the
+// operands prepared once a chunk serve the forward and every resume
+// launch).
+extern "C" int praline_tiled_ckpt_rows(const void* ops, const unsigned char* /*pwide*/,
+                                       const float* inv_x, const float* inv_y, const int* lx,
                                        const int* ly, const float* gaps_host, int k, int mode,
-                                       int traceback, int B, int Lx, int Ly, int A, int W,
-                                       int R, int m, int T, float* t, float* cyp, float* carry,
-                                       float* score, float* length, int* ti, int* tj,
-                                       int* tcode, uint8_t* tb, float* snap, int interval,
-                                       int block, float cum0, void* stream) {
+                                       int traceback, int B, int Lx, int Ly, int AP, int W, int R,
+                                       int m, int T, float* carry, float* score, float* length,
+                                       int* ti, int* tj, int* tcode, uint8_t* tb, float* snap,
+                                       int interval, int block, float cum0, void* stream) {
   if (snap == nullptr) return (int)cudaErrorInvalidValue;
-  return tiled_rows<true>(cx, inv_x, cy, inv_y, s, lx, ly, gaps_host, k, mode, traceback, B, Lx,
-                          Ly, A, W, R, m, T, t, cyp, carry,
-                          Outs{score, length, ti, tj, tcode, tb}, snap, interval, block, cum0,
-                          stream);
+  return tiled_rows<true>(ops, inv_x, inv_y, lx, ly, gaps_host, k, mode, traceback, B, Lx, Ly,
+                          AP, W, R, m, T, carry, Outs{score, length, ti, tj, tcode, tb}, snap,
+                          interval, block, cum0, stream);
 }

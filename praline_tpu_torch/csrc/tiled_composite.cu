@@ -12,7 +12,10 @@
 // composite_skewed_scores (the producer once a track, scaled and added in
 // place), whose f32 weights are the JAX package's.  Each track's s_t is
 // csrc/fused_rows.cuh's in-place score from its own prep kernel's T = Cx @
-// S and Cy rows, +0 outside the interior as the skewed tensor is.  The
+// S and Cy rows (praline_tiled_prep, once a chunk a track), +0 outside the
+// interior as the skewed tensor is: the "scalar" tier, whose "mma" twin,
+// each visit's box track by track on the tensor cores, is
+// csrc/tiled_composite_mma.cu.  The
 // track table lives in the kernel's parameters (walk_kernel_params,
 // __grid_constant__), read through the constant cache: no register holds a
 // track's pointers.
@@ -51,7 +54,8 @@ struct CompositeVisits {
 // walk_kernel's composite source: each track's prep scratch t f32[B, Lx,
 // AP_t] and cyp f32[B, Ly, AP_t], its inverses and its weight.
 struct CompositeSource {
-  static constexpr bool HS = false;
+  __host__ __device__ static constexpr int smem(int, int) { return 0; }
+  __device__ __forceinline__ bool takes(int) const { return true; }
   const float* t[MAX_TRACKS];
   const float* cyp[MAX_TRACKS];
   const float* ivx[MAX_TRACKS];
@@ -85,7 +89,7 @@ __device__ __forceinline__ float CompositeRows::operator()(int d, int i) const {
 // CUDA error of the query.
 extern "C" int praline_tiled_composite_clusters(int k, int W, int R, int m, int T,
                                                 int* clusters) {
-  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, false)) return (int)cudaErrorInvalidValue;
+  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, 0)) return (int)cudaErrorInvalidValue;
   WalkArgs a = {};
   a.B = 1;
   a.W = W;
@@ -96,22 +100,23 @@ extern "C" int praline_tiled_composite_clusters(int k, int W, int R, int m, int 
   return dispatch<true, true>(k, a, CompositeSource{}, clusters);
 }
 
-// n tracks (1 to 8), each host arrays of n entries: cx[q] f32[B, Lx, A[q]],
-// inv_x[q] f32[B, Lx], cy[q] f32[B, Ly, A[q]], inv_y[q] f32[B, Ly], s[q]
-// f32[A[q], A[q]], the weight w[q] and the prep scratch t[q] f32[B, Lx,
-// AP] and cyp[q] f32[B, Ly, AP] (AP = A[q] rounded up to 4).  lx, ly
-// int32[B], gaps, geometry, carry, outputs and checkpoints as
-// csrc/tiled_dp.cu's praline_tiled_dp_rows.
+// n tracks (1 to 8), each host arrays of n entries: ops[q] the scratch of
+// praline_tiled_prep on tier 1 for the track (T rows f32[B, Lx, AP[q]] then
+// Cy rows f32[B, Ly, AP[q]], AP[q] = its alphabet rounded up to 4),
+// inv_x[q] f32[B, Lx], inv_y[q] f32[B, Ly] and the weight w[q]; pwide
+// unused (the "mma" tier's entry, praline_tiled_composite_mma, takes the
+// same arguments).  lx, ly int32[B], gaps, geometry, carry, outputs and
+// checkpoints as csrc/tiled_ckpt.cu's praline_tiled_ckpt_rows (snap null:
+// an ordinary launch).
 extern "C" int praline_tiled_dp_composite(
-    int n, const float* const* cx, const float* const* inv_x, const float* const* cy,
-    const float* const* inv_y, const float* const* s, const int* A, const float* w,
-    float* const* t, float* const* cyp, const int* lx, const int* ly, const float* gaps_host,
-    int k, int mode, int traceback, int B, int Lx, int Ly, int W, int R, int m, int T,
-    float* carry, float* score, float* length, int* ti, int* tj, int* tcode, uint8_t* tb,
-    float* snap, int interval, int block, float cum0, void* stream) {
+    int n, const void* const* ops, const float* const* inv_x, const float* const* inv_y,
+    const int* AP, const float* w, const unsigned char* /*pwide*/, const int* lx, const int* ly,
+    const float* gaps_host, int k, int mode, int traceback, int B, int Lx, int Ly, int W, int R,
+    int m, int T, float* carry, float* score, float* length, int* ti, int* tj, int* tcode,
+    uint8_t* tb, float* snap, int interval, int block, float cum0, void* stream) {
   WalkArgs a = {};
   if (n < 1 || n > MAX_TRACKS || Lx < 1 || Ly < 1 ||
-      !walk_args(&a, false, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
+      !walk_args(&a, 0, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
                  Lx + Ly + 1, B, Lx + 1, W, R, m, T, carry,
                  Outs{score, length, ti, tj, tcode, tb}, stream) ||
       !walk_snapshots(&a, snap, interval, block, cum0))
@@ -121,14 +126,13 @@ extern "C" int praline_tiled_dp_composite(
   src.Lx = Lx;
   src.Ly = Ly;
   for (int q = 0; q < n; ++q) {
-    const int rc = launch_prep(cx[q], cy[q], s[q], t[q], cyp[q], B, Lx, Ly, A[q], a.stream);
-    if (rc != 0) return rc;
-    src.t[q] = t[q];
-    src.cyp[q] = cyp[q];
+    if (!ops[q] || AP[q] < 4 || AP[q] % 4 != 0) return (int)cudaErrorInvalidValue;
+    src.t[q] = static_cast<const float*>(ops[q]);
+    src.cyp[q] = src.t[q] + (size_t)B * Lx * AP[q];
     src.ivx[q] = inv_x[q];
     src.ivy[q] = inv_y[q];
     src.w[q] = w[q];
-    src.ap[q] = padded_alphabet(A[q]);
+    src.ap[q] = AP[q];
   }
   return dispatch<true, true>(k, a, src, nullptr);
 }

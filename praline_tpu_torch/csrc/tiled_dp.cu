@@ -33,10 +33,12 @@
 // The kernel is csrc/cluster_walk.cuh's walk_kernel, built for 512
 // threads a CTA, on either of two score sources: HsSource reads hs
 // f32[D, B, Lp] from csrc/scores*.cu, K6's own contract; RowsSource
-// (csrc/fused_rows.cuh, with its prep kernel) computes each score in place
-// for rows whose hs would pass the batch aligner's budget (kernels/batch.py).
-// A third source, the multi-track composite in place, is
-// csrc/tiled_composite.cu.
+// (csrc/fused_rows.cuh, its prep kernel run once a chunk by
+// praline_tiled_prep in csrc/tiled_mma.cu) computes each score in place
+// for rows whose hs would pass the batch aligner's budget (kernels/batch.py)
+// on the "scalar" tier; its "mma" tier, each visit's box of scores on the
+// tensor cores, is csrc/tiled_mma.cu.  A third source, the multi-track
+// composite in place, is csrc/tiled_composite.cu.
 //
 // The checkpointed launches of the same kernel are csrc/tiled_ckpt.cu; the
 // kernels here are built without their code (csrc/tiled_walk.cuh).
@@ -52,13 +54,16 @@
 #include "cluster_walk.cuh"
 #include "hs_visits.cuh"
 #include "tiled_walk.cuh"
+#include "rows_box.cuh"
 
 // Dynamic shared memory bytes of a CTA of W lanes and m tiles, T diagonals
-// a box, k gap levels, on the hs source (hs = 1) or the rows source;
+// a box, k gap levels, on the source `src`: 1 hs, 0 an in-place source's
+// "scalar" tier, 2 its "mma" tier (the wide launch's, csrc/rows_box.cuh);
 // -1 for arguments the kernel does not take.
-extern "C" int praline_tiled_dp_smem(int W, int T, int m, int k, int hs) {
-  if (k < 1 || k > MAXK || m < 1 || W < 32 || T < 1) return -1;
-  return walk_layout(k, hs != 0, W, m, T, WALK_MAX_SMEM).total;
+extern "C" int praline_tiled_dp_smem(int W, int T, int m, int k, int src) {
+  if (k < 1 || k > MAXK || m < 1 || W < 32 || T < 1 || src < 0 || src > 2) return -1;
+  const int bytes = src == 1 ? hs_smem(W, T) : src == 2 ? BoxSource<true, 1>::smem(W, T) : 0;
+  return walk_layout(k, bytes, W, m, T, WALK_MAX_SMEM).total;
 }
 
 // How many clusters of R CTAs of W threads and m tiles (k levels, source:
@@ -88,19 +93,20 @@ extern "C" int praline_tiled_dp_hs(const float* hs, const int* lx, const int* ly
                          Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f, stream);
 }
 
-// The in-place source.  cx f32[B, Lx, A], inv_x f32[B, Lx], cy f32[B, Ly,
-// A], inv_y f32[B, Ly], s f32[A, A], lx/ly int32[B] with 1 <= lx <= Lx,
-// 1 <= ly <= Ly.  Scratch t f32[B, Lx, AP] and cyp f32[B, Ly, AP] (AP = A
-// rounded up to a multiple of 4) for the prep kernel, and carry as above
-// with Lp = Lx + 1.  Outputs as praline_tiled_dp_hs with D = Lx + Ly + 1.
-extern "C" int praline_tiled_dp_rows(const float* cx, const float* inv_x, const float* cy,
-                                     const float* inv_y, const float* s, const int* lx,
+// The in-place source on the "scalar" tier.  ops: the scratch of
+// praline_tiled_prep on tier 1 (T rows f32[B, Lx, AP] then Cy rows f32[B,
+// Ly, AP], AP = A rounded up to a multiple of 4); pwide unused (the "mma"
+// tier's entry, praline_tiled_mma_rows, takes the same arguments); inv_x
+// f32[B, Lx], inv_y f32[B, Ly]; lx/ly int32[B] with 1 <= lx <= Lx, 1 <= ly
+// <= Ly; carry as above with Lp = Lx + 1.  Outputs as praline_tiled_dp_hs
+// with D = Lx + Ly + 1.
+extern "C" int praline_tiled_dp_rows(const void* ops, const unsigned char* /*pwide*/,
+                                     const float* inv_x, const float* inv_y, const int* lx,
                                      const int* ly, const float* gaps_host, int k, int mode,
-                                     int traceback, int B, int Lx, int Ly, int A, int W, int R,
-                                     int m, int T, float* t, float* cyp, float* carry,
-                                     float* score, float* length, int* ti, int* tj,
-                                     int* tcode, uint8_t* tb, void* stream) {
-  return tiled_rows<false>(cx, inv_x, cy, inv_y, s, lx, ly, gaps_host, k, mode, traceback, B,
-                           Lx, Ly, A, W, R, m, T, t, cyp, carry,
-                           Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f, stream);
+                                     int traceback, int B, int Lx, int Ly, int AP, int W, int R,
+                                     int m, int T, float* carry, float* score, float* length,
+                                     int* ti, int* tj, int* tcode, uint8_t* tb, void* stream) {
+  return tiled_rows<false>(ops, inv_x, inv_y, lx, ly, gaps_host, k, mode, traceback, B, Lx, Ly,
+                           AP, W, R, m, T, carry, Outs{score, length, ti, tj, tcode, tb},
+                           nullptr, 0, -1, 0.0f, stream);
 }

@@ -1,11 +1,13 @@
 // The lane-tiled DP's launches (K6: csrc/tiled_dp.cu, csrc/tiled_ckpt.cu,
-// csrc/tiled_composite.cu): csrc/cluster_walk.cuh's walk_kernel at up to
-// 512 threads a CTA, with or without the checkpointed launches built in
-// (CKPT), on the hs source or the rows source below.  Each translation
-// unit that includes it builds its own kernels, so the three build in
-// parallel.  The including file includes csrc/hs_visits.cuh (the hs
-// source, which tiled_ablation.py replaces in csrc/tiled_dp.cu's text)
-// before it.
+// csrc/tiled_composite.cu, csrc/tiled_ring.cu and, on the tensor cores,
+// csrc/tiled_mma.cu, csrc/tiled_ckpt_mma.cu and csrc/tiled_composite_mma.cu):
+// csrc/cluster_walk.cuh's walk_kernel at up to 512 threads a CTA, with or
+// without the checkpointed launches built in (CKPT), on the hs source or
+// the scalar rows source below (the "scalar" tier; csrc/rows_box.cuh is the
+// "mma" tier's).  Each translation unit that includes it builds its own
+// kernels, so they build in parallel.  The including file includes
+// csrc/hs_visits.cuh (the hs source, which tiled_ablation.py replaces in
+// csrc/tiled_dp.cu's text) before it.
 
 #pragma once
 
@@ -23,26 +25,29 @@ struct RowsVisits {
   __device__ __forceinline__ FusedRows prepare(int, int, int, int) const { return rows; }
 };
 
-// walk_kernel's in-place score source: the scratch of csrc/fused_rows.cuh.
+// walk_kernel's in-place score source on the "scalar" tier: the scratch of
+// csrc/fused_rows.cuh's prep (praline_tiled_prep, tier 1), t f32[B, Lx, AP]
+// then cyp f32[B, Ly, AP].
 struct RowsSource {
-  static constexpr bool HS = false;
   const float* t;
   const float* cyp;
   const float* ivx;
   const float* ivy;
   int Lx, Ly, AP;
+  __host__ __device__ static constexpr int smem(int, int) { return 0; }
+  __device__ __forceinline__ bool takes(int) const { return true; }
   __device__ __forceinline__ RowsVisits visits(const WalkArgs&, int b, int, float*) const {
     return RowsVisits{fused_rows(t, cyp, ivx, ivy, b, Lx, Ly, AP)};
   }
 };
 
 // PARAMS: the source's functor reads it from the kernel's parameters
-// (walk_kernel_params).
-template <bool CKPT, bool PARAMS = false, class Src>
+// (walk_kernel_params); RING: the ring's launch.
+template <bool CKPT, bool PARAMS = false, bool RING = false, class Src>
 int dispatch(int k, const WalkArgs& a, const Src& src, int* clusters) {
   return with_levels(k, [&](auto K) {
-    return launch_walk<Src, decltype(K)::value, false, MAX_W, 1, CKPT, PARAMS>(a, src,
-                                                                             clusters);
+    return launch_walk<Src, decltype(K)::value, false, MAX_W, 1, CKPT, PARAMS, RING>(a, src,
+                                                                                   clusters);
   });
 }
 
@@ -50,7 +55,8 @@ int dispatch(int k, const WalkArgs& a, const Src& src, int* clusters) {
 // hs = 1 or rows = 0, T) the card holds at once, into *clusters.
 template <bool CKPT>
 int tiled_clusters(int k, int hs, int W, int R, int m, int T, int* clusters) {
-  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, hs != 0)) return (int)cudaErrorInvalidValue;
+  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, hs ? hs_smem(W, T) : 0))
+    return (int)cudaErrorInvalidValue;
   WalkArgs a = {};
   a.B = 1;
   a.W = W;
@@ -70,29 +76,28 @@ int tiled_hs(const float* hs, const int* lx, const int* ly, const float* gaps_ho
              float* carry, const Outs& out, float* snap, int interval, int block, float cum0,
              void* stream) {
   WalkArgs a = {};
-  if (!walk_args(&a, true, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback, D, B,
-                 Lp, W, R, m, T, carry, out, stream) ||
+  if (!walk_args(&a, hs_smem(W, T), MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
+                 D, B, Lp, W, R, m, T, carry, out, stream) ||
       !walk_snapshots(&a, snap, interval, block, cum0))
     return (int)cudaErrorInvalidValue;
   return dispatch<CKPT>(k, a, HsSource{hs}, nullptr);
 }
 
-// A launch on the rows source (csrc/tiled_dp.cu, praline_tiled_dp_rows).
+// A launch on the rows source's "scalar" tier (csrc/tiled_dp.cu,
+// praline_tiled_dp_rows, says what each argument is).
 template <bool CKPT>
-int tiled_rows(const float* cx, const float* inv_x, const float* cy, const float* inv_y,
-               const float* s, const int* lx, const int* ly, const float* gaps_host, int k,
-               int mode, int traceback, int B, int Lx, int Ly, int A, int W, int R, int m,
-               int T, float* t, float* cyp, float* carry, const Outs& out, float* snap,
-               int interval, int block, float cum0, void* stream) {
+int tiled_rows(const void* ops, const float* inv_x, const float* inv_y, const int* lx,
+               const int* ly, const float* gaps_host, int k, int mode, int traceback, int B,
+               int Lx, int Ly, int AP, int W, int R, int m, int T, float* carry, const Outs& out,
+               float* snap, int interval, int block, float cum0, void* stream) {
   WalkArgs a = {};
-  if (Lx < 1 || Ly < 1 ||
-      !walk_args(&a, false, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
+  if (Lx < 1 || Ly < 1 || !ops || AP < 4 || AP % 4 != 0 ||
+      !walk_args(&a, 0, MAX_W, WALK_MAX_SMEM, lx, ly, gaps_host, k, mode, traceback,
                  Lx + Ly + 1, B, Lx + 1, W, R, m, T, carry, out, stream) ||
       !walk_snapshots(&a, snap, interval, block, cum0))
     return (int)cudaErrorInvalidValue;
-  const int rc = launch_prep(cx, cy, s, t, cyp, B, Lx, Ly, A, a.stream);
-  if (rc != 0) return rc;
-  return dispatch<CKPT>(k, a, RowsSource{t, cyp, inv_x, inv_y, Lx, Ly, padded_alphabet(A)},
+  const float* t = static_cast<const float*>(ops);
+  return dispatch<CKPT>(k, a, RowsSource{t, t + (size_t)B * Lx * AP, inv_x, inv_y, Lx, Ly, AP},
                         nullptr);
 }
 

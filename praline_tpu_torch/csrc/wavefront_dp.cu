@@ -72,7 +72,7 @@ int dispatch(int k, int min_blocks, const WalkArgs& a, const HsSource& src, int*
 // for arguments the kernel does not take.
 extern "C" int praline_wavefront_dp_smem(int W, int T, int m, int k) {
   if (k < 1 || k > MAXK || m < 1 || W < 32 || T < 1) return -1;
-  return walk_layout(k, true, W, m, T, 0).total;
+  return walk_layout(k, hs_smem(W, T), W, m, T, 0).total;
 }
 
 // How many clusters of R CTAs of W threads and m tiles (k levels, T,
@@ -80,7 +80,8 @@ extern "C" int praline_wavefront_dp_smem(int W, int T, int m, int k) {
 // error of the query.
 extern "C" int praline_wavefront_dp_clusters(int k, int W, int R, int m, int T, int min_blocks,
                                              int* clusters) {
-  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, true)) return (int)cudaErrorInvalidValue;
+  if (!walk_geometry_ok(k, 2, W, MAX_W, R, m, T, hs_smem(W, T)))
+    return (int)cudaErrorInvalidValue;
   WalkArgs a = {};
   a.B = 1;
   a.W = W;
@@ -108,8 +109,8 @@ extern "C" int praline_wavefront_dp(const float* hs, const int* lx, const int* l
                                     unsigned long long* slots, void* stream) {
   WalkArgs a = {};
   if (Lp > MAX_LANES ||
-      !walk_args(&a, true, MAX_W, 0, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m,
-                 T, carry, Outs{score, length, ti, tj, tcode, tb, slots}, stream))
+      !walk_args(&a, hs_smem(W, T), MAX_W, 0, lx, ly, gaps_host, k, mode, traceback, D, B, Lp,
+                 W, R, m, T, carry, Outs{score, length, ti, tj, tcode, tb, slots}, stream))
     return (int)cudaErrorInvalidValue;
   return dispatch(k, min_blocks, a, HsSource{hs}, nullptr);
 }

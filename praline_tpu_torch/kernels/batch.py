@@ -34,9 +34,10 @@ tiled route (:func:`composite_route`); where the summed ``hs`` would pass
 its budget the tiled kernel computes the composite in place, and past the
 traceback budget the chunk runs checkpointed.
 
-The score tier of the producer and of the fused kernel is chosen per chunk
-(:func:`chunk_stats`): the tensor-core kernels where
-``fused_scores.tensor_core_exact`` admits the chunk's profiles
+The score tier of the producer, of the fused kernel and of the tiled
+kernel's in-place sources is chosen per chunk (:func:`chunk_stats`): the
+tensor-core kernels where ``fused_scores.tensor_core_exact`` admits the
+chunk's profiles
 (statistics cached per profile on the host, like the JAX package's
 ``stack_tmax``, ``praline_tpu/kernels/batch.py:977-996``), the scalar
 kernels elsewhere.  Lengths past the largest bucket take buckets in steps
@@ -84,8 +85,8 @@ from .replay import moves_to_result, replay_block, replay_moves, walk_state
 from .scan import default_ckpt_interval
 from .scores import track_weight
 from .tiled_dp import (
-    Composite, carry_values, problem_shape, source_device, source_scores, wavefront_dp_tiled,
-    wavefront_dp_tiled_forward, wavefront_dp_tiled_resume,
+    Composite, carry_values, prepare_operands, problem_shape, source_device, source_kind,
+    source_scores, wavefront_dp_tiled, wavefront_dp_tiled_forward, wavefront_dp_tiled_resume,
 )
 
 
@@ -233,11 +234,11 @@ def chunk_problem_bytes(route: str, device, bx: int, by: int, A: int,
     traceback bytes (the DP's and the walk's in flight) or, checkpointed,
     :func:`checkpoint_bytes`.  The score source's scratch: on the card, the
     tensor-core tier's where the producer runs (either tier may take a
-    chunk); on the fused route, that of ``tier``, the group's tier (a group
+    chunk); where the scores are computed in place (the fused route, the
+    tiled routes' rows source), that of ``tier``, the group's tier (a group
     on "mma" has every chunk on "mma"; on "scalar" a chunk may take either,
-    so the larger counts); and the in-place ``T``/``Cy`` copies on the
-    tiled routes' rows source.  The plain versions on the CPU build ``hs``
-    on every route."""
+    so the larger of the limbs and the ``T``/``Cy`` copies counts).  The
+    plain versions on the CPU build ``hs`` on every route."""
     device_type = _type(device)
     hs_bytes, tb_bytes = per_problem_bytes(bx, by)
     total = (bx + by) * (A + 1) * 4
@@ -251,10 +252,8 @@ def chunk_problem_bytes(route: str, device, bx: int, by: int, A: int,
         total += hs_bytes
     mma = mma_scratch_bytes(1, bx, by) if device_type == "cuda" else 0
     rows = (bx + by) * padded_alphabet(A) * 4
-    if route == "fused":
+    if in_place:
         total += mma if tier == "mma" else max(mma, rows)
-    elif in_place:
-        total += rows
     else:
         total += mma
     if route in TILED_ROUTES:
@@ -420,12 +419,6 @@ def uses_producer(route: str, bx: int, by: int, device) -> bool:
                                      and tiled_source(bx, by, device) == "hs")
 
 
-def takes_tier(route: str, bx: int, by: int, device) -> bool:
-    """Whether ``route``'s kernels take a score tier ("mma" or "scalar"):
-    the producer's (:func:`uses_producer`) or the fused kernel's."""
-    return route == "fused" or uses_producer(route, bx, by, device)
-
-
 def dispatch_name(route: str, bx: int, by: int, n: int, tracks: bool = False) -> str:
     """The profiler span of one chunk: the JAX package's names for the
     routes it shares (``dispatch:{bx}x{by}x{n}``, ``dispatch:ckpt-tb:...``,
@@ -439,24 +432,24 @@ def dispatch_name(route: str, bx: int, by: int, n: int, tracks: bool = False) ->
 
 def dispatch(route, cx, inv_x, cy, inv_y, s, lx, ly, *, gap_series, mode, traceback, tier):
     """One chunk on ``route``: the Hopper kernels on CUDA tensors, their
-    plain versions on CPU tensors; ``tier`` is the score tier where the
-    route takes one (:func:`takes_tier`).  Returns the DP's terminal dict;
-    with traceback, ``moves``/``nmoves`` replace ``tb``."""
+    plain versions on CPU tensors; ``tier`` is the chunk's score tier, that
+    of the producer where the route runs it (:func:`uses_producer`), else
+    of the kernel that computes the scores in place (the fused kernel, the
+    tiled kernel's rows source).  Returns the DP's terminal dict; with
+    traceback, ``moves``/``nmoves`` replace ``tb``."""
     bx, by = cx.shape[1], cy.shape[1]
     with annotate(dispatch_name(route, bx, by, cx.shape[0])):
         if uses_producer(route, bx, by, cx.device):
             hs = fused_skewed_scores(cx, inv_x, cy, inv_y, s, tier=tier)
             return dp_over_hs(route, hs, lx, ly, gap_series=gap_series, mode=mode,
                               traceback=traceback)
+        rows = (cx, inv_x, cy, inv_y, s)
         if route == "checkpointed":
-            return checkpointed_walk((cx, inv_x, cy, inv_y, s), lx, ly, gap_series=gap_series,
-                                     mode=mode)
+            return checkpointed_walk(rows, lx, ly, gap_series=gap_series, mode=mode, tier=tier)
         if route == "fused":
-            out = wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series, mode,
-                                     traceback, tier=tier)
+            out = wavefront_dp_fused(*rows, lx, ly, gap_series, mode, traceback, tier=tier)
         else:
-            out = wavefront_dp_tiled((cx, inv_x, cy, inv_y, s), lx, ly, gap_series, mode,
-                                     traceback)
+            out = wavefront_dp_tiled(rows, lx, ly, gap_series, mode, traceback, tier=tier)
         route_counts[route] += 1
         return _walk(out, gap_series, mode, bx + by, traceback)
 
@@ -476,28 +469,33 @@ def dp_over_hs(route, hs, lx, ly, *, gap_series, mode, traceback):
     return _walk(out, gap_series, mode, steps, traceback)
 
 
-def checkpointed_walk(source, lx, ly, *, gap_series, mode):
+def checkpointed_walk(source, lx, ly, *, gap_series, mode, tier=None):
     """The checkpointed traceback of one chunk on the tiled kernel's
-    ``source`` (``kernels/tiled_dp.py``: ``hs``, the rows tuple or a
-    :class:`~.tiled_dp.Composite`): the forward launch, then for each block
-    of ``default_ckpt_interval(D)`` diagonals, from the last to the first,
-    its resume launch into one block buffer and the block walk, all
-    enqueued with no host sync.  On the CPU the plain versions run over the
-    source's ``hs``, built once.  Returns the terminal dict with ``moves``
-    ``uint8[B, Lx + Ly]`` and ``nmoves``, byte for byte the traceback
-    route's."""
+    ``source`` (``kernels/tiled_dp.py``: ``hs``, or the rows tuple or a
+    :class:`~.tiled_dp.Composite` on the score ``tier``): the forward
+    launch, then for each block of ``default_ckpt_interval(D)`` diagonals,
+    from the last to the first, its resume launch into one block buffer and
+    the block walk, all enqueued with no host sync; an in-place source's
+    operands are made once, for the forward launch and every resume
+    launch.  On the CPU the plain versions run over the source's ``hs``,
+    built once.  Returns the terminal dict with ``moves`` ``uint8[B, Lx +
+    Ly]`` and ``nmoves``, byte for byte the traceback route's."""
     global checkpointed_chunks
     B, Lx, Ly = problem_shape(source)
     D, Lp, dev = Lx + Ly + 1, Lx + 1, source_device(source)
+    launch = {}
     if dev.type == "cpu":
         source = source_scores(source)
+    elif source_kind(source) != "hs":
+        launch = dict(tier=tier, operands=prepare_operands(source, tier))
     R = default_ckpt_interval(D)
-    out, snap = wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, R)
+    out, snap = wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, R, **launch)
     state = walk_state(out["ti"], out["tj"], out["tcode"], len(gap_series))
     moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=dev)
     block = torch.empty((R, B, Lp), dtype=torch.uint8, device=dev)
     for q in range(snap.shape[0] - 1, -1, -1):
-        wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, R, q, snap, out=block)
+        wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, R, q, snap, out=block,
+                                  **launch)
         replay_block(block, state, moves, q, gap_series, mode)
     out["moves"] = moves
     out["nmoves"] = state[5].clone()
@@ -612,12 +610,10 @@ def align_pairs_batched(
         sx, sy = arena.stack(bx), arena.stack(by)
         rows_x = np.array([sx["pos"][pair_reg[i][0]] for i in idxs], np.int64)
         rows_y = np.array([sy["pos"][pair_reg[i][1]] for i in idxs], np.int64)
-        tiered = takes_tier(route, bx, by, dev)
-        x_stats = dict(sx["stats"], tmax=stack_tmax(sx, s_host)) if tiered else None
+        x_stats = dict(sx["stats"], tmax=stack_tmax(sx, s_host))
 
         def tier_of(ix, iy):
-            return (score_tier(chunk_stats(x_stats, ix), chunk_stats(sy["stats"], iy), m_stats)
-                    if tiered else None)
+            return score_tier(chunk_stats(x_stats, ix), chunk_stats(sy["stats"], iy), m_stats)
 
         per_prob = chunk_problem_bytes(route, dev, bx, by, A, traceback,
                                        tier_of(rows_x, rows_y), len(gap_series))
@@ -679,11 +675,14 @@ def composite_problem_bytes(route: str, device, bx: int, by: int,
     """Device bytes one composite problem of a chunk takes: as
     :func:`chunk_problem_bytes` for the first track, plus the other tracks'
     gathered operands and either the accumulated ``hs`` beside the track's
-    own or, on the card's in-place composite, their ``T``/``Cy`` copies."""
+    own or, on the card's in-place composite, their operands on either tier
+    (the larger of the limbs and the ``T``/``Cy`` copies)."""
     first = chunk_problem_bytes(route, device, bx, by, alphabets[0], traceback)
     others = sum((bx + by) * (A + 1) * 4 for A in alphabets[1:])
     if composite_in_place(route, bx, by, device):
-        return first + others + sum((bx + by) * padded_alphabet(A) * 4 for A in alphabets[1:])
+        mma = mma_scratch_bytes(1, bx, by)
+        return first + others + sum(max(mma, (bx + by) * padded_alphabet(A) * 4)
+                                    for A in alphabets[1:])
     return first + others + per_problem_bytes(bx, by)[0]
 
 
@@ -699,6 +698,13 @@ def composite_tiers(sx: dict, sy: dict, ix: np.ndarray, iy: np.ndarray, m_stats)
     stacks' per-track statistics (``stats``)."""
     return [score_tier(chunk_stats(ax, ix), chunk_stats(ay, iy), m)
             for ax, ay, m in zip(sx["stats"], sy["stats"], m_stats)]
+
+
+def composite_tier(tiers: Seq[str]) -> str:
+    """The in-place composite's tier for a chunk whose tracks have
+    ``tiers``: "mma" only where every track's operands take it, so that no
+    chunk mixes tiers."""
+    return "mma" if all(t == "mma" for t in tiers) else "scalar"
 
 
 def composite_scores(sx: dict, sy: dict, ix: np.ndarray, iy: np.ndarray, ss, weights, tiers):
@@ -737,12 +743,13 @@ def composite_source(sx: dict, sy: dict, ix: np.ndarray, iy: np.ndarray, ss, wei
     return source, sx["lens"].index_select(0, idx_x), sy["lens"].index_select(0, idx_y)
 
 
-def composite_dp(route, source, lx, ly, *, gap_series, mode, traceback):
-    """The DP of a tiled ``route`` over the in-place composite ``source``;
-    then, with traceback, the walk."""
+def composite_dp(route, source, lx, ly, *, gap_series, mode, traceback, tier):
+    """The DP of a tiled ``route`` over the in-place composite ``source`` on
+    the score ``tier`` (:func:`composite_tier`); then, with traceback, the
+    walk."""
     if route == "checkpointed":
-        return checkpointed_walk(source, lx, ly, gap_series=gap_series, mode=mode)
-    out = wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback)
+        return checkpointed_walk(source, lx, ly, gap_series=gap_series, mode=mode, tier=tier)
+    out = wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, tier=tier)
     route_counts[route] += 1
     _, Lx, Ly = problem_shape(source)
     return _walk(out, gap_series, mode, Lx + Ly, traceback)
@@ -866,11 +873,12 @@ def align_tracksets_batched(
             """One chunk, or one shard of it, on device ``d``."""
             sxd, syd = on_device(sx, d), on_device(sy, d)
             with annotate(dispatch_name(route, bx, by, len(jx), tracks=True)):
+                tiers = composite_tiers(sx, sy, jx, jy, m_stats)
                 if in_place:
                     return composite_dp(route, *composite_source(sxd, syd, jx, jy, ss_on[d],
                                                                  weights),
-                                        gap_series=gap_series, mode=mode, traceback=traceback)
-                tiers = composite_tiers(sx, sy, jx, jy, m_stats)
+                                        gap_series=gap_series, mode=mode, traceback=traceback,
+                                        tier=composite_tier(tiers))
                 # no reference to the composite hs outlives the DP
                 return dp_over_hs(route, *composite_scores(sxd, syd, jx, jy, ss_on[d], ws, tiers),
                                   gap_series=gap_series, mode=mode, traceback=traceback)

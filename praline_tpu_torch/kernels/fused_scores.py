@@ -136,6 +136,12 @@ def tier_of(cx, cy, s) -> str:
 
 
 def skewed_pair_scores_limbs(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
+    """The "mma" tier's integer arithmetic (:func:`pair_scores_limbs`),
+    skewed as ``skewed_pair_scores``."""
+    return skew(pair_scores_limbs(cx, inv_x, cy, inv_y, s), cx.shape[1], cy.shape[1])
+
+
+def pair_scores_limbs(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
     """The "mma" tier's integer arithmetic in torch int64 on the CPU, for
     operands :func:`tensor_core_exact` admits, step for step as the
     kernel's tiles (``csrc/score_box.cuh`` ``box_rows``): ``T`` exact,
@@ -143,8 +149,9 @@ def skewed_pair_scores_limbs(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
     127``), each limb's product with a limb of ``Cy`` recombined as ``256 *
     P_hi + P_lo``; where a count passes 255, ``Cy`` split the same way and
     ``H = T @ Cy_lo^T + 256 * (T @ Cy_hi^T)``; every value checked to stay
-    inside int32 (the proof's bounds); then the f32 conversion, the pinned
-    scale and the skew."""
+    inside int32 (the proof's bounds); then the f32 conversion and the
+    pinned scale: ``f32[B, Lx, Ly]``.  On a slice of rows and columns it is
+    the arithmetic of one box (``kernels/tiled_dp.py::visit_box_plain``)."""
     cxi, cyi = cx.to(torch.int64), cy.to(torch.int64)
     t = torch.matmul(cxi, s.to(torch.int64))
     one_pass = bool((t.abs() <= 127).all())
@@ -166,8 +173,7 @@ def skewed_pair_scores_limbs(cx, inv_x, cy, inv_y, s) -> torch.Tensor:
         assert int(cyi.max()) <= 65535
         h_int = int32(h_int + int32(product(cyi >> 8) * 256))
     assert h_int.numel() == 0 or int(h_int.abs().max()) < 2**24
-    h = (h_int.to(torch.float32) * inv_x[:, :, None]) * inv_y[:, None, :]
-    return skew(h, cx.shape[1], cy.shape[1])
+    return (h_int.to(torch.float32) * inv_x[:, :, None]) * inv_y[:, None, :]
 
 
 def fused_skewed_scores(cx, inv_x, cy, inv_y, s, *, tier: str, out=None) -> torch.Tensor:

@@ -21,6 +21,20 @@ Lp]`` (from the producer) or, computed in place, the counts, inverses and
 matrix ``(cx, inv_x, cy, inv_y, s)`` ("rows") or a multi-track
 :class:`Composite` of them (``csrc/tiled_composite.cu``).
 
+The in-place sources take a score tier, as the fused kernel does
+(``tier=``, required there and refused on hs): ``"mma"`` fills each
+visit's box of scores on the int8 tensor cores into shared memory before
+its steps (``csrc/rows_box.cuh``; only for operands
+``fused_scores.tensor_core_exact`` admits; two launches, each problem run
+by the one built for whether its y counts pass 255), ``"scalar"``
+computes each score in place by f32 dot products (``csrc/fused_rows.cuh``).
+Their operands (:class:`InPlaceOperands`, :func:`prepare_operands`) are
+made once and passed to every launch of a chunk (``operands=``): the
+checkpointed route's forward and resume launches.  The ring's superstep
+launch (:func:`wavefront_dp_tiled_ring`) stays on the "scalar" tier, its
+operands made once a rank.  :func:`visit_box_plain` is one visit's box in the "mma"
+tier's integer arithmetic.
+
 The checkpointed traceback (the counterpart of ``praline_tpu/kernels/
 scan.py:173`` ``wavefront_dp_checkpointed``, for tracebacks past the batch
 aligner's byte budget) runs on the same kernel, built with the checkpoint
@@ -58,19 +72,24 @@ from .fused_dp import (
     CAND_BYTES, SMEM_PER_CTA, check_out, check_rows, check_series, empty_outputs,
     padded_alphabet, round16,
 )
+from .fused_scores import TIERS, mma_scratch_bytes, pair_scores_limbs
 from .scan import (
     MODES, Recurrence, RingRows, Terminals, _gap_prefix, carries_d1, diagonal_step, edge_of,
     edge_values, forward_snapshots, resume_block, ring_superstep_plain,
 )
 from .scores import composite_skewed_scores, skewed_pair_scores, track_weight
 
-# Kernel launches (not by the plain paths): by wavefront_dp_tiled on the hs
-# and rows sources and on the composite source, the checkpointed forward
-# and resume launches (any source), and the ring's superstep launches.
-launches = 0
-forward_launches = 0
-resume_launches = 0
-composite_launches = 0
+# Kernel launches (not by the plain paths), one a wrapper call, by score
+# source and tier ("hs", or the in-place sources' "mma" and "scalar"): by
+# wavefront_dp_tiled on the hs and rows sources and on the composite
+# source, and the checkpointed forward and resume launches (any source);
+# the ring's superstep launches (one tier, "scalar").  reset_launches sets
+# them all to 0.
+SOURCE_TIERS = ("hs", *TIERS)
+launches = dict.fromkeys(SOURCE_TIERS, 0)
+forward_launches = dict.fromkeys(SOURCE_TIERS, 0)
+resume_launches = dict.fromkeys(SOURCE_TIERS, 0)
+composite_launches = dict.fromkeys(TIERS, 0)
 ring_launches = 0
 
 MAX_TILE_LANES = 512  # W at most: lanes (= threads) of a CTA (csrc/tiled_dp.cu MAX_W)
@@ -89,8 +108,11 @@ MAX_TRACKS = 8  # tracks of a composite on the card (csrc/tiled_composite.cu)
 
 
 def reset_launches() -> None:
-    global launches, forward_launches, resume_launches, composite_launches, ring_launches
-    launches = forward_launches = resume_launches = composite_launches = ring_launches = 0
+    global ring_launches
+    for counts in (launches, forward_launches, resume_launches, composite_launches):
+        for key in counts:
+            counts[key] = 0
+    ring_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +136,19 @@ def source_kind(source) -> str:
     if isinstance(source, torch.Tensor):
         return "hs"
     return "composite" if isinstance(source, Composite) else "rows"
+
+
+def check_tier(kind: str, tier) -> str:
+    """The launch counters' key of a source kind and tier: ``"hs"`` for
+    the hs source, which takes no tier; the tier for the in-place sources,
+    which require one of :data:`~.fused_scores.TIERS`."""
+    if kind == "hs":
+        if tier is not None:
+            raise ValueError(f"the hs source takes no score tier, got {tier!r}")
+        return "hs"
+    if tier not in TIERS:
+        raise ValueError(f"the {kind} source takes tier= one of {TIERS}, got {tier!r}")
+    return tier
 
 
 def source_scores(source) -> torch.Tensor:
@@ -150,17 +185,38 @@ def check_hs(hs, lx, ly) -> tuple[int, int, int]:
     return D, B, Lp
 
 
+def box_depth(T: int) -> int:
+    """Diagonals of an "mma" visit's box: T rounded up to whole n-tiles of
+    8 (``csrc/rows_box.cuh`` ``box_depth``)."""
+    return -(-T // 8) * 8
+
+
+def box_smem(W: int, T: int) -> int:
+    """Shared memory of the "mma" tier's source (``csrc/rows_box.cuh``
+    ``BoxLayout``, the wide launch's, the larger): the box, two buffers of
+    the rows' limbs, two bands of ``W + box_depth(T)`` columns of ``Cy_lo``
+    and of ``Cy_hi`` with their inverses, two buffers of the rows'
+    inverses."""
+    TB = box_depth(T)
+    cols = W + TB
+    return (round16(TB * (W + 4) * 4) + 2 * 2 * W * 32 + 4 * cols * 32 + round16(2 * cols * 4)
+            + round16(2 * W * 4))
+
+
 def smem_layout(W: int, T: int, m: int, k: int, source: str,
-                budget: int = SMEM_PER_CTA) -> tuple[int, bool]:
+                budget: int = SMEM_PER_CTA, tier: str | None = None) -> tuple[int, bool]:
     """Dynamic shared memory of a CTA (``csrc/cluster_walk.cuh``
     ``WalkLayout``) and whether the carries of its ``m`` tiles are in it:
-    the walk's exchange, ring, edge and candidates; on the hs source two
-    boxes of scores; with m > 1 the carries where the whole fits in
-    ``budget`` bytes (else they go to a device-memory scratch)."""
+    the walk's exchange, ring, edge and candidates; the score source's own:
+    on the hs source two boxes of scores, on the in-place sources' "mma"
+    tier :func:`box_smem`, on their "scalar" tier none; with m > 1 the
+    carries where the whole fits in ``budget`` bytes (else they go to a
+    device-memory scratch)."""
     kc = 1 if k == 2 else k
     nx, nw = 6 + 2 * kc, W // 32
+    src = 2 * T * W * 4 if source == "hs" else box_smem(W, T) if tier == "mma" else 0
     total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4) + round16(T * nx * 4)
-             + round16((nw + 1) * CAND_BYTES) + (2 * T * W * 4 if source == "hs" else 0))
+             + round16((nw + 1) * CAND_BYTES) + src)
     carries = carry_values(k) * m * W * 4
     if m > 1 and total + carries <= budget:
         return total + carries, True
@@ -183,9 +239,11 @@ class TiledGeometry:
 
 
 def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = None,
-                   tile_lanes: int | None = None, steps: int = MAX_STEPS) -> TiledGeometry:
+                   tile_lanes: int | None = None, steps: int = MAX_STEPS,
+                   tier: str | None = None) -> TiledGeometry:
     """The cluster of a problem of ``Lp`` lanes at ``k`` gap levels on
-    ``source``.  By default: the fewest tiles a CTA (m) that a cluster of
+    ``source`` (on the in-place sources, the score ``tier``'s shared
+    memory).  By default: the fewest tiles a CTA (m) that a cluster of
     :data:`MAX_CTAS` CTAs of at most :data:`MAX_TILE_LANES` lanes allows,
     then the row spread over that many CTAs in tiles of equal width
     rounded up to a warp, but no narrower than :data:`MIN_SPREAD_LANES`
@@ -206,7 +264,7 @@ def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = No
         W = tile_lanes
         m = -(-Lp // (cap * W))
     R = ctas or -(-Lp // (m * W))
-    smem, carries_in_smem = smem_layout(W, steps, m, k, source)
+    smem, carries_in_smem = smem_layout(W, steps, m, k, source, tier=tier)
     return TiledGeometry(R, m, W, steps, smem, m > 1 and not carries_in_smem)
 
 
@@ -334,28 +392,37 @@ def _band_walk(rec, hs, lx, ly, W, T, term):
 
 _clusters: dict[tuple, int] = {}
 
+# The cluster queries of each kernel family: (source, checkpointed, tier).
+_CLUSTERS = {("composite", True, "scalar"): "praline_tiled_composite_clusters",
+             ("composite", True, "mma"): "praline_tiled_composite_mma_clusters",
+             ("ring", False, None): "praline_tiled_ring_clusters",
+             ("rows", False, "mma"): "praline_tiled_mma_clusters",
+             ("rows", True, "mma"): "praline_tiled_ckpt_mma_clusters"}
+
 
 def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
-                        ckpt: bool = False) -> int:
+                        ckpt: bool = False, tier: str | None = None) -> int:
     """Clusters of this geometry the card holds at once
     (``cudaOccupancyMaxActiveClusters``) for the ordinary launches or, with
     ``ckpt``, the checkpointed ones (``csrc/tiled_ckpt.cu``; the composite
     source has one kernel for both; source "ring": the ring's launch,
-    ``csrc/tiled_ring.cu``), asked once per shape."""
+    ``csrc/tiled_ring.cu``), on the in-place sources' ``tier`` (on "mma"
+    the wide launch's, ``csrc/rows_box.cuh``), asked once per shape."""
     g = geometry
-    key = (k, source, g.R, g.m, g.W, g.T, ckpt)
+    ckpt = ckpt or source == "composite"
+    key = (k, source, g.R, g.m, g.W, g.T, ckpt, tier)
     n = _clusters.get(key)
     if n is None:
         got = ctypes.c_int(0)
         lib = build.load_library()
-        if source == "composite":
-            rc = lib.praline_tiled_composite_clusters(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
-        elif source == "ring":
-            rc = lib.praline_tiled_ring_clusters(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
+        name = _CLUSTERS.get((source, ckpt, tier))
+        if name is not None:
+            rc = getattr(lib, name)(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
         else:
-            query = lib.praline_tiled_ckpt_clusters if ckpt else lib.praline_tiled_dp_clusters
-            rc = query(k, int(source == "hs"), g.W, g.R, g.m, g.T, ctypes.byref(got))
-        build.check(rc, "praline_tiled_dp_clusters")
+            name = "praline_tiled_ckpt_clusters" if ckpt else "praline_tiled_dp_clusters"
+            rc = getattr(lib, name)(k, int(source == "hs"), g.W, g.R, g.m, g.T,
+                                    ctypes.byref(got))
+        build.check(rc, name)
         n = _clusters[key] = got.value
     return n
 
@@ -405,29 +472,108 @@ def _check_composite(c: Composite, lx, ly) -> tuple[int, int, int, list[int]]:
     return B, Lx, Ly, [sh[3] for sh in shapes]
 
 
-def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry):
+@dataclasses.dataclass(frozen=True)
+class InPlaceOperands:
+    """What the in-place sources' launches read, made once by
+    ``praline_tiled_prep`` (``csrc/tiled_mma.cu``) for B problems of
+    ``rows`` x ``Ly``: one ``scratch`` tensor a track (on "mma" the limbs
+    and flags of ``csrc/score_box.cuh``, ``mma_scratch_bytes``; on "scalar"
+    ``T = Cx @ S`` and ``Cy`` rows padded to ``padded_alphabet(A)``
+    floats), each track's alphabet, and on "mma" ``pwide u8[B]``: 1 where a
+    count of problem b's y passes 255 on some track."""
+
+    tier: str
+    B: int
+    rows: int
+    Ly: int
+    scratch: tuple
+    alphabets: tuple
+    pwide: torch.Tensor | None
+
+
+def _tracks(source) -> list[tuple]:
+    """``(cx, cy, s)`` of each track of an in-place source."""
+    if source_kind(source) == "composite":
+        return list(zip(source.cxs, source.cys, source.ss))
+    return [(source[0], source[2], source[4])]
+
+
+def prepare_operands(source, tier: str) -> InPlaceOperands:
+    """The operands of the in-place ``source`` (the rows tuple or a
+    :class:`Composite`, on a card) on ``tier``, on the current stream."""
+    check_tier(source_kind(source), tier)
+    tracks = _tracks(source)
+    cx0, cy0, _ = tracks[0]
+    B, Lx, _ = cx0.shape
+    Ly = cy0.shape[1]
+    dev = cx0.device
+    pwide = torch.zeros(B, dtype=torch.uint8, device=dev) if tier == "mma" else None
+    scratch = []
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for cx, cy, s in tracks:
+            A = cx.shape[2]
+            nbytes = (mma_scratch_bytes(B, Lx, Ly) if tier == "mma"
+                      else B * (Lx + Ly) * padded_alphabet(A) * 4)
+            scratch.append(torch.empty(nbytes, dtype=torch.uint8, device=dev))
+            rc = lib.praline_tiled_prep(cx.data_ptr(), cy.data_ptr(), s.data_ptr(), B, Lx, Ly, A,
+                                        TIERS.index(tier), scratch[-1].data_ptr(),
+                                        pwide.data_ptr() if pwide is not None else None, stream)
+            build.check(rc, "praline_tiled_prep")
+    return InPlaceOperands(tier, B, Lx, Ly, tuple(scratch),
+                           tuple(cx.shape[2] for cx, _, _ in tracks), pwide)
+
+
+def _operands_for(source, tier, operands) -> InPlaceOperands:
+    """``operands`` where given (checked against the source), else made."""
+    if operands is None:
+        return prepare_operands(source, tier)
+    B, Lx, Ly = problem_shape(source)
+    if (operands.tier, operands.B, operands.rows, operands.Ly, len(operands.scratch)) != (
+            tier, B, Lx, Ly, len(_tracks(source))):
+        raise ValueError(f"operands of tier {operands.tier!r} for {operands.B} x "
+                         f"{operands.rows} x {operands.Ly} do not fit this {tier!r} launch")
+    return operands
+
+
+# The in-place launches' entry points: (source, checkpointed, tier).
+_ENTRIES = {("rows", False, "scalar"): "praline_tiled_dp_rows",
+            ("rows", False, "mma"): "praline_tiled_mma_rows",
+            ("rows", True, "scalar"): "praline_tiled_ckpt_rows",
+            ("rows", True, "mma"): "praline_tiled_ckpt_mma_rows",
+            ("composite", False, "scalar"): "praline_tiled_dp_composite",
+            ("composite", True, "scalar"): "praline_tiled_dp_composite",
+            ("composite", False, "mma"): "praline_tiled_composite_mma",
+            ("composite", True, "mma"): "praline_tiled_composite_mma"}
+
+
+def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, tier, operands):
     """One launch of the tiled kernel on ``source``'s entry point: ``out``
     the dict of output tensors (``score`` .. ``tcode`` and, where written,
     ``tb``), ``ckpt`` ``(snap, interval, block, cum0)`` or None, geometry
-    the keyword arguments of :func:`tiled_geometry`."""
+    the keyword arguments of :func:`tiled_geometry`, ``tier`` the in-place
+    sources' (None on hs) and ``operands`` their :class:`InPlaceOperands`
+    (None: made here)."""
     k = check_series(gap_series, mode)
     kind = source_kind(source)
     if kind == "hs":
         D, B, Lp = check_hs(source, lx, ly)
     elif kind == "rows":
-        B, Lx, Ly, A = check_rows(*source, lx, ly)
+        B, Lx, Ly, _ = check_rows(*source, lx, ly)
         D, Lp = Lx + Ly + 1, Lx + 1
     else:
-        B, Lx, Ly, alphabets = _check_composite(source, lx, ly)
+        B, Lx, Ly, _ = _check_composite(source, lx, ly)
         D, Lp = Lx + Ly + 1, Lx + 1
     dev = source_device(source)
-    g = tiled_geometry(Lp, k, kind, **geometry)
+    g = tiled_geometry(Lp, k, kind, tier=tier, **geometry)
     check_geometry(g, Lp)
     if ckpt is not None and ckpt[1] % g.T:
         raise ValueError(f"the interval {ckpt[1]} must be a multiple of the box depth {g.T}")
-    if max_active_clusters(k, kind, g, ckpt is not None) < 1:
+    if max_active_clusters(k, kind, g, ckpt is not None, tier) < 1:
         raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} threads "
-                           f"and {g.smem_bytes} B of shared memory at k={k} on the {kind} source")
+                           f"and {g.smem_bytes} B of shared memory at k={k} on the {kind} source"
+                           + (f" ({tier!r} tier)" if tier else ""))
     gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     carry = torch.empty((B, carry_values(k), Lp), **f32) if g.carry_scratch else None
@@ -447,49 +593,51 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry):
             name = "praline_tiled_ckpt_hs" if ckpt is not None else "praline_tiled_dp_hs"
             rc = getattr(lib, name)(source.data_ptr(), lx.data_ptr(), ly.data_ptr(), *series, D,
                                     B, Lp, *shape, *outs, *checkpoints, stream)
-        elif kind == "rows":
-            name = "praline_tiled_ckpt_rows" if ckpt is not None else "praline_tiled_dp_rows"
-            AP = padded_alphabet(A)
-            t_rows = torch.empty((B, Lx, AP), **f32)
-            cy_rows = torch.empty((B, Ly, AP), **f32)
-            rc = getattr(lib, name)(*(t.data_ptr() for t in source), lx.data_ptr(),
-                                    ly.data_ptr(), *series, B, Lx, Ly, A, *shape,
-                                    t_rows.data_ptr(), cy_rows.data_ptr(), *outs, *checkpoints,
-                                    stream)
+            build.check(rc, name)
+            return
+        ops = _operands_for(source, tier, operands)
+        pwide = ops.pwide.data_ptr() if ops.pwide is not None else None
+        name = _ENTRIES[(kind, ckpt is not None, tier)]
+        if kind == "rows":
+            rc = getattr(lib, name)(ops.scratch[0].data_ptr(), pwide, source[1].data_ptr(),
+                                    source[3].data_ptr(), lx.data_ptr(), ly.data_ptr(), *series,
+                                    B, Lx, Ly, padded_alphabet(ops.alphabets[0]), *shape, *outs,
+                                    *checkpoints, stream)
         else:
-            name = "praline_tiled_dp_composite"
-            n = len(alphabets)
-            scratch = [(torch.empty((B, Lx, padded_alphabet(A)), **f32),
-                        torch.empty((B, Ly, padded_alphabet(A)), **f32)) for A in alphabets]
+            n = len(ops.scratch)
 
             def ptrs(ts):
                 return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
 
             weights = np.array([float(track_weight(w)) for w in source.weights], np.float32)
+            aps = (ctypes.c_int * n)(*(padded_alphabet(A) for A in ops.alphabets))
             checkpoints = (snap.data_ptr() if snap is not None else None, interval, block,
                            cum0)
-            rc = lib.praline_tiled_dp_composite(
-                n, ptrs(source.cxs), ptrs(source.inv_xs), ptrs(source.cys),
-                ptrs(source.inv_ys), ptrs(source.ss), (ctypes.c_int * n)(*alphabets),
-                weights.ctypes.data_as(ctypes.c_void_p), ptrs(t for t, _ in scratch),
-                ptrs(c for _, c in scratch), lx.data_ptr(), ly.data_ptr(), *series, B, Lx, Ly,
-                *shape, *outs, *checkpoints, stream)
+            rc = getattr(lib, name)(
+                n, ptrs(ops.scratch), ptrs(source.inv_xs), ptrs(source.inv_ys), aps,
+                weights.ctypes.data_as(ctypes.c_void_p), pwide, lx.data_ptr(), ly.data_ptr(),
+                *series, B, Lx, Ly, *shape, *outs, *checkpoints, stream)
     build.check(rc, name)
 
 
 def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceback=False,
-                       *, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS, out=None):
+                       *, tier: str | None = None, tile_lanes=None, ctas=None,
+                       steps_per_visit=MAX_STEPS, out=None):
     """Batched DP of ``source`` (``hs f32[D, B, Lp]``, ``(cx f32[B, Lx,
     A], inv_x f32[B, Lx], cy f32[B, Ly, A], inv_y f32[B, Ly], s f32[A, A])``
     with ``Lp = Lx + 1``, or a :class:`Composite` of such tracks) with true
     lengths ``lx, ly int32[B]``, on the cluster of :func:`tiled_geometry`
     (``tile_lanes`` W a multiple of 32 up to 512, ``ctas`` R from 1 to 16,
-    ``steps_per_visit`` T from 1 to 32).  Same outputs as
+    ``steps_per_visit`` T from 1 to 32).  ``tier`` ("mma", only for
+    operands ``fused_scores.tensor_core_exact`` admits, or "scalar") is
+    required on the in-place sources and refused on hs, their operands made
+    for the launch (:func:`prepare_operands`).  Same outputs as
     :func:`wavefront_dp_tiled_plain` and ``kernels.scan.wavefront_dp``;
     ``out``, where given, is the dict of output tensors written (as
     ``fused_dp.wavefront_dp_fused``'s).  CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise where the card cannot hold one
     cluster of the geometry."""
+    key = check_tier(source_kind(source), tier)
     geometry = dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit)
     if source_device(source).type == "cpu":
         got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
@@ -498,35 +646,33 @@ def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceb
         if out is None:
             return got
         check_out(out, *problem_shape(source), traceback, got["score"].device)
-        for key, t in out.items():
-            t.copy_(got[key])
+        for k, t in out.items():
+            t.copy_(got[k])
         return out
-    global launches, composite_launches
     B, Lx, Ly = problem_shape(source)
     dev = source_device(source)
     if out is None:
         out = empty_outputs(B, Lx, Ly, traceback, dev)
     check_out(out, B, Lx, Ly, traceback, dev)
-    _launch(source, lx, ly, gap_series, mode, traceback, out, None, geometry)
-    if source_kind(source) == "composite":
-        composite_launches += 1
-    else:
-        launches += 1
+    _launch(source, lx, ly, gap_series, mode, traceback, out, None, geometry, tier, None)
+    (composite_launches if source_kind(source) == "composite" else launches)[key] += 1
     return out
 
 
-def wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, interval, *, tile_lanes=None,
-                               ctas=None, steps_per_visit=MAX_STEPS):
+def wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, interval, *, tier=None,
+                               operands=None, tile_lanes=None, ctas=None,
+                               steps_per_visit=MAX_STEPS):
     """The forward launch of the checkpointed traceback on ``source`` (as
-    :func:`wavefront_dp_tiled`'s): returns ``(out, snap)``, ``out`` the
-    terminal dict of the traceback launch and ``snap f32[nblk, B, NS, Lp]``
-    each lane's carries at the entry of every block of ``interval``
-    diagonals (a multiple of the box depth on the card), block q at
-    diagonal 2 + q interval, nblk = ceil((D - 2) / interval).  CPU tensors
-    take :func:`~.scan.forward_snapshots`."""
+    :func:`wavefront_dp_tiled`'s, ``tier`` too; ``operands``, where given,
+    are the source's :func:`prepare_operands` on ``tier``): returns
+    ``(out, snap)``, ``out`` the terminal dict of the traceback launch and
+    ``snap f32[nblk, B, NS, Lp]`` each lane's carries at the entry of every
+    block of ``interval`` diagonals (a multiple of the box depth on the
+    card), block q at diagonal 2 + q interval, nblk = ceil((D - 2) /
+    interval).  CPU tensors take :func:`~.scan.forward_snapshots`."""
+    key = check_tier(source_kind(source), tier)
     if source_device(source).type == "cpu":
         return forward_snapshots(source_scores(source), lx, ly, gap_series, mode, interval)
-    global forward_launches
     B, Lx, Ly = problem_shape(source)
     dev = source_device(source)
     D, Lp = Lx + Ly + 1, Lx + 1
@@ -535,22 +681,24 @@ def wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, interval, *, ti
     snap = torch.empty((nblk, B, carry_values(len(gap_series)), Lp), dtype=torch.float32,
                        device=dev)
     _launch(source, lx, ly, gap_series, mode, False, out, (snap, interval, -1, 0.0),
-            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit))
-    forward_launches += 1
+            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit), tier, operands)
+    forward_launches[key] += 1
     return out, snap
 
 
 def wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, interval, block, snap, *,
-                              out=None, tile_lanes=None, ctas=None, steps_per_visit=MAX_STEPS):
+                              tier=None, operands=None, out=None, tile_lanes=None, ctas=None,
+                              steps_per_visit=MAX_STEPS):
     """The resume launch of block ``block``: its direction bytes ``uint8[
     interval, B, Lp]`` (row r = diagonal 2 + block interval + r), re-derived
     from ``snap`` (:func:`wavefront_dp_tiled_forward`'s), byte for byte the
     traceback launch's rows; rows past D - 1 are not written on the card
-    (0 in the plain version).  ``out``, where given, is the tensor written.
-    CPU tensors take :func:`~.scan.resume_block`."""
+    (0 in the plain version).  ``tier`` and ``operands`` as
+    :func:`wavefront_dp_tiled_forward`'s; ``out``, where given, is the
+    tensor written.  CPU tensors take :func:`~.scan.resume_block`."""
+    key = check_tier(source_kind(source), tier)
     if source_device(source).type == "cpu":
         return resume_block(source_scores(source), snap, block, interval, gap_series, mode, out)
-    global resume_launches
     B, Lx, Ly = problem_shape(source)
     dev = source_device(source)
     Lp = Lx + 1
@@ -570,21 +718,59 @@ def wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, interval, block,
     scratch = empty_outputs(B, Lx, Ly, False, dev)
     scratch["tb"] = out
     _launch(source, lx, ly, gap_series, mode, True, scratch, (snap, interval, block, cum0),
-            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit))
-    resume_launches += 1
+            dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit), tier, operands)
+    resume_launches[key] += 1
     return out
+
+
+def visit_box_plain(source, d0: int, i0: int, steps: int, lanes: int) -> torch.Tensor:
+    """One visit's box ``f32[steps, B, lanes]`` of the "mma" tier
+    (``csrc/rows_box.cuh``): the scores of walk lanes ``i0 .. i0 + lanes -
+    1`` at diagonals ``d0 .. d0 + steps - 1`` of the in-place ``source``
+    (the rows tuple, or a :class:`Composite`, whose tracks' boxes are
+    weighted and summed in track order), from the int64 limb arithmetic of
+    the tile's rows and the band's columns alone
+    (``fused_scores.pair_scores_limbs``), +0 off the problem: lane i's score
+    at diagonal d is ``H[i - 1, d - i - 1]``."""
+    if source_kind(source) == "composite":
+        c = source
+        acc = None
+        for ops in zip(c.cxs, c.inv_xs, c.cys, c.inv_ys, c.ss, c.weights):
+            term = visit_box_plain(ops[:5], d0, i0, steps, lanes) * track_weight(ops[5])
+            acc = term if acc is None else acc + term
+        return acc
+    cx, inv_x, cy, inv_y, s = source
+    B, Lx, _ = cx.shape
+    Ly = cy.shape[1]
+    r0, r1 = max(i0 - 1, 0), min(i0 - 1 + lanes, Lx)  # the tile's rows of x
+    jb = d0 - i0 - lanes  # the band's column 0
+    j0, j1 = max(jb, 0), min(jb + lanes + steps - 1, Ly)  # its columns within y
+    box = torch.zeros((B, steps, lanes), dtype=torch.float32)
+    if r0 < r1 and j0 < j1:
+        h = pair_scores_limbs(cx[:, r0:r1], inv_x[:, r0:r1], cy[:, j0:j1], inv_y[:, j0:j1], s)
+        m = torch.arange(lanes)[None, :]
+        r = i0 + m - 1
+        j = d0 + torch.arange(steps)[:, None] - (i0 + m) - 1
+        valid = (r >= r0) & (r < r1) & (j >= j0) & (j < j1)
+        got = h[:, (r - r0).clamp(0, r1 - r0 - 1).expand(steps, lanes),
+                (j - j0).clamp(0, j1 - j0 - 1)]
+        box = torch.where(valid[None], got, box)
+    return box.permute(1, 0, 2).contiguous()
 
 
 # ---- the ring's superstep launch (dist/ring.py) --------------------------------
 
 
-# T at most in a ring launch's default geometry.  A launch walks one chunk,
+# T at most in a ring launch's default geometry: a launch walks one chunk,
 # so its cluster fills every superstep: (K / T + R - 1) m T steps in
 # sequence, and a smaller box cuts the fill for one cluster barrier more a
 # box.  At the titin pair's rank shape (17,216 lanes, R = 15, m = 3, K = 32)
 # one launch took 1.88-1.90 ms at T = 32, 0.65-0.66 at 8, 0.47 at 4 and
-# 0.40-0.46 at 2, T = 2 the fastest in each of three runs on an H100 80GB
-# HBM3 at 700 W (chip_smoke.py's [ring=kernel-times]; PERF.md, Findings).
+# 0.40-0.46 at 2, on an H100 80GB HBM3 at 700 W (chip_smoke.py's
+# long-times; PERF.md, Findings).  The ring stays on the rows source's
+# "scalar" tier: the "mma" tier, its box filled before each visit, took
+# 0.57 ms at T = 2, 0.47-0.48 at 4 and 0.48-0.50 at 8 there, slower at
+# every T than the scalar tier at T = 2.
 RING_MAX_STEPS = 2
 
 
@@ -633,6 +819,15 @@ def _check_ring(rows: RingRows, lx, ly, gap_series, d0, K, carries, heads, tails
     return d1
 
 
+def ring_operands(rows: RingRows) -> InPlaceOperands:
+    """The rank's "scalar" :class:`InPlaceOperands` for its ``Lpn``
+    lane-indexed rows, made once a rank and kept in ``rows.scratch``."""
+    if "operands" not in rows.scratch:
+        rows.scratch["operands"] = prepare_operands(
+            (rows.cx, rows.inv_x, rows.cy, rows.inv_y, rows.s), "scalar")
+    return rows.scratch["operands"]
+
+
 def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback, d0: int,
                             K: int, carries, heads, tails, cand, *, tb=None, tb_row0: int = 0,
                             carries_out=None, cand_out=None, tile_lanes=None, ctas=None,
@@ -643,10 +838,12 @@ def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback,
     :func:`~.scan.ring_superstep_plain` (carries, heads, tails, candidate
     and the chunk's bytes, in place unless ``carries_out`` / ``cand_out`` are
     given).  CPU tensors take the plain version; CUDA tensors launch the
-    tiled kernel built with its ring flag (``csrc/tiled_ring.cu``) on the
-    cluster of :func:`tiled_geometry` for Lpn lanes (``tile_lanes``,
-    ``ctas``; ``steps_per_visit`` T default :func:`ring_steps`), or raise
-    where the card cannot hold one cluster of it."""
+    tiled kernel built with its ring flag on the rows source's "scalar"
+    tier (``csrc/tiled_ring.cu``), its operands made once a rank
+    (:func:`ring_operands`), on the cluster of :func:`tiled_geometry` for
+    Lpn lanes (``tile_lanes``, ``ctas``; ``steps_per_visit`` T default
+    :func:`ring_steps`), or raise where the card cannot hold one cluster of
+    it."""
     d1 = _check_ring(rows, lx, ly, gap_series, d0, K, carries, heads, tails, cand, tb, tb_row0,
                      carries_out, cand_out)
     if rows.device.type == "cpu":
@@ -660,7 +857,7 @@ def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback,
         raise ValueError("a traceback launch writes into tb")
     dev, B, Lpn = rows.device, rows.B, rows.Lpn
     g = tiled_geometry(Lpn, k, "rows", ctas=ctas, tile_lanes=tile_lanes,
-                       steps=steps_per_visit or ring_steps(K))
+                       steps=steps_per_visit or ring_steps(K), tier="scalar")
     check_geometry(g, Lpn)
     if Lpn < 2:
         raise ValueError(f"a ring launch takes at least 2 lanes a rank, got {Lpn}")
@@ -669,27 +866,18 @@ def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback,
                            f"and {g.smem_bytes} B of shared memory at k={k} for the ring")
     lib = build.load_library()
     f32 = dict(dtype=torch.float32, device=dev)
-    A = rows.s.shape[0]
+    ops = ring_operands(rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if "t" not in rows.scratch:  # the prep kernel's rows, once a rank
-            AP = padded_alphabet(A)
-            rows.scratch["t"] = torch.empty((B, Lpn, AP), **f32)
-            rows.scratch["cyp"] = torch.empty((B, rows.Ly, AP), **f32)
-            rc = lib.praline_tiled_ring_prep(
-                rows.cx.data_ptr(), rows.cy.data_ptr(), rows.s.data_ptr(),
-                rows.scratch["t"].data_ptr(), rows.scratch["cyp"].data_ptr(), B, Lpn, rows.Ly, A,
-                stream)
-            build.check(rc, "praline_tiled_ring_prep")
         scratch = torch.empty((B, carry_values(k), Lpn), **f32) if g.carry_scratch else None
         gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
         cum0 = float(_gap_prefix(tuple(gap_series), d0 - 1)[d0 - 1])
         rc = lib.praline_tiled_ring(
-            rows.scratch["t"].data_ptr(), rows.scratch["cyp"].data_ptr(), rows.inv_x.data_ptr(),
-            rows.inv_y.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            ops.scratch[0].data_ptr(), rows.inv_x.data_ptr(), rows.inv_y.data_ptr(),
+            lx.data_ptr(), ly.data_ptr(),
             gaps.ctypes.data_as(ctypes.c_void_p), k, MODES.index(mode), int(traceback),
-            B, rows.Lx, rows.Ly, padded_alphabet(A), Lpn, rows.base, d0, d1, cum0,
-            g.W, g.R, g.m, g.T,
+            B, rows.Lx, rows.Ly, padded_alphabet(ops.alphabets[0]), Lpn, rows.base, d0, d1,
+            cum0, g.W, g.R, g.m, g.T,
             carries.data_ptr(), (carries if carries_out is None else carries_out).data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             heads.data_ptr() if heads is not None else None, tails.data_ptr(),

@@ -237,7 +237,6 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
     budget = batch.dispatch_budget(dev)
     row = 0
     for level, tier in zip(plan.levels, plan.tiers):
-        tier = tier if batch.takes_tier(route, C_cap, C_cap, dev) else None
         per_problem = batch.chunk_problem_bytes(route, dev, C_cap, C_cap, A, True, tier,
                                                 len(plan.gap_series))
         size = max(1, min(MAX_BATCH, budget // per_problem))

@@ -55,8 +55,9 @@ struct HsVisits {
   __device__ __forceinline__ HsDirect prepare(int, int, int, int) const { return direct; }
 };
 struct HsSource {
-  static constexpr bool HS = true;
   const float* hs;
+  __host__ __device__ static constexpr int smem(int W, int T) { return hs_smem(W, T); }
+  __device__ __forceinline__ bool takes(int) const { return true; }
   __device__ __forceinline__ HsVisits visits(const WalkArgs& a, int b, int, float*) const {
     return HsVisits{HsDirect{hs, a.B, a.Lp, b}};
   }

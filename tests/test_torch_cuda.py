@@ -371,14 +371,37 @@ def test_batched_aligner_routes_long_rows_to_the_fused_kernel(cuda, traceback):
             assert g == w
 
 
+def source_tiers(source):
+    """The score tiers a tiled source is run on here: hs takes none, the
+    in-place sources both (the predicate admits these integer counts)."""
+    return (None,) if tiled_dp.source_kind(source) == "hs" else fused_scores.TIERS
+
+
+def poisoned_outputs(source, traceback):
+    """The tiled DP's output tensors for ``source``, NaN-poisoned (0xAB
+    bytes, -7 indices)."""
+    B, Lx, Ly = tiled_dp.problem_shape(source)
+    out = fused_dp.empty_outputs(B, Lx, Ly, traceback, tiled_dp.source_device(source))
+    for t in out.values():
+        t.fill_(float("nan") if t.is_floating_point() else 0xAB if t.dtype == torch.uint8 else -7)
+    return out
+
+
 def tiled_vs_plain(source, lx, ly, gap_series, mode, traceback, want, **kw):
-    before = tiled_dp.launches
-    got = tiled_dp.wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, **kw)
-    torch.cuda.synchronize()
-    assert tiled_dp.launches == before + 1
-    assert set(got) == set(want)
-    for key in want:
-        assert torch.equal(got[key], want[key]), (kw, key)
+    """The tiled kernel on ``source``, on each of its tiers, into poisoned
+    outputs, equals ``want``; one launch counted a call, under its tier."""
+    counts = (tiled_dp.composite_launches if tiled_dp.source_kind(source) == "composite"
+              else tiled_dp.launches)
+    for tier in source_tiers(source):
+        key = tier or "hs"
+        before = dict(counts)
+        got = tiled_dp.wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, tier=tier,
+                                          out=poisoned_outputs(source, traceback), **kw)
+        torch.cuda.synchronize()
+        assert counts == {**before, key: before[key] + 1}
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (kw, tier, k)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -434,13 +457,14 @@ def test_tiled_refuses_what_it_does_not_take(cuda, monkeypatch):
     ops = operands(5, 1, 100, 50, cuda)
     for kw in (dict(tile_lanes=48), dict(tile_lanes=1024), dict(steps_per_visit=33),
                dict(ctas=17)):
-        with pytest.raises(ValueError):
-            tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], **kw)
+        for tier in fused_scores.TIERS:
+            with pytest.raises(ValueError):
+                tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], tier=tier, **kw)
     monkeypatch.setattr(tiled_dp, "max_active_clusters", lambda *args: 0)
-    before = (tiled_dp.launches, wavefront.launches, dict(fused_dp.launches))
-    for source in (plain_scores(*ops[:5]), ops[:5]):
+    before = (dict(tiled_dp.launches), wavefront.launches, dict(fused_dp.launches))
+    for source, tier in ((plain_scores(*ops[:5]), None), (ops[:5], "mma"), (ops[:5], "scalar")):
         with pytest.raises(RuntimeError, match="cannot hold one cluster"):
-            tiled_dp.wavefront_dp_tiled(source, ops[5], ops[6], ctas=16)
+            tiled_dp.wavefront_dp_tiled(source, ops[5], ops[6], ctas=16, tier=tier)
     assert (tiled_dp.launches, wavefront.launches, dict(fused_dp.launches)) == before
 
 
@@ -669,26 +693,35 @@ def checkpointed_launches_match_plain(cuda, sources, hs, lx, ly, gap_series, mod
     want_out, want_snap = tiled_dp.forward_snapshots(hs, lx, ly, gap_series, mode, interval)
     want_blocks = [tiled_dp.resume_block(hs, want_snap, q, interval, gap_series, mode)
                    for q in range(want_snap.shape[0])]
-    for source in sources:
+    for source, tier in ((src, tier) for src in sources for tier in source_tiers(src)):
+        # an in-place source's operands, made once for every launch, as the route does
+        launch = dict(geometry)
+        if tier is not None:
+            launch.update(tier=tier, operands=tiled_dp.prepare_operands(source, tier))
+        before = (dict(tiled_dp.forward_launches), dict(tiled_dp.resume_launches))
         out, snap = tiled_dp.wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode,
-                                                        interval, **geometry)
+                                                        interval, **launch)
         torch.cuda.synchronize()
         for key in want_out:
-            assert torch.equal(out[key], want_out[key]), key
+            assert torch.equal(out[key], want_out[key]), (tier, key)
         assert torch.equal(snap.view(torch.int32), want_snap.view(torch.int32))
         state = replay.walk_state(out["ti"], out["tj"], out["tcode"], len(gap_series))
         moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=cuda)
         for q in range(snap.shape[0] - 1, -1, -1):
-            bits = tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode,
-                                                      interval, q, snap, **geometry)
+            bits = torch.full((interval, B, Lp), 0xAB, dtype=torch.uint8, device=cuda)
+            tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, gap_series, mode, interval, q,
+                                               snap, out=bits, **launch)
             rows = min(interval, D - 2 - q * interval)  # rows past D - 1 are not written
             assert torch.equal(bits[:rows], want_blocks[q][:rows])
             assert torch.equal(bits[:rows], full["tb"][q * interval: q * interval + rows])
-            before = replay.block_launches
+            blocks = replay.block_launches
             replay.replay_block(bits, state, moves, q, gap_series, mode)
-            assert replay.block_launches == before + 1
+            assert replay.block_launches == blocks + 1
         torch.cuda.synchronize()
         assert torch.equal(moves, want_moves) and torch.equal(state[5], want_n)
+        key, nblk = tier or "hs", snap.shape[0]
+        assert (tiled_dp.forward_launches[key], tiled_dp.resume_launches[key]) == (
+            before[0][key] + 1, before[1][key] + nblk)
 
 
 # (gap series, bx x by, geometry, carries in the scratch): more than one
@@ -749,12 +782,71 @@ def test_composite_source_matches_plain(cuda, mode):
     c, lx, ly = composite_operands(cuda, ("composite", mode), 300, 200)
     want = plain_dp(tiled_dp.source_scores(c), lx, ly, (11, 1), mode, True)
     for geometry in (dict(tile_lanes=128), dict(ctas=1, tile_lanes=64)):
-        before = tiled_dp.composite_launches
-        got = tiled_dp.wavefront_dp_tiled(c, lx, ly, (11, 1), mode, True, **geometry)
-        torch.cuda.synchronize()
-        assert tiled_dp.composite_launches == before + 1
-        for key in want:
-            assert torch.equal(got[key], want[key]), (key, geometry)
+        tiled_vs_plain(c, lx, ly, (11, 1), mode, True, want, **geometry)
+
+
+def wide_operands(seed, B, bx, by, y_count, x_total, max_s, device):
+    """Operands the tensor-core predicate admits with y counts past 255
+    (Cy as two u8 limbs on the "mma" tier): S of entries in [-max_s,
+    max_s]; x columns of ``x_total`` counts; every other y column a single
+    residue of ``y_count`` counts, the rest 255 counts spread, so that
+    bands with and without a wide column meet; ragged true lengths."""
+    rng = np.random.default_rng(seed)
+    A_ = 23
+    s = rng.integers(-max_s, max_s + 1, size=(A_, A_)).astype(np.float32)
+    cx = rng.multinomial(x_total, np.ones(A_) / A_, size=(B, bx)).astype(np.float32)
+    cy = rng.multinomial(255, np.ones(A_) / A_, size=(B, by)).astype(np.float32)
+    cy[:, ::2] = 0
+    np.put_along_axis(cy[:, ::2], rng.integers(0, A_, size=(B, (by + 1) // 2, 1)),
+                      float(y_count), axis=-1)
+    lx = rng.integers(1, bx + 1, size=B).astype(np.int32)
+    ly = rng.integers(1, by + 1, size=B).astype(np.int32)
+    lx[0], ly[0] = bx, by
+
+    def inv(c):
+        return (np.float32(1) / np.maximum(c.sum(-1, dtype=np.float32), 1)).astype(np.float32)
+
+    assert fused_scores.tier_of(cx, cy, s) == "mma"
+    return operands_from_numpy(cx, inv(cx), cy, inv(cy), s, lx, ly, device)
+
+
+# (y count, x total, max |S|, mode): y counts of 992, 65535 (both limbs 255)
+# and 256, |H_int| up to x_total * max_s * y_count, just under 2**24
+WIDE_CASES = [(992, 992, 17, "global"), (65535, 2, 127, "local"), (256, 1, 127, "semiglobal")]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_in_place_tiers_at_wide_y(cuda, case):
+    """Every in-place launch of the tiled kernel on both tiers where y's
+    counts pass 255, at three tiles a CTA: the ordinary launch (scores and
+    traceback), the forward and every resumed block, the two-track
+    composite (one track wide), and the ring across two shards on its
+    scalar tier."""
+    from praline_tpu_torch.dist import make_pair_mesh, ring_wavefront_dp
+
+    *wide, mode = case
+    ops = wide_operands(zlib.crc32(repr(("wide", case)).encode()), 2, 300, 200, *wide, cuda)
+    rows, lx, ly = ops[:5], ops[5], ops[6]
+    hs = plain_scores(*rows)
+    geometry = dict(ctas=2, tile_lanes=64)
+    assert tiled_dp.tiled_geometry(301, 2, "rows", tier="mma", **geometry).m == 3
+    for traceback in (False, True):
+        tiled_vs_plain(rows, lx, ly, (11, 1), mode, traceback,
+                       plain_dp(hs, lx, ly, (11, 1), mode, traceback), **geometry)
+    checkpointed_launches_match_plain(cuda, (rows,), hs, lx, ly, (11, 1), mode, 64, geometry)
+    other = operands(zlib.crc32(repr(("wide other", case)).encode()), 2, 300, 200, cuda)
+    c = tiled_dp.Composite(*[(r, o) for r, o in zip(rows, other[:5])], (1.0, 0.5))
+    tiled_vs_plain(c, lx, ly, (11, 1), mode, True,
+                   plain_dp(tiled_dp.source_scores(c), lx, ly, (11, 1), mode, True), **geometry)
+    host = [t.cpu() for t in ops]
+    want = ring_wavefront_dp(make_pair_mesh(2, device="cpu"), *host, mode=mode, traceback=True,
+                             interval=32)
+    before = tiled_dp.ring_launches
+    got = ring_wavefront_dp(make_pair_mesh(devices=[cuda, cuda]), *host, mode=mode,
+                            traceback=True, interval=32)
+    assert tiled_dp.ring_launches > before
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -211,7 +211,7 @@ def test_composite_source_scores_are_the_composite():
     want = composite_skewed_scores(*[[t[i] for t in tracks] for i in range(5)], w)
     assert tiled_dp.source_kind(c) == "composite"
     assert torch.equal(tiled_dp.source_scores(c).view(torch.int32), want.view(torch.int32))
-    got = tiled_dp.wavefront_dp_tiled(c, lx, ly, (11, 1), "local", True)
+    got = tiled_dp.wavefront_dp_tiled(c, lx, ly, (11, 1), "local", True, tier="mma")
     full = scan.wavefront_dp(want, lx, ly, (11, 1), "local", True)
     for key in KEYS + ("tb",):
         assert torch.equal(got[key], full[key]), key

@@ -37,7 +37,7 @@ from praline_tpu_torch.io import (
     format_alignment_clustal, format_alignment_fasta, load_sequence_fasta,
 )
 from praline_tpu_torch.kernels import batch, fused_dp, tiled_dp, wavefront
-from praline_tpu_torch.kernels.fused_scores import mma_scratch_bytes
+from praline_tpu_torch.kernels.fused_scores import mma_scratch_bytes, tier_of
 from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
 from praline_tpu_torch.kernels.scores import skewed_pair_scores
 from praline_tpu_torch.msa import msa_align
@@ -71,7 +71,9 @@ def operands(seed, B, Lx, Ly):
 
 
 def tiled(source, lx, ly, gap_series, mode, traceback, **kw):
-    before = tiled_dp.launches
+    before = dict(tiled_dp.launches)
+    if tiled_dp.source_kind(source) != "hs":  # the in-place sources' tier, as the batch picks it
+        kw.setdefault("tier", tier_of(source[0].numpy(), source[2].numpy(), source[4].numpy()))
     out = tiled_dp.wavefront_dp_tiled(source, lx, ly, gap_series, mode, traceback, **kw)
     assert tiled_dp.launches == before  # CPU tensors take the plain version
     return out
