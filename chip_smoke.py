@@ -57,7 +57,16 @@ headline chunk (2945 x 1023), B64 at buckets 1023 and 2047, the tracks
 traceback chunk (256) and merge levels of 4 and 1 problems
 and holds the lane slots the kernel counts as it runs against their model
 (``python3 chip_smoke.py dp-times DIR`` runs that phase alone on the tree
-at DIR, so that the parent's DP is timed in the same call).  It aligns the committed
+at DIR, so that the parent's DP is timed in the same call).  The traceback
+walk is held against its plain version bit for bit (moves and counts) in
+every mode and series at B64 x 1023, at one problem at long8's merge rung
+and on a ragged bucket whose walks run the borders and stop on the local
+bit (``[walk=plain]``), the block walk over every block of one
+checkpointed pair; one dependent shared-memory read is timed on the card
+(``[smem-read]``) for the walks' chain bound (``python3 chip_smoke.py
+walk-times DIR`` times the walk, the block walk, compose, K1, K2, K5 and
+K6 and msa128's, long32's and long8's merge stages, with their output
+digests and homology's, on the tree at DIR alone).  It aligns the committed
 goldens through the CUDA path on both routes (the PAM250 golden on the
 per-level merge, as in the JAX package).  The compose kernel is held
 against ``compose_plain`` bit for bit, every output poisoned, in the three
@@ -285,6 +294,26 @@ def cuda_ms(fn, n: int, warm_up: bool = True) -> float:
     return device_ms(fn, n, torch.device("cuda"), warm_up)
 
 
+def queued_ms(fn, n: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``n`` runs, after a warm-up,
+    enqueued behind a 10 ms sleep of the card (``torch.cuda._sleep``) and
+    timed by CUDA events recorded after it: the kernels back to back, with
+    the host's enqueue of each (a wrapper's checks, some tens of us) off the
+    clock, where :func:`cuda_ms` of a short kernel times the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(RATES["sm_clock_hz"] * 0.01))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 @contextlib.contextmanager
 def route_knob(value: str):
     """``PRALINE_FUSED_DP`` set to ``value`` inside the block, unset after
@@ -401,13 +430,20 @@ def phase_build():
     phase_cluster_occupancy()
     probes = {}
     for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel",
-                   "compose_kernel"):
+                   "compose_kernel", "replay_kernel", "replay_block_kernel"):
         key = next((n for n in usage if kernel in n), None)
         if key is None:
             raise AssertionError(f"build: no -Xptxas -v line for {kernel}")
         probes[kernel.split("_kernel")[0]] = "{}regs/{}B-spill-stores/{}B-spill-loads".format(
             *usage[key])
-    say("registers", kernel="probes and compose", **probes)
+    say("registers", kernel="probes, compose and the walks", **probes)
+    from praline_tpu_torch.kernels import replay
+
+    RATES["smem_read_cycles"] = replay.shared_read_cycles("cuda")
+    say("smem-read", cycles=round(RATES["smem_read_cycles"], 3),
+        ns_at_max_clock=round(RATES["smem_read_cycles"] / RATES["sm_clock_hz"] * 1e9, 3),
+        what="one dependent shared-memory read (one thread's chain, clock64): a link of the "
+             "walks' chain bound")
     producers = {}
     for kernel in ("skewed_scores_mma_kernel", "skewed_scores_kernel"):
         key = next((n for n in usage if kernel in n), None)
@@ -535,6 +571,13 @@ def bound(nbytes: float, ops: float, int8_ops: float = 0.0, smem_bytes: float = 
         return {"bound_ms": t_bytes, "bound_by": "bytes",
                 "bytes_of": "shared memory" if t_smem > t_hbm else "device memory"}
     return {"bound_ms": t_ops, "bound_by": "operations"}
+
+
+def chain_bound_ms(moves: float) -> float:
+    """The walks' chain bound: ``moves`` dependent shared-memory reads (the
+    longest tape's moves), each RATES["smem_read_cycles"] cycles at the
+    card's maximum SM clock.  A walk's bytes bound no chain."""
+    return moves * RATES["smem_read_cycles"] / RATES["sm_clock_hz"] * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -683,6 +726,7 @@ def phase_kernels_vs_plain(dev):
                                       *producer_ops(lx, ly, A, "mma", mma_limbs(ops))),
                 "dp_bound": dp_bound(lx, ly, plain_dp(hs_p, lx, ly, (11, 1), "global")),
                 "walk_bound": bound(moves_bytes, 0.0),
+                "walk_chain_bound_ms": chain_bound_ms(float(n_k.max())),
                 # the library yardstick of the producer: H = (Cx @ S) @ Cy^T, unskewed
                 "scores_library_ms": cuda_ms(
                     lambda: torch.bmm(torch.matmul(cx, s), cy.transpose(1, 2)), 10),
@@ -700,7 +744,7 @@ def phase_kernels_vs_plain(dev):
                 "dp_plain_ms": cuda_ms(lambda: plain_dp(hs_p, lx, ly, (11, 1), "global"), 1,
                                        warm_up=False),
                 "dp_tb_ms": cuda_ms(lambda: wavefront_dp(hs_p, lx, ly, (11, 1), "global", True), 10),
-                "walk_ms": cuda_ms(lambda: replay_moves(*walk_args), 10),
+                "walk_ms": queued_ms(lambda: replay_moves(*walk_args), 10),
                 "walk_plain_ms": cuda_ms(lambda: replay_moves_plain(*walk_args), 1, warm_up=False),
                 "scores_err": err_scores,
                 "dp_err": dp_err,
@@ -729,6 +773,111 @@ def phase_kernels_vs_plain(dev):
         dp="bit-equal", fused="bit-equal(mma, scalar; NaN-poisoned)",
         seconds=round(time.perf_counter() - t0, 3))
     return timing
+
+
+# (B, bucket, shortest length) of the walk's checks against its plain
+# version in every mode and series: the headline bucket, one problem at
+# long8's merge rung (a warp walks some ten thousand moves), and a small
+# ragged bucket (lengths from 1 against up to 127) whose walks run the
+# borders and, in local mode, stop on the local bit.
+WALK_SHAPES = ((64, 1023, 1023, 512), (1, "long8 rung", None, 4300), (16, 63, 127, 1))
+
+
+def walk_edges(moves, n, ti, tj, tb, local) -> tuple[int, int]:
+    """(walks that ran a border: a move up at j == 0 or left at i == 0,
+    walks that stopped on the local bit: the cell where a local walk ended,
+    not the origin, has bit 7 of its byte set)."""
+    import numpy as np
+    import torch
+
+    m, n = moves.cpu().numpy(), n.cpu().numpy()
+    ti, tj = ti.cpu().numpy(), tj.cpu().numpy()
+    border, ends = 0, []
+    for b in range(m.shape[0]):
+        tape = m[b, : n[b]].astype(np.int64)
+        tx, ty = (tape == 1) | (tape == 2), (tape == 1) | (tape == 3)
+        i_before = ti[b] - np.cumsum(tx) + tx
+        j_before = tj[b] - np.cumsum(ty) + ty
+        border += bool(((tape == 2) & (j_before == 0)).any() | ((tape == 3) & (i_before == 0)).any())
+        ends.append((ti[b] - int(tx.sum()), tj[b] - int(ty.sum())))
+    if not local:
+        return border, 0
+    T, _, Lp = tb.shape
+    i_e = torch.tensor([e[0] for e in ends], device=tb.device)
+    j_e = torch.tensor([e[1] for e in ends], device=tb.device)
+    byte = tb[(i_e + j_e - 2).clamp(0, T - 1), torch.arange(len(ends), device=tb.device),
+              i_e.clamp(0, Lp - 1)].cpu().numpy()
+    stops = sum(bool(byte[b] >> 7 & 1) and ends[b] != (0, 0) for b in range(len(ends)))
+    return border, stops
+
+
+def phase_walk_vs_plain(dev) -> dict:
+    """The walk (``csrc/replay.cu``) against ``replay_moves_plain`` bit for
+    bit (moves and counts) in every mode and SWEEP_SERIES at WALK_SHAPES,
+    on the DP's traceback bytes (the whole-row DP up to 2047 lanes, the
+    tiled kernel past them); walks that ran a border and local walks that
+    stopped on the local bit are counted, and there must be some.  Returns
+    the walk's time at long8's rung (global, (11, 1)) with its chain bound."""
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import replay, tiled_dp
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.wavefront import wavefront_dp
+    from praline_tpu_torch.msa.device_merge import ladder
+
+    t0 = time.perf_counter()
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    rng = np.random.default_rng(SEED + 30)
+    rung = ladder(max(q.length for q in long8_family()))[0]
+    counted_edges, out, shapes = {}, {}, []
+    for B, bx, by, lo in WALK_SHAPES:
+        bx = rung if bx == "long8 rung" else bx
+        by = by or bx
+        shapes.append(f"B{B}x{bx}x{by}")
+        ops = stacked_operands(rng, dev, s, B, bx, by, lo)
+        tier = producer_tier(ops)
+        hs = fused_skewed_scores(*ops[:5], tier=tier) if bx <= 2047 else None
+        for mode in MODES:
+            for series in SWEEP_SERIES:
+                if hs is not None:
+                    dp = wavefront_dp(hs, ops[5], ops[6], series, mode, True)
+                else:
+                    dp = tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], series, mode, True,
+                                                     tier=tier)
+                args = (dp["tb"], dp["ti"], dp["tj"], dp["tcode"], series, mode, bx + by)
+                moves_k, n_k = replay.replay_moves(*args)
+                moves_p, n_p = replay.replay_moves_plain(*args)
+                torch.cuda.synchronize()
+                what = f"walk {mode} {series} B{B}x{bx}x{by}"
+                if not (torch.equal(moves_k, moves_p) and torch.equal(n_k, n_p)):
+                    raise AssertionError(f"{what}: differs from plain")
+                border, stops = walk_edges(moves_k, n_k, dp["ti"], dp["tj"], dp["tb"],
+                                           mode == "local")
+                edges = counted_edges.setdefault(mode, [0, 0])
+                edges[0] += border
+                edges[1] += stops
+                if B == 1 and mode == "global" and series == (11, 1):
+                    out = {"ms": queued_ms(lambda: replay.replay_moves(*args), 10),
+                           "chain_bound_ms": chain_bound_ms(float(n_k.max())),
+                           "moves": int(n_k.max()), "shape": f"B1x{bx}x{by} global (11, 1)"}
+                del dp, moves_k, moves_p
+        del ops, hs
+    for mode, (border, stops) in counted_edges.items():
+        if mode != "local" and not border:
+            raise AssertionError(f"walk {mode}: no walk ran a border")
+        if mode == "local" and not stops:
+            raise AssertionError("walk local: no walk stopped on the local bit")
+    say("walk=plain", shapes="|".join(shapes), modes=",".join(MODES),
+        series="|".join(",".join(map(str, g)) for g in SWEEP_SERIES),
+        border_walks=",".join(f"{m}:{e[0]}" for m, e in counted_edges.items()),
+        local_stops=counted_edges["local"][1],
+        result="bit-equal to replay_moves_plain (moves, counts)",
+        long8_rung_ms=round(out["ms"], 4), long8_rung_chain_bound_ms=round(out["chain_bound_ms"], 4),
+        long8_rung_moves=out["moves"], seconds=round(time.perf_counter() - t0, 3))
+    return out
 
 
 def merged_operands(rng, dev, s, B, bx, by, lo):
@@ -1997,13 +2146,13 @@ def phase_compose(dev, shapes):
                                        mems, li.cpu().numpy(), ri.cpu().numpy(), C)
             if (J, C) == shapes[1] and mode == "global":
                 args = (moves, nm, ti, tj, got, li, ri, oi, inv_dev, mode)
-                ms = cuda_ms(lambda: compose.compose(*args, tape_out=tape_k, nmv_out=nmv_k), 10)
+                ms = queued_ms(lambda: compose.compose(*args, tape_out=tape_k, nmv_out=nmv_k), 10)
                 plain_ms = cuda_ms(lambda: compose.compose_plain(*args[:4], want, *args[5:]), 3)
                 needed = float(lens[0:2 * J].sum()) * (A + 1) * 4 + float(nm.sum())
                 written = J * C * (A + 2) * 4 + tape_k.numel() + J * 3 * 4
                 out = {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "shape": f"J{J}xC{C}",
-                       "again_ms": cuda_ms(lambda: compose.compose(*args, tape_out=tape_k,
-                                                                   nmv_out=nmv_k), 10),
+                       "again_ms": queued_ms(lambda: compose.compose(*args, tape_out=tape_k,
+                                                                     nmv_out=nmv_k), 10),
                        **bound(needed + written, 0.0)}
             del walk, moves, want, got
     if not over:
@@ -2690,30 +2839,35 @@ def phase_long_kernels(dev) -> dict:
             raise AssertionError(f"resume launch ({tier}): block {q} differs from plain")
         resume_ms[tier] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled_resume(
             source, lx, ly, series, mode, R0, q, snap, out=block, **launch), 5)
-    # the block walk from the state where the walks enter block q
+    # the block walk against the plain one over every block, from the last;
+    # block q's entry state and plain time kept for the timing below
     launch = launches["mma"]
     state = replay.walk_state(got["ti"], got["tj"], got["tcode"], len(series))
     moves = torch.zeros((B, D - 1), dtype=torch.uint8, device=dev)
+    st_p, mv_p = state.clone(), moves.clone()
     bits = torch.empty_like(block)
-    for p in range(snap.shape[0] - 1, q, -1):
+    for p in range(snap.shape[0] - 1, -1, -1):
         tiled_dp.wavefront_dp_tiled_resume(source, lx, ly, series, mode, R0, p, snap, out=bits,
                                            **launch)
+        if p == q:
+            entry = (state.clone(), moves.clone())
+            plain_walk_ms = cuda_ms(
+                lambda: replay.replay_block_plain(bits, st_p, mv_p, q, series, mode), 1,
+                warm_up=False)
+        else:
+            replay.replay_block_plain(bits, st_p, mv_p, p, series, mode)
         replay.replay_block(bits, state, moves, p, series, mode)
-    entry = (state.clone(), moves.clone())
-    st_p, mv_p = entry[0].clone(), entry[1].clone()
-    plain_walk_ms = cuda_ms(lambda: replay.replay_block_plain(block, st_p, mv_p, q, series, mode),
-                            1, warm_up=False)
-    replay.replay_block(block, state, moves, q, series, mode)
-    torch.cuda.synchronize()
-    if not (torch.equal(state, st_p) and torch.equal(moves, mv_p)):
-        raise AssertionError(f"block walk: block {q} differs from plain")
-    emitted = float((state[5] - entry[0][5]).sum())
+        torch.cuda.synchronize()
+        if not (torch.equal(state, st_p) and torch.equal(moves, mv_p)):
+            raise AssertionError(f"block walk: block {p} differs from plain")
+        if p == q:
+            in_block = state[5] - entry[0][5]
+    blocks_walked = snap.shape[0]
+    emitted = float(in_block.sum())
 
-    def walk_again():
-        state.copy_(entry[0])
-        replay.replay_block(block, state, moves, q, series, mode)
-
-    walk_ms = cuda_ms(walk_again, 10)
+    states = iter([entry[0].clone() for _ in range(11)])  # a fresh entry state a run
+    walk_ms = queued_ms(lambda: replay.replay_block(block, next(states), moves, q, series, mode),
+                        10)
 
     # the in-place composite on both tiers beside the materialized composite hs
     want = tiled_dp.wavefront_dp_tiled(comp_hs, lx, ly, series, "local", True)
@@ -2743,6 +2897,7 @@ def phase_long_kernels(dev) -> dict:
     resume_bound = bound(operand_bytes(lx, ly, A) + snap_bytes / snap.shape[0] + blk_cells,
                          blk_f32 + blk_cells * DP_OPS_PER_CELL, blk_int8)
     walk_bound = bound(2 * emitted + 2 * nbytes(state), 0.0)
+    walk_chain = chain_bound_ms(float(in_block.max()))
     comp_bound = bound(2 * operand_bytes(lx, ly, A) + 5 * 4 * B,
                        2 * f32_ops + cells * (2 + DP_OPS_PER_CELL), 2 * int8_ops)
     out = {
@@ -2752,13 +2907,15 @@ def phase_long_kernels(dev) -> dict:
                    "plain_ms": plain_resume_ms, **resume_bound,
                    "shape": f"B{B}x{bx}x{by} global rows R={R0} block {q}"},
         "walk_block": {"ms": walk_ms, "plain_ms": plain_walk_ms, **walk_bound,
+                       "chain_bound_ms": walk_chain, "blocks_vs_plain": blocks_walked,
                        "shape": f"B{B} block {q} of {R0} diagonals, {int(emitted)} moves"},
         "composite": {"ms": comp_ms["mma"], "scalar_ms": comp_ms["scalar"],
                       "plain_ms": comp_plain_ms, **comp_bound, "err": comp_err,
                       "shape": f"B{B}x{bx}x{by} two tracks global scores"},
     }
     say("long=plain", shape=f"B{B}x{bx}x{by}", R=R0, block=q,
-        result="forward (terminals, snapshot), resume and block walk bit-equal to plain; "
+        result="forward (terminals, snapshot), resume and the block walk over every block "
+               "bit-equal to plain; "
                "composite source = tiled over the composite hs (local traceback, all bytes) "
                "= plain DP (global scores)",
         **{f"{k}_{m}": round(v[m], 4) for k, v in out.items()
@@ -3734,6 +3891,7 @@ def phase_homology(dev, seqs) -> dict:
     the preprofile counts of exactly the members that have them.  The
     operands of the CLI run's last producer call are kept (references, no
     copies) under ``last_ops`` for :func:`homology_mma_vs_plain`."""
+    import hashlib
     import tempfile
 
     import numpy as np
@@ -3809,6 +3967,7 @@ def phase_homology(dev, seqs) -> dict:
         raise AssertionError(f"homology: preprofiles changed for {sorted(changed)[:8]}..., "
                              f"hits for {sorted(fake)[:8]}...")
     res = {"cli_wall_s": cli_wall, "blast_s": blast_s,
+           "fasta_sha256": hashlib.sha256(cli_text.encode()).hexdigest(),
            **{f"{k}_s": v["seconds"] for k, v in stages.items()},
            "preprofile_pairs": stages["preprofiles"]["pairs"]}
     say("homology", sequences=len(seqs), members_with_hits=len(fake),
@@ -4196,13 +4355,149 @@ def phase_producer_times(dev) -> dict:
     return out
 
 
+def phase_walk_times(dev) -> dict:
+    """``walk-times``: the merge's two kernels and stages on the tree at DIR,
+    by CUDA events (the mean of 20 after a warm-up; the walks and compose
+    also queued behind a sleep of the card, :func:`queued_ms`, their "ms",
+    beside the host loop's time): the walk at B64 x 1023
+    (global, (11, 1), on the whole-row DP's bytes) and one problem at
+    long8's merge rung (the tiled kernel's bytes); the block walk of one
+    block at LONG_CHECK (global, rows "mma", the default interval, entered
+    as the route enters it); compose at J32 and msa128's rung (global, the
+    DP's tapes); K1 (the producer, "mma"), K2 (the DP over hs) and K5 (the
+    fused DP, "mma") at B64 x 1023 scores and K6 (hs) at TILED_LONG, which
+    this tree's change must not move.  Then ``msa_align`` of msa128, long32
+    and long8 three times each (the merge stage's seconds, the FASTA's
+    digest) and ``[homology]``'s CLI (its FASTA's digest).  Where the tree
+    has the probe, the walks' chain bounds."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from praline_tpu_torch import METRICS, PralineConfig, builtin_score_matrix
+    from praline_tpu_torch import format_alignment_fasta, msa_align
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import batch, compose, replay, tiled_dp
+    from praline_tpu_torch.kernels.fused_dp import wavefront_dp_fused
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scan import default_ckpt_interval
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores
+    from praline_tpu_torch.kernels.wavefront import wavefront_dp
+    from praline_tpu_torch.msa.device_merge import ladder
+
+    cycles = getattr(replay, "shared_read_cycles", None)
+    if cycles is not None:
+        RATES["smem_read_cycles"] = cycles(dev)
+    chain = (lambda n: chain_bound_ms(n)) if cycles is not None else (lambda n: None)
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    out = {"smem_read_cycles": RATES.get("smem_read_cycles")}
+
+    ops = stacked_operands(np.random.default_rng(SEED), dev, s, 64, HEADLINE_BUCKET,
+                           HEADLINE_BUCKET, 512)
+    hs = skewed_pair_scores(*ops[:5])
+    dp = wavefront_dp(hs, ops[5], ops[6], (11, 1), "global", True)
+    args = (dp["tb"], dp["ti"], dp["tj"], dp["tcode"], (11, 1), "global", 2 * HEADLINE_BUCKET)
+    n = replay.replay_moves(*args)[1]
+    out["walk_B64x1023"] = {"ms": queued_ms(lambda: replay.replay_moves(*args), 20),
+                            "host_loop_ms": cuda_ms(lambda: replay.replay_moves(*args), 20),
+                            "moves": int(n.max()), "chain_bound_ms": chain(float(n.max()))}
+    del dp, args
+    out["K1_scores_mma_ms"] = cuda_ms(lambda: fused_skewed_scores(*ops[:5], tier="mma"), 20)
+    out["K2_dp_ms"] = cuda_ms(lambda: wavefront_dp(hs, ops[5], ops[6], (11, 1), "global"), 20)
+    out["K5_fused_mma_ms"] = cuda_ms(lambda: wavefront_dp_fused(*ops, (11, 1), "global",
+                                                                tier="mma"), 10)
+    del ops, hs
+    B, bx, by, lo, mode = TILED_LONG
+    tops = stacked_operands(np.random.default_rng(SEED + 8), dev, s, B, bx, by, lo)
+    ths = skewed_pair_scores(*tops[:5])
+    out["K6_hs_ms"] = cuda_ms(lambda: tiled_dp.wavefront_dp_tiled(ths, tops[5], tops[6], (11, 1),
+                                                                  mode, True), 10)
+    del tops, ths
+
+    rung = ladder(max(q.length for q in long8_family()))[0]
+    ops = stacked_operands(np.random.default_rng(SEED + 30), dev, s, 1, rung, rung, 4300)
+    dp = tiled_dp.wavefront_dp_tiled(ops[:5], ops[5], ops[6], (11, 1), "global", True,
+                                     tier="mma")
+    args = (dp["tb"], dp["ti"], dp["tj"], dp["tcode"], (11, 1), "global", 2 * rung)
+    n = replay.replay_moves(*args)[1]
+    out[f"walk_B1x{rung}"] = {"ms": queued_ms(lambda: replay.replay_moves(*args), 20),
+                              "host_loop_ms": cuda_ms(lambda: replay.replay_moves(*args), 20),
+                              "moves": int(n.max()), "chain_bound_ms": chain(float(n.max()))}
+    del dp, args, ops
+
+    B, bx, by, lo = LONG_CHECK
+    ops = stacked_operands(np.random.default_rng(SEED + 20), dev, s, B, bx, by, lo)
+    rows, lx, ly = ops[:5], ops[5], ops[6]
+    R0 = default_ckpt_interval(bx + by + 1)
+    launch = dict(tier="mma", operands=tiled_dp.prepare_operands(rows, "mma"))
+    got, snap = tiled_dp.wavefront_dp_tiled_forward(rows, lx, ly, (11, 1), "global", R0, **launch)
+    q = snap.shape[0] // 2
+    state = replay.walk_state(got["ti"], got["tj"], got["tcode"], 2)
+    moves = torch.zeros((B, bx + by), dtype=torch.uint8, device=dev)
+    bits = torch.empty((R0, B, bx + 1), dtype=torch.uint8, device=dev)
+    for p in range(snap.shape[0] - 1, q - 1, -1):
+        tiled_dp.wavefront_dp_tiled_resume(rows, lx, ly, (11, 1), "global", R0, p, snap,
+                                           out=bits, **launch)
+        if p == q:
+            entry = state.clone()
+        replay.replay_block(bits, state, moves, p, (11, 1), "global")
+    in_block = state[5] - entry[5]
+    states = iter([entry.clone() for _ in range(64)])  # a fresh entry state a run
+
+    def walk_block():
+        replay.replay_block(bits, next(states), moves, q, (11, 1), "global")
+
+    out[f"walk_block_B{B}_R{R0}"] = {"ms": queued_ms(walk_block, 20),
+                                     "host_loop_ms": cuda_ms(walk_block, 20),
+                                     "moves": int(in_block.max()),
+                                     "chain_bound_ms": chain(float(in_block.max()))}
+    del ops, rows, launch, snap, bits
+
+    J, C, A = 32, ladder(max(q.length for q in synthetic_family()))[0], s.shape[0]
+    table, inv_dev, counts, _, _ = compose_table(np.random.default_rng(SEED + 16), dev, J, C, A)
+    li = torch.arange(0, 2 * J, 2, dtype=torch.int32, device=dev)
+    ri, oi = li + 1, torch.arange(2 * J, 3 * J, dtype=torch.int32, device=dev)
+    cl, cr = table.counts[li.long()], table.counts[ri.long()]
+    walk = batch.dispatch(batch.choose_route("cuda", C, C, True), cl, table.inv[li.long()], cr,
+                          table.inv[ri.long()], s, table.lens[li.long()], table.lens[ri.long()],
+                          gap_series=(11, 1), mode="global", traceback=True,
+                          tier=producer_tier((cl, None, cr, None, s)))
+    cargs = (walk["moves"], walk["nmoves"], walk["ti"], walk["tj"], table, li, ri, oi, inv_dev,
+             "global")
+    out[f"compose_J{J}xC{C}"] = {"ms": queued_ms(lambda: compose.compose(*cargs), 20),
+                                 "host_loop_ms": cuda_ms(lambda: compose.compose(*cargs), 20)}
+    del walk, cargs, table
+
+    matrix = builtin_score_matrix("blosum62")
+    for name, seqs in (("msa128", synthetic_family()), ("long32", long_family()),
+                       ("long8", long8_family())):
+        merge_s, digests = [], set()
+        for _ in range(3):
+            aln = msa_align(seqs, matrix, PralineConfig(), device=dev)
+            merge_s.append(METRICS.summary()["merge"]["seconds"])
+            digests.add(hashlib.sha256(format_alignment_fasta(aln).encode()).hexdigest())
+        if len(digests) != 1:
+            raise AssertionError(f"walk-times: {name}'s runs gave different bytes")
+        out[name] = {"merge_s": merge_s, "fasta_sha256": digests.pop(),
+                     "merge_walk": METRICS.notes.get("merge_walk")}
+    homology = phase_homology(dev, synthetic_family())
+    out["homology"] = {"cli_wall_s": homology["cli_wall_s"],
+                       "fasta_sha256": homology["fasta_sha256"]}
+    say("walk-times", **{k: (round(v, 4) if isinstance(v, float) else json.dumps(v))
+                         for k, v in out.items()})
+    return out
+
+
 def tree_only(argv) -> int:
-    """``dp-times [DIR]``, ``tiled-times [DIR]``, ``long-times [DIR]`` or
-    ``producer-times [DIR]``: the build and the [dp-times] phase (K2 and K6
-    over hs), K6's ordinary launches (phase_tiled_ordinary_times), K6's
-    in-place launches and the long routes end to end (phase_long_times) or
-    the producer's and fused kernel's tiers with ``[homology]`` and the
-    ``preprofile`` bench (phase_producer_times) alone, on the package of the
+    """``dp-times [DIR]``, ``tiled-times [DIR]``, ``long-times [DIR]``,
+    ``producer-times [DIR]`` or ``walk-times [DIR]``: the build and the
+    [dp-times] phase (K2 and K6 over hs), K6's ordinary launches
+    (phase_tiled_ordinary_times), K6's in-place launches and the long routes
+    end to end (phase_long_times), the producer's and fused kernel's tiers
+    with ``[homology]`` and the ``preprofile`` bench (phase_producer_times)
+    or the merge's walk and compose kernels and stages (phase_walk_times)
+    alone, on the package of the
     tree at DIR (this checkout by default), so that the parent's kernels are
     timed at this tree's shapes in the same call."""
     global ROOT
@@ -4218,7 +4513,8 @@ def tree_only(argv) -> int:
     build.load_library()
     say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
     times = {"dp-times": phase_dp_times, "tiled-times": phase_tiled_ordinary_times,
-             "long-times": phase_long_times, "producer-times": phase_producer_times}[argv[0]](dev)
+             "long-times": phase_long_times, "producer-times": phase_producer_times,
+             "walk-times": phase_walk_times}[argv[0]](dev)
     say(f"{argv[0]}-tree", root=str(ROOT), json=json.dumps(times))
     print(smi)
     return 0
@@ -4264,7 +4560,8 @@ def main() -> int:
         return ring_rank(sys.argv[2:])
     if sys.argv[1:2] == ["dist"]:
         return dist_only()
-    if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["long-times"], ["producer-times"]):
+    if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["long-times"], ["producer-times"],
+                         ["walk-times"]):
         return tree_only(sys.argv[1:])
     if sys.argv[1:2] == ["long-routes"]:
         return long_only(sys.argv[1:])
@@ -4277,6 +4574,7 @@ def main() -> int:
     os.environ.pop("PRALINE_FUSED_DP", None)  # the default routes, whatever the caller's
     usage = phase_build()
     timing = phase_kernels_vs_plain(dev)
+    walk_times = phase_walk_vs_plain(dev)
     phase_fused_long(dev, timing)
     phase_fused_clusters(dev, timing)
     phase_fused_wide(dev, timing)
@@ -4398,7 +4696,9 @@ def main() -> int:
          "replaces": "praline_tpu/kernels/replay.py:131 (replay_moves, an XLA scan)",
          "launches": launches["walk"], "max_abs_err": timing["walk_err"],
          "ms": timing["walk_ms"], "plain_ms": timing["walk_plain_ms"],
-         **timing["walk_bound"], "library_ms": None},
+         **timing["walk_bound"], "library_ms": None, "shape": "B64x1023x1023 global (11, 1)",
+         "chain_bound_ms": timing["walk_chain_bound_ms"],
+         "smem_read_cycles": RATES["smem_read_cycles"], "long8_rung": walk_times},
         {"name": "wavefront_dp_fused", "route": "cuda",
          "source": "praline_tpu_torch/csrc/fused_dp.cu",
          "replaces": "praline_tpu/kernels/fused_dp.py:70 (wavefront_dp_fused), "
@@ -4495,6 +4795,8 @@ def main() -> int:
                  "launches": launches[key], "max_abs_err": t.get("err", 0.0), "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": None, "shape": t["shape"]}
+        if "chain_bound_ms" in t:
+            entry["chain_bound_ms"] = t["chain_bound_ms"]
         if scalar_source:
             entry |= {"tier": "mma", "mma_launches": launches[f"{key}_mma"],
                       "scalar_source": scalar_source, "scalar_ms": t["scalar_ms"],

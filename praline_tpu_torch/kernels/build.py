@@ -160,6 +160,8 @@ def load_library() -> ctypes.CDLL:
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
         lib.praline_replay_block.restype = i
         lib.praline_replay_block.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
+        lib.praline_replay_read_cycles.restype = i
+        lib.praline_replay_read_cycles.argtypes = [i, p, p, p]
         lib.praline_compose.restype = i
         lib.praline_compose.argtypes = [*[p] * 13, *[i] * 6, p, p, p]
         ll = ctypes.c_longlong

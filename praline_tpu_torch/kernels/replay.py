@@ -8,8 +8,10 @@ per problem and advances an ``(i, j, state, level)`` machine that mirrors
 ``praline_tpu.oracle.align._traceback``; only a move tape of one byte per
 emitted column leaves the device.  It costs some thirty tensor operations
 per move, each a launch on the card, so on CUDA tensors the walk is one
-kernel instead: a thread per problem, bounded by the latency of its
-dependent one-byte reads.
+kernel instead: a warp per problem, its path's bytes staged in shared
+memory a window of diagonals at a time while the next window is copied,
+bounded by the chain of its dependent one-byte reads
+(:func:`shared_read_cycles` measures one link).
 
 Move codes (emitted terminal -> origin): 0 = none (walk finished),
 1 = diagonal, 2 = up (consume x, gap in y), 3 = left (consume y, gap in x).
@@ -184,6 +186,24 @@ def replay_moves(tb, ti, tj, tcode, gap_series=(11, 1), mode="global", steps=Non
     build.check(rc, "praline_replay_moves")
     launches += 1
     return moves, n
+
+
+def shared_read_cycles(device, reads: int = 1 << 16) -> float:
+    """Clock cycles of one dependent shared-memory read on the card of
+    ``device``: one thread's chain of ``reads`` of them, timed by
+    ``clock64`` (``csrc/replay.cu``'s probe; the walk's chain bound is its
+    longest tape's moves times this).  Not a kernel of any path."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("shared_read_cycles measures a CUDA card")
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.praline_replay_read_cycles(reads, cycles.data_ptr(), sink.data_ptr(),
+                                            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "praline_replay_read_cycles")
+    return float(cycles.item()) / reads
 
 
 def walk_state(ti, tj, tcode, k: int) -> torch.Tensor:

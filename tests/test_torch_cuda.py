@@ -232,6 +232,43 @@ def test_walk_matches_plain(cuda, mode, gap_series):
     assert torch.equal(moves, want_moves) and torch.equal(n, want_n)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("gap_series", [(11, 1), (13, 7, 1)])
+def test_walk_windows_at_any_alignment(cuda, mode, gap_series):
+    """The walks' windows are copied in 16-byte chunks aligned in device
+    memory, and their moves stored so, whatever the layout: Lp = 301, the
+    bytes and the tapes at odd offsets, tapes of odd lengths and cut short
+    of the longest walk; the block walk over blocks of 37 rows.  Moves,
+    counts and states against the plain versions."""
+    seed = zlib.crc32(repr(("windows", mode, gap_series)).encode())
+    cx, ivx, cy, ivy, s, lx, ly = operands(seed, 5, 300, 250, cuda)
+    out = plain_dp(plain_scores(cx, ivx, cy, ivy, s), lx, ly, gap_series, mode, True)
+    T, B, Lp = out["tb"].shape
+    tb = torch.empty(T * B * Lp + 1, dtype=torch.uint8, device=cuda)[1:].view(T, B, Lp)
+    tb.copy_(out["tb"])
+    terminal = (out["ti"], out["tj"], out["tcode"])
+    for steps in (T + 1, 301, 97):
+        args = (tb, *terminal, gap_series, mode, steps)
+        moves, n = replay.replay_moves(*args)
+        want_moves, want_n = replay.replay_moves_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(moves, want_moves) and torch.equal(n, want_n), steps
+    R, S = 37, T + 2
+    state = replay.walk_state(*terminal, len(gap_series))
+    want_state = state.clone()
+    moves = torch.empty(B * S + 3, dtype=torch.uint8, device=cuda)[3:].view(B, S).zero_()
+    want = torch.zeros((B, S), dtype=torch.uint8, device=cuda)
+    for q in range(-(-T // R) - 1, -1, -1):
+        bits = torch.full((R, B, Lp), 0xAB, dtype=torch.uint8, device=cuda)
+        bits[: min(R, T - q * R)] = tb[q * R: (q + 1) * R]
+        replay.replay_block(bits, state, moves, q, gap_series, mode)
+        replay.replay_block_plain(bits, want_state, want, q, gap_series, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(state, want_state) and torch.equal(moves, want), q
+    assert torch.equal(moves[:, : T + 1], replay.replay_moves_plain(tb, *terminal, gap_series,
+                                                                   mode, T + 1)[0])
+
+
 @pytest.mark.parametrize("bx,by", [(200, 100), (1100, 700)])
 @pytest.mark.parametrize("mode", ["global", "local"])
 def test_dp_lane_counts_off_the_warp_grid(cuda, bx, by, mode):
