@@ -2420,7 +2420,7 @@ def run_msa_twice(dev, seqs, name):
             t0 = time.perf_counter()
             aln = msa_align(seqs, matrix, PralineConfig(), device=dev)
             wall = time.perf_counter() - t0
-        stages = METRICS.summary()
+        stages = dict(METRICS.stages)
         notes = dict(METRICS.notes)
         if notes.get("merge_walk") != "device":
             raise AssertionError(f"{name}: the merge took the {notes.get('merge_walk')} walk")
@@ -2434,7 +2434,7 @@ def run_msa_twice(dev, seqs, name):
         say(name, run=run, sequences=len(seqs),
             lengths=f"{min(s.length for s in seqs)}-{max(s.length for s in seqs)}",
             columns=aln.num_columns, wall_s=round(wall, 4), gc_s=round(gc_clock.seconds, 4),
-            **{f"{k}_s": v["seconds"] for k, v in stages.items()},
+            **{f"{k}_s": round(v.seconds, 4) for k, v in stages.items()},
             merge_walk=notes["merge_walk"], merge_rung=notes["merge_rung"],
             merge_attempts="/".join(map(str, notes["merge_attempts"])),
             merge_route=notes["merge_route"])
@@ -3940,7 +3940,7 @@ def phase_homology(dev, seqs) -> dict:
                            "--preprofile", "global", "--blast-db", "stub"])
             cli_wall = time.perf_counter() - t0
             batch.fused_skewed_scores = producer
-            stages = METRICS.summary()
+            stages = dict(METRICS.stages)
             cli_text = (tmp / "out.fasta").read_text() if rc == 0 else ""
             t0 = time.perf_counter()
             mapping = find_homologs_blast(seqs, "stub")
@@ -3968,8 +3968,8 @@ def phase_homology(dev, seqs) -> dict:
                              f"hits for {sorted(fake)[:8]}...")
     res = {"cli_wall_s": cli_wall, "blast_s": blast_s,
            "fasta_sha256": hashlib.sha256(cli_text.encode()).hexdigest(),
-           **{f"{k}_s": v["seconds"] for k, v in stages.items()},
-           "preprofile_pairs": stages["preprofiles"]["pairs"]}
+           **{f"{k}_s": round(v.seconds, 4) for k, v in stages.items()},
+           "preprofile_pairs": stages["preprofiles"].pairs}
     say("homology", sequences=len(seqs), members_with_hits=len(fake),
         hits=sum(len(v) for v in fake.values()), hit_lengths=f"{min(len(h.tokens) for h in others)}"
         f"-{max(len(h.tokens) for h in others)}",
@@ -4475,7 +4475,7 @@ def phase_walk_times(dev) -> dict:
         merge_s, digests = [], set()
         for _ in range(3):
             aln = msa_align(seqs, matrix, PralineConfig(), device=dev)
-            merge_s.append(METRICS.summary()["merge"]["seconds"])
+            merge_s.append(round(METRICS.stage("merge").seconds, 4))
             digests.add(hashlib.sha256(format_alignment_fasta(aln).encode()).hexdigest())
         if len(digests) != 1:
             raise AssertionError(f"walk-times: {name}'s runs gave different bytes")

@@ -6,7 +6,11 @@ Usage:  praline-tpu-torch input.fasta output.aln [options]
 
 The default device is ``cuda``; without a card the run fails unless
 ``--device cpu`` is given.  ``--profile-dir DIR`` writes a
-``torch.profiler`` trace of the run there (``util/metrics.py``);
+``torch.profiler`` trace of the run there (``util/metrics.py``), unless a
+torch profiler is already recording: the program's spans
+(``<layer>:<step>``) record under any such profiler, and the run then
+writes no file of its own.  ``METRICS.counters`` holds the DP cells each
+route launched and needed, and the device merge's, over the process;
 ``--score-against REF`` prints the SP/TC column accuracy of the result
 against a reference alignment.  ``--devices N`` shards the pair space
 over the first N cards (``config.mesh_shape``, ``dist/mesh.py``);

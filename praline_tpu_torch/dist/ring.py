@@ -42,14 +42,13 @@ recorded one superstep earlier, so they are not kept.  Memory a shard:
 O(R Lp + D / R NS Lpn).
 
 Each launch, exchange, gather and walk runs under a ``ring:...`` span
-(``util/metrics.py``: a profiler range where a trace is armed, and its host
-seconds added to ``METRICS.stages``); inside the exchange across processes,
+(``util/metrics.py::span``: a profiler range wherever a torch profiler is
+recording), its host seconds added to ``METRICS.stages`` (``METRICS.timed``
+of the same name); inside the exchange across processes,
 ``ring:wait`` is the wait for this rank's launches before the host copy.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 import torch.distributed as torch_dist
@@ -59,18 +58,10 @@ from ..kernels.scan import (
     CANDIDATE, MODES, edge_values, ring_candidate, ring_carries, ring_rows, unpack_candidate,
 )
 from ..kernels.tiled_dp import wavefront_dp_tiled_ring
-from ..util.metrics import METRICS, annotate
+from ..util.metrics import METRICS, span
 from .mesh import PairMesh
 
 DEFAULT_INTERVAL = 32  # diagonals a superstep (the JAX package's default)
-
-
-@contextlib.contextmanager
-def span(name: str):
-    """A ``ring:`` span: a profiler range, and its seconds in
-    ``METRICS.stages[name]``."""
-    with annotate(name), METRICS.timed(name):
-        yield
 
 
 def beats(a: tuple, b: tuple, local: bool) -> bool:
@@ -137,7 +128,8 @@ class _Ring:
         """Chunk ``c`` on local shard ``q``, writing its bytes where ``tb``
         is given (the carries track the stay bits either way)."""
         sh, p = self.shards[q], self.mesh.first_shard + q
-        with span(f"ring:launch:shard{p}/{self.n}"):
+        name = f"ring:launch:shard{p}/{self.n}"
+        with span(name), METRICS.timed(name):
             wavefront_dp_tiled_ring(
                 sh.rows, self.lx[q], self.ly[q], self.gap_series, self.mode, tb is not None,
                 2 + c * self.K, self.K, sh.carries, sh.heads if p > 0 else None, sh.tails,
@@ -154,14 +146,15 @@ class _Ring:
 
     def exchange(self) -> None:
         """The tails of this superstep to the right shard's heads."""
-        with span("ring:exchange"):
+        with span("ring:exchange"), METRICS.timed("ring:exchange"):
             for a, b in zip(self.shards, self.shards[1:]):
                 b.heads.copy_(a.tails)
             mesh = self.mesh
             if not mesh.spans_processes:
                 return
             if self.shards[-1].rows.device.type == "cuda":
-                with span("ring:wait"):  # this rank's launches, before the host copy
+                # this rank's launches, before the host copy
+                with span("ring:wait"), METRICS.timed("ring:wait"):
                     torch.cuda.current_stream(self.shards[-1].rows.device).synchronize()
             works = []
             if mesh.rank + 1 < mesh.world_size:
@@ -176,7 +169,7 @@ class _Ring:
     def gather_lanes(self, parts: list[torch.Tensor]) -> torch.Tensor:
         """Every shard's ``[..., Lpn]`` tensor joined along the last axis in
         shard order, on the host (gloo ``all_gather`` across processes)."""
-        with span("ring:gather"):
+        with span("ring:gather"), METRICS.timed("ring:gather"):
             mine = torch.cat([t.cpu() for t in parts], dim=-1)
             if not self.mesh.spans_processes:
                 return mine
@@ -186,7 +179,7 @@ class _Ring:
 
     def terminals(self) -> dict:
         """Every shard's candidate, merged."""
-        with span("ring:gather"):
+        with span("ring:gather"), METRICS.timed("ring:gather"):
             mine = torch.stack([sh.cand.cpu() for sh in self.shards])
             if self.mesh.spans_processes:
                 every = [torch.empty_like(mine) for _ in range(self.mesh.world_size)]
@@ -278,7 +271,7 @@ def _checkpointed(ring: _Ring, ckpt_interval: int) -> dict:
         for step in range(len(chunks) + n - 1):
             ring.superstep(step, chunks, blocks, blk * R)
         bits = ring.gather_lanes(blocks).to(walk_dev)
-        with span("ring:walk"):
+        with span("ring:walk"), METRICS.timed("ring:walk"):
             replay_block(bits, state, moves, blk, ring.gap_series, ring.mode)
     out["moves"] = moves.cpu()
     out["nmoves"] = state[5].cpu()

@@ -23,7 +23,7 @@ from contextlib import nullcontext
 import torch
 import torch.distributed as torch_dist
 
-from ..util.metrics import annotate
+from ..util.metrics import span
 from .mesh import PairMesh, shard_bounds
 
 TERMINALS = ("score", "length", "ti", "tj", "tcode")
@@ -52,7 +52,7 @@ class ShardedChunk:
         the terminals and ``moves``/``nmoves`` or ``tb`` where the shards
         made them (``moves`` as wide as the chunk's longest tape, across
         processes)."""
-        with annotate(f"gather:sharded:{self.name}") if self.mesh.shards > 1 else nullcontext():
+        with span(f"gather:sharded:{self.name}") if self.mesh.shards > 1 else nullcontext():
             host = [None if o is None else {k: v.cpu() for k, v in o.items()} for o in self.outs]
             if not self.mesh.spans_processes:
                 return _concat([h for h in host if h is not None])
@@ -71,7 +71,7 @@ def run_shards(mesh: PairMesh, B: int, shard_fn, name: str) -> ShardedChunk:
         if hi == lo:
             outs.append(None)
             continue
-        with (annotate(f"dispatch:sharded:{name}:shard{s}/{mesh.shards}")
+        with (span(f"dispatch:sharded:{name}:shard{s}/{mesh.shards}")
               if mesh.shards > 1 else nullcontext()):
             outs.append(shard_fn(lo, hi, dev))
     return ShardedChunk(mesh, bounds, outs, name)

@@ -33,6 +33,13 @@ host has no copy of them).  It comes from upper bounds carried along the
 tree on the host (:func:`node_bounds`, the proof is there), and a level
 takes the tensor-core tier only where ``fused_scores.tensor_core_exact``
 admits every join's bounds.
+
+The host's steps are ``merge:`` spans (``util/metrics.py::span``):
+``merge:plan``, ``merge:enqueue`` (around ``merge:table``, the chunks'
+``dispatch:`` spans and ``merge:compose``), ``merge:collect`` and
+``merge:assemble``.  ``METRICS.counters`` takes ``merge.cells_launched``
+(joins times ``C_cap**2``, every rung tried) and ``merge.cells_needed``
+(``cols_left * cols_right`` of each emitted join).
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from ..kernels.scan import MODES
 from ..oracle.merge import inject_gaps, reorder_to_input
 from ..oracle.profile import COUNT_LIMIT, member_profile, rescale_counts
 from ..types import Alignment, PralineConfig, Profile, ScoreMatrix, Sequence, SequenceTree
-from ..util.metrics import METRICS
+from ..util.metrics import METRICS, span
 
 # The rungs of the column-capacity ladder: 63 and 127, then steps of
 # batch.BUCKET_STEP, stopping at the two-kernel and fused lane caps
@@ -212,29 +219,30 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
     would."""
     dev = resolve_device(device)
     n = len(plan.leaves)
-    M = 2 * n - 1  # a slot a tree node
-    A = plan.s.shape[0]
-    route = batch.choose_route(dev, C_cap, C_cap, True)
-    counts = np.zeros((M, C_cap, A), dtype=np.float32)
-    gaps = np.zeros((M, C_cap), dtype=np.float32)
-    lens = np.ones(M, dtype=np.int32)
-    mems = np.ones(M, dtype=np.int32)
-    for i, p in enumerate(plan.leaves):
-        counts[i, : p.length] = p.counts
-        gaps[i, : p.length] = p.gaps
-        lens[i] = p.length
-    inv = column_inverses(counts, plan.inv_table)
-    table = NodeTable(*(batch.upload(a, dev) for a in (counts, gaps, inv, lens, mems)))
-    inv_dev = batch.upload(plan.inv_table, dev)
-    s_dev = batch.upload(np.ascontiguousarray(plan.s), dev)
-    order = plan.order
-    joins = plan.tree.joins
-    idx = batch.upload(np.array([[joins[k][0] for k in order], [joins[k][1] for k in order],
-                                 [n + k for k in order]], dtype=np.int32), dev)
-    steps = 2 * C_cap
-    tapes = torch.empty((len(order), steps), dtype=torch.uint8, device=dev)
-    nmv = torch.empty(len(order), dtype=torch.int32, device=dev)
-    budget = batch.dispatch_budget(dev)
+    with span("merge:table"):
+        M = 2 * n - 1  # a slot a tree node
+        A = plan.s.shape[0]
+        route = batch.choose_route(dev, C_cap, C_cap, True)
+        counts = np.zeros((M, C_cap, A), dtype=np.float32)
+        gaps = np.zeros((M, C_cap), dtype=np.float32)
+        lens = np.ones(M, dtype=np.int32)
+        mems = np.ones(M, dtype=np.int32)
+        for i, p in enumerate(plan.leaves):
+            counts[i, : p.length] = p.counts
+            gaps[i, : p.length] = p.gaps
+            lens[i] = p.length
+        inv = column_inverses(counts, plan.inv_table)
+        table = NodeTable(*(batch.upload(a, dev) for a in (counts, gaps, inv, lens, mems)))
+        inv_dev = batch.upload(plan.inv_table, dev)
+        s_dev = batch.upload(np.ascontiguousarray(plan.s), dev)
+        order = plan.order
+        joins = plan.tree.joins
+        idx = batch.upload(np.array([[joins[k][0] for k in order], [joins[k][1] for k in order],
+                                     [n + k for k in order]], dtype=np.int32), dev)
+        steps = 2 * C_cap
+        tapes = torch.empty((len(order), steps), dtype=torch.uint8, device=dev)
+        nmv = torch.empty(len(order), dtype=torch.int32, device=dev)
+        budget = batch.dispatch_budget(dev)
     row = 0
     for level, tier in zip(plan.levels, plan.tiers):
         per_problem = batch.chunk_problem_bytes(route, dev, C_cap, C_cap, A, True, tier,
@@ -249,8 +257,9 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
                 table.lens.index_select(0, li), table.lens.index_select(0, ri),
                 gap_series=plan.gap_series, mode=plan.mode, traceback=True, tier=tier,
             )
-            compose(out["moves"], out["nmoves"], out["ti"], out["tj"], table, li, ri, oi,
-                    inv_dev, plan.mode, tape_out=tapes[a:b], nmv_out=nmv[a:b])
+            with span("merge:compose"):
+                compose(out["moves"], out["nmoves"], out["ti"], out["tj"], table, li, ri, oi,
+                        inv_dev, plan.mode, tape_out=tapes[a:b], nmv_out=nmv[a:b])
             del out
         row += len(level)
     return Walk(C_cap, table, tapes, nmv, route)
@@ -259,23 +268,25 @@ def enqueue_walk(plan: MergePlan, C_cap: int, device) -> Walk:
 def collect_walk(plan: MergePlan, walk: Walk) -> Alignment | None:
     """The walk's one host copy (every tape and length at once), then the
     alignment, or None where a merged profile outgrew the capacity."""
-    if walk.tapes.device.type == "cuda":
-        tapes = torch.empty(walk.tapes.shape, dtype=torch.uint8, pin_memory=True)
-        nmv = torch.empty(walk.nmv.shape, dtype=torch.int32, pin_memory=True)
-        tapes.copy_(walk.tapes, non_blocking=True)
-        nmv.copy_(walk.nmv, non_blocking=True)
-        torch.cuda.current_stream(walk.tapes.device).synchronize()
-    else:
-        tapes, nmv = walk.tapes, walk.nmv
-    ncols = nmv.numpy().astype(np.int64)
-    if int(ncols.max(initial=0)) > walk.C_cap:
-        return None
-    order = plan.order
-    moves_all = np.empty_like(tapes.numpy())
-    moves_all[order] = tapes.numpy()
-    by_join = np.empty_like(ncols)
-    by_join[order] = ncols
-    return _assemble(plan.sequences, plan.tree, moves_all, by_join)
+    with span("merge:collect"):
+        if walk.tapes.device.type == "cuda":
+            tapes = torch.empty(walk.tapes.shape, dtype=torch.uint8, pin_memory=True)
+            nmv = torch.empty(walk.nmv.shape, dtype=torch.int32, pin_memory=True)
+            tapes.copy_(walk.tapes, non_blocking=True)
+            nmv.copy_(walk.nmv, non_blocking=True)
+            torch.cuda.current_stream(walk.tapes.device).synchronize()
+        else:
+            tapes, nmv = walk.tapes, walk.nmv
+        ncols = nmv.numpy().astype(np.int64)
+        if int(ncols.max(initial=0)) > walk.C_cap:
+            return None
+        order = plan.order
+        moves_all = np.empty_like(tapes.numpy())
+        moves_all[order] = tapes.numpy()
+        by_join = np.empty_like(ncols)
+        by_join[order] = ncols
+    with span("merge:assemble"):
+        return _assemble(plan.sequences, plan.tree, moves_all, by_join)
 
 
 def try_device_merge(sequences: list[Sequence], tree: SequenceTree, matrix: ScoreMatrix,
@@ -284,7 +295,8 @@ def try_device_merge(sequences: list[Sequence], tree: SequenceTree, matrix: Scor
     for ``"cpu"``), or None, for the caller's per-level path, under the
     reference's conditions: those of :func:`plan_merge`, or every rung
     overflowing."""
-    plan = plan_merge(sequences, tree, matrix, config)
+    with span("merge:plan"):
+        plan = plan_merge(sequences, tree, matrix, config)
     return None if plan is None else merge_on_device(plan, device)
 
 
@@ -292,18 +304,20 @@ def merge_on_device(plan: MergePlan, device) -> Alignment | None:
     """Walk ``plan`` at each of its rungs in turn until the merged profiles
     fit; None where none does.  Notes in ``METRICS``: ``merge_attempts``,
     and where it returns an alignment ``merge_walk`` ("device"),
-    ``merge_rung``, ``merge_route`` and ``merge_tiers`` (one a level)."""
+    ``merge_rung`` and ``merge_route``; each rung tried adds its joins times
+    ``C_cap**2`` to ``METRICS.counters["merge.cells_launched"]``."""
     tried = []
     for C_cap in plan.rungs:
         tried.append(C_cap)
-        walk = enqueue_walk(plan, C_cap, device)
+        METRICS.count("merge.cells_launched", len(plan.order) * C_cap * C_cap)
+        with span("merge:enqueue"):
+            walk = enqueue_walk(plan, C_cap, device)
         merged = collect_walk(plan, walk)
         METRICS.note("merge_attempts", list(tried))
         if merged is not None:
             METRICS.note("merge_walk", "device")
             METRICS.note("merge_rung", C_cap)
             METRICS.note("merge_route", walk.route)
-            METRICS.note("merge_tiers", list(plan.tiers))
             return merged
         del walk
     return None
@@ -314,13 +328,14 @@ def _assemble(sequences: list[Sequence], tree: SequenceTree, moves_all: np.ndarr
     """Inject gaps along the returned per-join paths (host, vectorized)."""
     nodes: dict[int, Alignment] = {i: Alignment.single(seq) for i, seq in enumerate(sequences)}
     n = tree.num_leaves
-    cells = 0.0
+    cells = 0
     for k, (l, r) in enumerate(tree.joins):
         left, right = nodes.pop(l), nodes.pop(r)
         res = moves_to_result(moves_all[k], int(ncols[k]), 0.0, 0, 0, left.num_columns,
                               right.num_columns, "global")
-        cells += float(left.num_columns) * right.num_columns
+        cells += left.num_columns * right.num_columns
         rows = inject_gaps(left.rows, right.rows, res.cols_x, res.cols_y)
         nodes[n + k] = Alignment(left.members + right.members, rows)
-    METRICS.add_pairs("merge", len(tree.joins), cells)
+    METRICS.add_pairs("merge", len(tree.joins), float(cells))
+    METRICS.count("merge.cells_needed", cells)
     return reorder_to_input(nodes[tree.root], sequences)

@@ -16,6 +16,13 @@ exactness guard, every column capacity outgrown) the merge walks the
 tree one level at a time (:func:`per_level_merge`, the JAX package's own
 fallback, ``pipeline.py:245-283``).
 
+The stages' host steps are ``pipeline:`` spans (``util/metrics.py::span``,
+recorded under any torch profiler): ``pipeline:preprofiles`` (the
+one-hot preprofiles of the default mode),
+``pipeline:profiles`` (the members' profiles and their pairs),
+``pipeline:matrix`` (results into the N x N matrices) and
+``pipeline:tree`` (similarity and the guide tree).
+
 Under a pair mesh (``config.mesh_shape`` or ``mesh=``; ``dist/mesh.py``)
 every stage's batched call shards its chunks over the mesh, the merge walks
 the tree a level at a time (the device walk runs only without a mesh, as
@@ -45,7 +52,7 @@ from ..types import (
     SequenceTree,
 )
 from ..util.checkpoint import Checkpoint, run_digest
-from ..util.metrics import METRICS, log, maybe_trace
+from ..util.metrics import METRICS, log, maybe_trace, span
 from .device_merge import try_device_merge
 
 # Pairs per resumable distance tile: the O(N^2) stage checkpoints tile by
@@ -71,7 +78,8 @@ def batched_preprofiles(
     """Attach preprofile tracks; all master-slave DPs in one batched call."""
     mode = config.preprofile_mode
     if mode == "dummy":
-        return [s.with_profile(TRACK_ID_PREPROFILE, s.one_hot_profile()) for s in sequences]
+        with span("pipeline:preprofiles"):
+            return [s.with_profile(TRACK_ID_PREPROFILE, s.one_hot_profile()) for s in sequences]
 
     jobs: list[tuple[int, Sequence]] = []  # (master index, slave)
     for i in range(len(sequences)):
@@ -127,10 +135,11 @@ def batched_all_pairs(
     ``fault_hook(tile_id)`` is the failure-injection seam for tests.
     """
     n = len(sequences)
-    profiles = [member_profile(s) for s in sequences]
+    with span("pipeline:profiles"):
+        profiles = [member_profile(s) for s in sequences]
+        index = [(i, j) for i in range(n) for j in range(i + 1, n)]
     arena = ProfileArena(matrix.alphabet.size, tuple(config.bucket_sizes),
                          mesh.devices[0] if mesh else device)
-    index = [(i, j) for i in range(n) for j in range(i + 1, n)]
     scores = np.zeros((n, n), dtype=np.float64)
     lengths = np.zeros((n, n), dtype=np.int64)
     for i in range(n):
@@ -149,21 +158,24 @@ def batched_all_pairs(
         else:
             if fault_hook is not None:
                 fault_hook(tile_id)
+            with span("pipeline:profiles"):
+                pairs = [(profiles[i], profiles[j]) for i, j in tile]
             results = align_pairs_batched(
-                [(profiles[i], profiles[j]) for i, j in tile],
-                matrix, config.gap_series, config.distance_mode,
+                pairs, matrix, config.gap_series, config.distance_mode,
                 device=device, traceback=False,
                 bucket_sizes=tuple(config.bucket_sizes),
                 batch_pairs=_wide_batch_pairs(config), arena=arena, mesh=mesh,
             )
-            tile_scores = np.array([r.score for r in results])
-            tile_lengths = np.array([r.length for r in results])
+            with span("pipeline:matrix"):
+                tile_scores = np.array([r.score for r in results])
+                tile_lengths = np.array([r.length for r in results])
             if ckpt:
                 ckpt.save_distance_tile(tile_id, tile_scores, tile_lengths)
-        ii = np.fromiter((i for i, _ in tile), np.int64, len(tile))
-        jj = np.fromiter((j for _, j in tile), np.int64, len(tile))
-        scores[ii, jj] = scores[jj, ii] = np.asarray(tile_scores, np.float64)
-        lengths[ii, jj] = lengths[jj, ii] = np.asarray(tile_lengths, np.int64)
+        with span("pipeline:matrix"):
+            ii = np.fromiter((i for i, _ in tile), np.int64, len(tile))
+            jj = np.fromiter((j for _, j in tile), np.int64, len(tile))
+            scores[ii, jj] = scores[jj, ii] = np.asarray(tile_scores, np.float64)
+            lengths[ii, jj] = lengths[jj, ii] = np.asarray(tile_lengths, np.int64)
         log.info(
             "all-pairs: %d/%d pairs done%s", min(t + tile_pairs, len(index)),
             len(index), " (from checkpoint)" if loaded is not None else "",
@@ -324,8 +336,9 @@ def msa_align(
         with METRICS.timed("guide_tree"):
             tree = ckpt.load_tree() if ckpt else None
             if tree is None:
-                sim = similarity_from_scores(scores, lengths, config.score_normalization)
-                tree = build_guide_tree(sim, config.linkage)
+                with span("pipeline:tree"):
+                    sim = similarity_from_scores(scores, lengths, config.score_normalization)
+                    tree = build_guide_tree(sim, config.linkage)
                 if ckpt:
                     ckpt.save_tree(tree)
             if on_tree is not None:

@@ -1,18 +1,23 @@
-"""Observability: stage timers, DP-cell counters, structured logging.
+"""Observability: stage timers, DP-cell counters, profiler spans, logging.
 
 Replaces the reference's progress-message streaming (SURVEY.md §6: C8
 messages + CLI progress) with stdlib logging plus a process-wide metrics
 registry: per-stage wall time, DP cells executed (so cells/s is reportable
-per stage), and pair counts.
+per stage), pair counts, and counters of the DP cells launched against the
+cells needed (``METRICS.counters``).
 
 Copy of ``praline_tpu/util/metrics.py`` with its profiling hooks on
-``torch.profiler`` instead of ``jax.profiler``: :func:`enable_profiling`
-arms a trace directory (the CLI's ``--profile-dir``), the outermost
-:func:`maybe_trace` scope (``msa_align``) profiles the host and the card
-and writes a Chrome trace there on exit, and nested scopes and
-:func:`annotate` spans (``dispatch:...`` per chunk, ``kernels/batch.py``)
-become ``torch.profiler.record_function`` ranges on its timeline.  With
-nothing armed they cost one test of a module global.
+``torch.profiler`` instead of ``jax.profiler``.  :func:`span` opens a
+``torch.profiler.record_function`` range whenever a torch profiler is
+recording, whoever started it (the CLI's ``--profile-dir``, a benchmark,
+a caller's own ``torch.profiler.profile``); with none recording it costs
+one test of the profiler's flag.  The host steps' spans are named
+``<layer>:<step>`` (``pipeline:``, ``batch:``, ``dispatch:``, ``gather:``,
+``merge:``, ``ring:``); the pipeline's two scopes keep their names
+``msa_align`` and ``merge``.  :func:`enable_profiling` arms a trace directory,
+and the outermost :func:`maybe_trace` scope (``msa_align``) then profiles
+the host and the card and writes a Chrome trace there on exit, unless a
+profiler is already recording: then it only opens its range.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import logging
 import os
 import time
 from pathlib import Path
+
+import torch.autograd.profiler as _profiler
 
 log = logging.getLogger("praline_tpu_torch")
 
@@ -40,12 +47,22 @@ class StageStats:
 
 
 class Metrics:
-    """Process-wide per-stage counters (reset per pipeline run), and notes:
-    what a stage chose (the merge's walk, column capacity and attempts)."""
+    """Process-wide per-stage counters (reset per pipeline run), notes: what
+    a stage chose (the merge's walk, column capacity and attempts), and
+    ``counters``: integers that only grow, which :meth:`reset` leaves
+    alone, so that a reader can take ratios over a whole process.
+
+    ``counters`` holds the DP cells the batch drivers launch and need, a
+    route each (``batch.cells_launched:{route}``: rows times the bucket's
+    ``bx * by`` a chunk; ``batch.cells_needed:{route}``: ``lx * ly`` at the
+    true lengths), and the device merge's (``merge.cells_launched``: joins
+    times ``C_cap**2`` for every rung a walk tries; ``merge.cells_needed``:
+    the emitted joins' ``cols_left * cols_right``)."""
 
     def __init__(self) -> None:
         self.stages: dict[str, StageStats] = {}
         self.notes: dict[str, object] = {}
+        self.counters: dict[str, int] = {}
 
     def stage(self, name: str) -> StageStats:
         return self.stages.setdefault(name, StageStats())
@@ -56,6 +73,9 @@ class Metrics:
 
     def note(self, key: str, value) -> None:
         self.notes[key] = value
+
+    def count(self, key: str, n: int) -> None:
+        self.counters[key] = self.counters.get(key, 0) + int(n)
 
     def add_pairs(self, stage: str, n_pairs: int, cells: float) -> None:
         s = self.stage(stage)
@@ -72,17 +92,6 @@ class Metrics:
             self.stage(stage).seconds += dt
             log.info("stage %s: %.3fs", stage, dt)
 
-    def summary(self) -> dict:
-        return {
-            name: {
-                "seconds": round(s.seconds, 4),
-                "cells": s.cells,
-                "pairs": s.pairs,
-                "cells_per_s": round(s.cells_per_s, 1),
-            }
-            for name, s in self.stages.items()
-        }
-
     def log_summary(self) -> None:
         for name, s in self.stages.items():
             log.info(
@@ -98,7 +107,17 @@ class Metrics:
 METRICS = Metrics()
 
 _trace_dir: str | None = None
-_trace_active = False
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``name`` (``<layer>:<step>``) around the enclosed
+    block where a torch profiler is recording, on the profiler's clock
+    beside the card's activity in its trace; with none recording, no range
+    (one read of the profiler's flag)."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _profiler.record_function(name)
 
 
 def enable_profiling(trace_dir: str) -> None:
@@ -116,52 +135,33 @@ def disable_profiling() -> None:
 
 @contextlib.contextmanager
 def maybe_trace(name: str):
-    """Profile the enclosed scope when a trace directory is armed.
+    """Profile the enclosed scope when a trace directory is armed and no
+    profiler is recording yet.
 
-    The outermost scope runs a ``torch.profiler.profile`` of the host and,
-    where a card is visible, the card, and on exit writes
+    Such a scope runs a ``torch.profiler.profile`` of the host and, where a
+    card is visible, the card, and on exit writes
     ``{name}.{pid}.{ns}.pt.trace.json`` (Chrome trace format) into the
-    directory; nested scopes become ``record_function`` ranges, so that
-    per-stage callers compose with the pipeline-level trace."""
-    global _trace_active
-    if _trace_dir is None:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    if _trace_active:
-        with record_function(name):
+    directory.  Under a profiler that is already recording (its own, or
+    one the caller started) the scope is a :func:`span` alone: no second
+    profiler, no file."""
+    if _trace_dir is None or _profiler._is_profiler_enabled:
+        with span(name):
             yield
         return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     out = Path(_trace_dir)
-    _trace_active = True
-    try:
-        with profile(activities=activities) as prof:
-            with record_function(name):
-                yield
-    finally:
-        _trace_active = False
+    with profile(activities=activities) as prof:
+        with _profiler.record_function(name):
+            yield
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{name}.{os.getpid()}.{time.time_ns()}.pt.trace.json"
     prof.export_chrome_trace(str(path))
     log.info("wrote profile trace %s", path)
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Label a region on the profiler timeline (a no-op unless a
-    :func:`maybe_trace` profile runs)."""
-    if not _trace_active:
-        yield
-        return
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
 
 
 def configure_logging(verbosity: int, json_lines: bool = False) -> None:

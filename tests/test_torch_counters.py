@@ -1,0 +1,96 @@
+"""``METRICS.counters`` (``praline_tpu_torch/util/metrics.py``): the DP
+cells the batch drivers launch (rows times the bucket's ``bx * by``) and
+need (``lx * ly`` at true lengths), a route each, and the device merge's
+(joins times ``C_cap**2`` for every rung tried; the emitted joins'
+``cols_left * cols_right``), counted exactly and never reset."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from praline_tpu_torch import ALPHABET_AA, METRICS, PralineConfig, builtin_score_matrix
+from praline_tpu_torch.io import format_alignment_fasta, load_sequence_fasta
+from praline_tpu_torch.kernels import batch
+from praline_tpu_torch.msa import device_merge as dm
+from praline_tpu_torch.msa import msa_align
+from praline_tpu_torch.msa.pipeline import batched_all_pairs
+from praline_tpu_torch.oracle.tree import build_guide_tree, similarity_from_scores
+from praline_tpu_torch.types import Profile
+
+TESTDATA = Path(__file__).resolve().parents[1] / "testdata"
+B62 = builtin_score_matrix("blosum62")
+BUCKETS = (63, 127, 255)
+
+
+def profile(length: int, rng) -> Profile:
+    counts = np.zeros((length, ALPHABET_AA.size), dtype=np.float32)
+    counts[np.arange(length), rng.integers(0, 20, size=length)] = 1.0
+    return Profile(counts, np.zeros(length, dtype=np.float32), ALPHABET_AA)
+
+
+@pytest.mark.parametrize("tracks", [False, True])
+def test_batch_cells_equal_bucket_and_true_length_sums(tracks):
+    """Ragged lengths over three buckets, chunks of three rows, an empty
+    member (no DP, no cells): launched is the sum of each pair's bucket
+    product, needed the sum of its lengths' product, both on the route."""
+    rng = np.random.default_rng(3)
+    lengths = [7, 40, 63, 64, 100, 127, 128, 200, 0]
+    profs = [profile(L, rng) for L in lengths]
+    pairs = [(profs[i], profs[j]) for i in range(len(profs)) for j in range(i + 1, len(profs))]
+    before = dict(METRICS.counters)
+    if tracks:
+        batch.align_tracksets_batched([((x,), (y,)) for x, y in pairs], [B62], [1.0], (11, 1),
+                                      "global", device="cpu", bucket_sizes=BUCKETS, batch_pairs=3)
+    else:
+        batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu",
+                                  bucket_sizes=BUCKETS, batch_pairs=3)
+    grown = {k: v - before.get(k, 0) for k, v in METRICS.counters.items()
+             if v != before.get(k, 0)}
+    real = [(x.length, y.length) for x, y in pairs if x.length and y.length]
+    assert grown == {
+        "batch.cells_launched:two_kernel":
+            sum(batch._bucket(a, BUCKETS) * batch._bucket(b, BUCKETS) for a, b in real),
+        "batch.cells_needed:two_kernel": sum(a * b for a, b in real),
+    }
+
+
+def test_merge_cells_count_every_rung_tried(monkeypatch):
+    """family10's walk at a first rung of its longest member overflows
+    and reruns at 127: launched counts both walks, needed the emitted
+    joins' widths, as the merge stage's cells; ``METRICS.reset`` keeps
+    them."""
+    seqs = load_sequence_fasta(TESTDATA / "family10.fasta", ALPHABET_AA)
+    cfg = PralineConfig()
+    scores, lengths = batched_all_pairs(seqs, B62, cfg, device="cpu")
+    tree = build_guide_tree(similarity_from_scores(scores, lengths, cfg.score_normalization),
+                            cfg.linkage)
+    longest = max(s.length for s in seqs)
+    monkeypatch.setattr(dm, "ladder", lambda max_len: (max_len, 127))
+    METRICS.reset()
+    before = dict(METRICS.counters)
+    got = dm.try_device_merge(seqs, tree, B62, cfg, device="cpu")
+    assert METRICS.notes["merge_attempts"] == [longest, 127]
+    assert format_alignment_fasta(got) == (TESTDATA / "family10.default.golden.fasta").read_text()
+    launched = METRICS.counters["merge.cells_launched"] - before.get("merge.cells_launched", 0)
+    needed = METRICS.counters["merge.cells_needed"] - before.get("merge.cells_needed", 0)
+    assert launched == len(tree.joins) * (longest**2 + 127**2)
+    assert needed == METRICS.stages["merge"].cells
+    kept = dict(METRICS.counters)
+    METRICS.reset()
+    assert METRICS.counters == kept
+
+
+def test_msa_align_counts_its_all_pairs_and_merge_cells():
+    """One ``msa_align`` on family10: the all-pairs stage's needed cells
+    are its stage cells, and the device merge's needed cells its merge
+    cells."""
+    seqs = load_sequence_fasta(TESTDATA / "family10.fasta", ALPHABET_AA)
+    before = dict(METRICS.counters)
+    msa_align(seqs, B62, PralineConfig(), device="cpu")
+    grown = {k: v - before.get(k, 0) for k, v in METRICS.counters.items()}
+    assert sum(v for k, v in grown.items() if k.startswith("batch.cells_needed:")) == \
+        METRICS.stages["all_pairs"].cells
+    assert grown["merge.cells_needed"] == METRICS.stages["merge"].cells
+    assert grown["merge.cells_launched"] == \
+        (len(seqs) - 1) * sum(c * c for c in METRICS.notes["merge_attempts"])

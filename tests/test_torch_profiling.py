@@ -1,15 +1,21 @@
 """Profiling on ``torch.profiler`` (``praline_tpu_torch/util/metrics.py``):
 the CLI's ``--profile-dir`` writes a Chrome trace whose events name the
 batch aligner's chunks (``dispatch:...``, the JAX package's span names)
-and the pipeline's scopes; with nothing armed the hooks do nothing."""
+and the pipeline's scopes; the program's spans record under any torch
+profiler, one the program did not start included, where ``maybe_trace``
+starts no second profiler; with nothing recording the hooks do nothing."""
 
 import json
 from pathlib import Path
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from praline_tpu_torch import ALPHABET_AA, PralineConfig, builtin_score_matrix
 from praline_tpu_torch.cli.main import main
+from praline_tpu_torch.io import format_alignment_fasta, load_sequence_fasta
 from praline_tpu_torch.kernels import batch
+from praline_tpu_torch.msa import msa_align
 from praline_tpu_torch.util import metrics
 
 TESTDATA = Path(__file__).resolve().parent.parent / "testdata"
@@ -19,6 +25,12 @@ def trace_names(path):
     data = json.loads(path.read_text())
     events = data["traceEvents"] if isinstance(data, dict) else data
     return [e.get("name", "") for e in events]
+
+
+def profiled_names(prof):
+    """The names of every event the profiler recorded (read from its raw
+    results: ``prof.events()`` builds a Python object an event)."""
+    return {e.name() for e in prof.profiler.kineto_results.events()}
 
 
 def test_profile_dir_writes_a_trace_with_dispatch_spans(tmp_path):
@@ -33,23 +45,66 @@ def test_profile_dir_writes_a_trace_with_dispatch_spans(tmp_path):
     names = trace_names(traces[0])
     assert "msa_align" in names and "merge" in names
     assert any(n.startswith("dispatch:") for n in names)
-    assert metrics._trace_dir is None and not metrics._trace_active  # disarmed after the run
+    assert {"merge:plan", "merge:assemble", "batch:unpack"} <= set(names)
+    assert metrics._trace_dir is None  # disarmed after the run
+    assert not torch.autograd.profiler._is_profiler_enabled  # its profiler stopped
 
 
 def test_unarmed_hooks_do_nothing(tmp_path):
     assert metrics._trace_dir is None
-    with metrics.maybe_trace("msa_align"), metrics.annotate("dispatch:1x1x1"):
-        assert not metrics._trace_active
+    with metrics.maybe_trace("msa_align"), metrics.span("dispatch:1x1x1"):
+        assert not torch.autograd.profiler._is_profiler_enabled
     metrics.enable_profiling(str(tmp_path))
     try:
         with metrics.maybe_trace("outer"):
-            assert metrics._trace_active
-            with metrics.maybe_trace("inner"), metrics.annotate("dispatch:2x2x2"):
+            assert torch.autograd.profiler._is_profiler_enabled
+            with metrics.maybe_trace("inner"), metrics.span("dispatch:2x2x2"):
                 torch.ones(3).sum()
     finally:
         metrics.disable_profiling()
     names = trace_names(next(tmp_path.glob("outer.*.pt.trace.json")))
     assert {"outer", "inner", "dispatch:2x2x2"} <= set(names)
+    assert len(list(tmp_path.glob("*.pt.trace.json"))) == 1  # the inner scope wrote none
+
+
+def test_span_opens_no_range_with_nothing_recording(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened with no profiler recording")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with metrics.span("batch:unpack"), metrics.maybe_trace("msa_align"):
+        pass
+
+
+def test_spans_record_under_an_outer_profiler():
+    """A profiler the program did not start: ``msa_align`` on family10
+    records its pipeline, batch, dispatch and merge spans there, and its
+    alignment is the golden's."""
+    seqs = load_sequence_fasta(TESTDATA / "family10.fasta", ALPHABET_AA)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        aln = msa_align(seqs, builtin_score_matrix("blosum62"), PralineConfig(), device="cpu")
+    names = profiled_names(prof)
+    assert format_alignment_fasta(aln) == \
+        (TESTDATA / "family10.default.golden.fasta").read_text()
+    assert {"pipeline:preprofiles", "pipeline:profiles", "pipeline:matrix", "pipeline:tree",
+            "batch:group", "batch:stack", "batch:operands", "batch:gather", "batch:unpack",
+            "merge:plan", "merge:enqueue", "merge:table", "merge:compose", "merge:collect",
+            "merge:assemble", "msa_align", "merge"} <= names
+    assert any(n.startswith("dispatch:") for n in names)
+
+
+def test_maybe_trace_under_an_outer_profiler_writes_no_file(tmp_path):
+    metrics.enable_profiling(str(tmp_path))
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with metrics.maybe_trace("msa_align"):
+                torch.ones(3).sum()
+            assert torch.autograd.profiler._is_profiler_enabled  # the outer one still records
+    finally:
+        metrics.disable_profiling()
+    assert list(tmp_path.iterdir()) == []
+    assert "msa_align" in profiled_names(prof)
 
 
 def test_dispatch_span_names():
