@@ -10,6 +10,7 @@ from .batch import (
     PairResult,
     ProfileArena,
     align_pairs_batched,
+    align_pairs_indexed,
     align_tracksets_batched,
     choose_route,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "PairResult",
     "ProfileArena",
     "align_pairs_batched",
+    "align_pairs_indexed",
     "align_tracksets_batched",
     "alu_chains",
     "choose_route",

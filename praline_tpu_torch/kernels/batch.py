@@ -21,6 +21,14 @@ checkpointed.  Hopper kernels on a CUDA device, their plain versions on
 the CPU.  Padding is score-neutral: padded cells never reach a terminal
 read at the true lengths.
 
+Two entries share one core (:func:`_align_indexed`), in which the pairs
+stay index arrays from grouping to unpacking: :func:`align_pairs_indexed`
+takes a stage's member profiles once and its pairs as two index arrays
+and returns the scores and lengths as arrays (the all-pairs stage), and
+:func:`align_pairs_batched` takes a list of profile pairs and returns one
+result object a pair.  Each counts the pairs it takes in
+``METRICS.counters`` (``batch.pairs:indexed``, ``batch.pairs:listed``).
+
 The byte budgets are the v5e's (16 GiB) scaled by the card's memory, as
 the JAX package scales them (:func:`device_memory_bytes`,
 :func:`_scaled_budget`); on the CPU they stay as written, so that routing
@@ -316,6 +324,7 @@ class ProfileArena:
         self.profs: list[Profile] = []
         self.stats: list[SideStats] = []
         self.by_bucket: dict[int, list[int]] = {}
+        self.rows: list[int] = []  # each profile's row in its bucket's stack
         self._stacks: dict[int, dict] = {}
 
     def reg(self, p: Profile) -> int:
@@ -326,7 +335,9 @@ class ProfileArena:
             self.profs.append(p)
             self.stats.append(side_stats(p.counts))
             b = _bucket(p.length, self.bucket_sizes)
-            self.by_bucket.setdefault(b, []).append(k)
+            ids = self.by_bucket.setdefault(b, [])
+            self.rows.append(len(ids))
+            ids.append(k)
             self._stacks.pop(b, None)
         return k
 
@@ -347,7 +358,6 @@ class ProfileArena:
         st = dict(
             counts=counts, inv=invs, lens=lens,
             host_lens=np.array([p.length for p in profs], dtype=np.int32),
-            pos={u: r for r, u in enumerate(ids)},
             stats=stats_arrays([self.stats[u] for u in ids]), profs=profs,
         )
         return st
@@ -537,9 +547,37 @@ def count_cells(route: str, bx: int, by: int, lx: np.ndarray, ly: np.ndarray) ->
     METRICS.count(f"batch.cells_needed:{route}", int(np.dot(lx.astype(np.int64), ly)))
 
 
-def _unpack(results: list, chunk, lx, ly, sharded, mode: str, traceback: bool) -> None:
+class PairArrays:
+    """The results of one batch call, in input order: each pair's score,
+    path length and terminal cell (``ti``, ``tj``) as arrays, and with
+    traceback each pair's :class:`AlignResult` (``paths``)."""
+
+    def __init__(self, n: int, traceback: bool):
+        self.score = np.zeros(n, np.float64)
+        self.length = np.zeros(n, np.float64)
+        self.ti = np.zeros(n, np.int64)
+        self.tj = np.zeros(n, np.int64)
+        self.paths: list | None = [None] * n if traceback else None
+
+    def put_degenerate(self, idx: int, lx: int, ly: int, gap_series, mode: str) -> None:
+        """Pair ``idx``, one of whose sides is empty (no DP)."""
+        r = _degenerate(lx, ly, gap_series, mode)
+        self.score[idx], self.length[idx], self.ti[idx], self.tj[idx] = r.score, r.length, lx, ly
+        if self.paths is not None:
+            self.paths[idx] = r
+
+    def as_list(self) -> list[AlignResult] | list[PairResult]:
+        """One :class:`AlignResult` a pair with traceback, else one
+        :class:`PairResult` a pair."""
+        if self.paths is not None:
+            return self.paths
+        return [PairResult(*r) for r in zip(self.score.tolist(), self.length.tolist(),
+                                            self.ti.tolist(), self.tj.tolist())]
+
+
+def _unpack(res: PairArrays, chunk, lx, ly, sharded, mode: str, traceback: bool) -> None:
     """A chunk's results (its :class:`~..dist.shards.ShardedChunk`, gathered
-    here) into ``results`` at the chunk's indices."""
+    here) into ``res`` at the chunk's pair indices."""
     with span("batch:gather"):
         out = sharded.gather()
     with span("batch:unpack"):
@@ -549,18 +587,46 @@ def _unpack(results: list, chunk, lx, ly, sharded, mode: str, traceback: bool) -
         tj = out["tj"].numpy()
         if mode == "semiglobal":
             length = length + (lx - ti) + (ly - tj)
+        res.score[chunk], res.length[chunk], res.ti[chunk], res.tj[chunk] = score, length, ti, tj
         if traceback:
             moves = out["moves"].numpy()
             nmoves = out["nmoves"].numpy()
             for b, idx in enumerate(chunk):
-                results[idx] = moves_to_result(
+                res.paths[idx] = moves_to_result(
                     moves[b], int(nmoves[b]), float(score[b]),
                     int(ti[b]), int(tj[b]), int(lx[b]), int(ly[b]), mode,
                 )
-            return
-        sc, ln, tis, tjs = score.tolist(), length.tolist(), ti.tolist(), tj.tolist()
-        for b, idx in enumerate(chunk):
-            results[idx] = PairResult(sc[b], ln[b], tis[b], tjs[b])
+
+
+def align_pairs_indexed(
+    profiles: Seq[Profile],
+    ii: np.ndarray,
+    jj: np.ndarray,
+    matrix: ScoreMatrix,
+    gap_series: tuple[int, ...],
+    mode: str,
+    *,
+    device,
+    bucket_sizes: tuple[int, ...] = (63, 127, 255, 511, 1023, 2047),
+    batch_pairs: int = 32,
+    arena: ProfileArena | None = None,
+    mesh=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The scores-only DP of every pair ``(profiles[ii[k]], profiles[jj[k]])``
+    on ``device``: ``(score f64[P], length i64[P])`` in the pairs' order,
+    the values :func:`align_pairs_batched` gives each pair.  The pairs are
+    grouped, chunked and unpacked as index arrays, with no object a pair;
+    ``bucket_sizes``, ``batch_pairs``, ``arena`` and ``mesh`` as there."""
+    ii, jj = np.asarray(ii, np.int64), np.asarray(jj, np.int64)
+    if ii.shape != jj.shape or ii.ndim != 1:
+        raise ValueError("ii and jj must be index vectors of one length")
+    if ii.size and (min(ii.min(), jj.min()) < 0 or max(ii.max(), jj.max()) >= len(profiles)):
+        raise ValueError(f"pair indices outside the {len(profiles)} profiles")
+    METRICS.count("batch.pairs:indexed", len(ii))
+    res = _align_indexed(profiles, ii, jj, matrix, gap_series, mode, device=device,
+                         traceback=False, bucket_sizes=bucket_sizes, batch_pairs=batch_pairs,
+                         arena=arena, mesh=mesh)
+    return res.score, res.length.astype(np.int64)
 
 
 def align_pairs_batched(
@@ -584,12 +650,42 @@ def align_pairs_batched(
     a mesh, the arena is on its first device).  ``mesh``, a
     :class:`~..dist.mesh.PairMesh` of ``device``'s type, shards each chunk
     over its devices (on every process of the mesh, which all make this
-    call on the same pairs); the results are the same.
+    call on the same pairs); the results are the same.  The pairs'
+    distinct profiles (by identity) and their indices go through the core
+    of :func:`align_pairs_indexed`.
     """
+    METRICS.count("batch.pairs:listed", len(pairs))
+    with span("batch:group"):
+        member: dict[int, int] = {}
+        profiles: list[Profile] = []
+
+        def index(p: Profile) -> int:
+            k = member.get(id(p))
+            if k is None:
+                k = member[id(p)] = len(profiles)
+                profiles.append(p)
+            return k
+
+        ii = np.array([index(px) for px, _ in pairs], np.int64)
+        jj = np.array([index(py) for _, py in pairs], np.int64)
+    res = _align_indexed(profiles, ii, jj, matrix, gap_series, mode, device=device,
+                         traceback=traceback, bucket_sizes=bucket_sizes,
+                         batch_pairs=batch_pairs, arena=arena, mesh=mesh)
+    with span("batch:unpack"):
+        return res.as_list()
+
+
+def _align_indexed(profiles, ii, jj, matrix, gap_series, mode, *, device, traceback,
+                   bucket_sizes, batch_pairs, arena, mesh) -> PairArrays:
+    """The batch driver's core: every pair ``(profiles[ii[k]],
+    profiles[jj[k]])`` grouped by its buckets, each group chunked, routed
+    and dispatched, the results into a :class:`PairArrays` at the pairs'
+    indices.  Each member a pair uses is registered in ``arena`` once a
+    call; the pairs stay index arrays throughout."""
     mesh = call_mesh(device, mesh)
     dev, devices = mesh.devices[0], tuple(dict.fromkeys(mesh.devices))
     gap_series = tuple(gap_series)
-    results: list = [None] * len(pairs)
+    res = PairArrays(len(ii), traceback)
     A = matrix.alphabet.size
     max_s = float(np.abs(matrix.scores).max())
     s_host = matrix.as_f32()
@@ -600,33 +696,40 @@ def align_pairs_batched(
     elif arena.bucket_sizes != tuple(bucket_sizes) or arena.A != A or arena.device != dev:
         raise ValueError("arena bucket_sizes/alphabet/device do not match this call")
 
-    groups: dict[tuple[int, int], list[int]] = {}
-    pair_reg: list[tuple[int, int] | None] = [None] * len(pairs)
     with span("batch:group"):
-        for idx, (px, py) in enumerate(pairs):
-            if px.length == 0 or py.length == 0:
-                r = _degenerate(px.length, py.length, gap_series, mode)
-                results[idx] = r if traceback else PairResult(
-                    r.score, float(r.length), px.length, py.length
-                )
-                continue
-            kx, ky = arena.reg(px), arena.reg(py)
-            # same predicate as oracle.score.check_exactness, on cached totals
-            if arena.stats[kx].tot * arena.stats[ky].tot * max_s >= EXACT_DOT_LIMIT:
-                check_exactness(px, py, matrix)  # raises with the full message
-            pair_reg[idx] = (kx, ky)
-            key = (_bucket(px.length, bucket_sizes), _bucket(py.length, bucket_sizes))
-            groups.setdefault(key, []).append(idx)
+        lens = np.array([p.length for p in profiles], np.int64)
+        dead = (lens[ii] == 0) | (lens[jj] == 0)
+        for idx in np.flatnonzero(dead).tolist():
+            res.put_degenerate(idx, int(lens[ii[idx]]), int(lens[jj[idx]]), gap_series, mode)
+        live = np.flatnonzero(~dead)
+        used = np.zeros(len(profiles), bool)
+        used[ii[live]] = used[jj[live]] = True
+        members = np.flatnonzero(used).tolist()
+        reg = [arena.reg(profiles[m]) for m in members]
+        tot = np.zeros(len(profiles), np.float64)
+        tot[members] = [arena.stats[k].tot for k in reg]
+        # same predicate as oracle.score.check_exactness, on cached totals
+        over = tot[ii[live]] * tot[jj[live]] * max_s >= EXACT_DOT_LIMIT
+        for k in live[over].tolist():
+            check_exactness(profiles[ii[k]], profiles[jj[k]], matrix)  # raises, full message
+        row = np.zeros(len(profiles), np.int64)  # each member's row in its bucket's stack
+        row[members] = [arena.rows[k] for k in reg]
+        bucket = np.array([_bucket(L, bucket_sizes) for L in lens.tolist()], np.int64)
+        # the groups in (bx, by) order, each in input order: a stable sort
+        live = live[np.lexsort((bucket[jj[live]], bucket[ii[live]]))]
+        bxs, bys = bucket[ii[live]], bucket[jj[live]]
+        starts = np.flatnonzero((bxs[1:] != bxs[:-1]) | (bys[1:] != bys[:-1])) + 1
+        groups = np.split(live, starts) if live.size else []
 
     # One chunk in flight: chunk k+1 is enqueued before chunk k's results
     # are pulled, so the pull overlaps the next chunk's device work.
     pending: list = []
-    for (bx, by), idxs in sorted(groups.items()):
+    for idxs in groups:
+        bx, by = int(bucket[ii[idxs[0]]]), int(bucket[jj[idxs[0]]])
         with span("batch:stack"):
             route = choose_route(dev, bx, by, traceback)
             sx, sy = arena.stack(bx), arena.stack(by)
-            rows_x = np.array([sx["pos"][pair_reg[i][0]] for i in idxs], np.int64)
-            rows_y = np.array([sy["pos"][pair_reg[i][1]] for i in idxs], np.int64)
+            rows_x, rows_y = row[ii[idxs]], row[jj[idxs]]
             x_stats = dict(sx["stats"], tmax=stack_tmax(sx, s_host))
 
             def tier_of(ix, iy):
@@ -655,10 +758,10 @@ def align_pairs_batched(
             count_cells(route, bx, by, lx, ly)
             pending.append((chunk, lx, ly, out))
             while len(pending) > 1:
-                _unpack(results, *pending.pop(0), mode, traceback)
+                _unpack(res, *pending.pop(0), mode, traceback)
     while pending:
-        _unpack(results, *pending.pop(0), mode, traceback)
-    return results
+        _unpack(res, *pending.pop(0), mode, traceback)
+    return res
 
 
 def call_mesh(device, mesh: PairMesh | None) -> PairMesh:
@@ -811,7 +914,7 @@ def align_tracksets_batched(
     mesh = call_mesh(device, mesh)
     dev, devices = mesh.devices[0], tuple(dict.fromkeys(mesh.devices))
     gap_series = tuple(gap_series)
-    results: list = [None] * len(pairs)
+    res = PairArrays(len(pairs), traceback)
 
     # Keyed by the full tuple of track identities: tracksets that share a
     # track but differ in another get rows of their own.  ``reg`` keeps
@@ -853,8 +956,7 @@ def align_tracksets_batched(
             if any(p.length != Lx for p in txs) or any(p.length != Ly for p in tys):
                 raise ValueError("parallel tracks must have equal lengths per side")
             if Lx == 0 or Ly == 0:
-                r = _degenerate(Lx, Ly, gap_series, mode)
-                results[idx] = r if traceback else PairResult(r.score, float(r.length), Lx, Ly)
+                res.put_degenerate(idx, Lx, Ly, gap_series, mode)
                 continue
             for px, py, m, ms in zip(txs, tys, matrices, max_s):
                 if _tot(px) * _tot(py) * ms >= EXACT_DOT_LIMIT:
@@ -916,7 +1018,8 @@ def align_tracksets_batched(
             count_cells(route, bx, by, lx, ly)
             pending.append((chunk, lx, ly, out))
             while len(pending) > 1:
-                _unpack(results, *pending.pop(0), mode, traceback)
+                _unpack(res, *pending.pop(0), mode, traceback)
     while pending:
-        _unpack(results, *pending.pop(0), mode, traceback)
-    return results
+        _unpack(res, *pending.pop(0), mode, traceback)
+    with span("batch:unpack"):
+        return res.as_list()

@@ -3,9 +3,11 @@
 Counterpart of ``praline_tpu/msa/pipeline.py:42-374``, stage for stage:
 preprofiles, the O(N^2) all-pairs distance stage (scores only), the guide
 tree, and the progressive merge one tree level at a time.  Every pairwise
-DP goes through ``kernels.batch.align_pairs_batched`` on the caller's
-device; profiles, the tree and gap injection are the port's copy of the
-JAX package's host code (``praline_tpu_torch.oracle``), so the output is
+DP goes through the batch driver on the caller's device
+(``kernels.batch.align_pairs_indexed`` for the all-pairs stage's index
+arrays, ``align_pairs_batched`` for lists of profile pairs); profiles,
+the tree and gap injection are the port's copy of the JAX package's host
+code (``praline_tpu_torch.oracle``), so the output is
 column-identical to ``oracle_msa``.
 
 The merge stage tries the device-resident walk first
@@ -19,7 +21,7 @@ fallback, ``pipeline.py:245-283``).
 The stages' host steps are ``pipeline:`` spans (``util/metrics.py::span``,
 recorded under any torch profiler): ``pipeline:preprofiles`` (the
 one-hot preprofiles of the default mode),
-``pipeline:profiles`` (the members' profiles and their pairs),
+``pipeline:profiles`` (the members' profiles and the pair index),
 ``pipeline:matrix`` (results into the N x N matrices) and
 ``pipeline:tree`` (similarity and the guide tree).
 
@@ -35,7 +37,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..dist.mesh import make_pair_mesh, process_index
-from ..kernels.batch import ProfileArena, align_pairs_batched
+from ..kernels.batch import ProfileArena, align_pairs_batched, align_pairs_indexed
 from ..oracle.align import AlignResult
 from ..oracle.merge import full_coverage_path, inject_gaps, reorder_to_input
 from ..oracle.msa import oracle_msa
@@ -137,7 +139,7 @@ def batched_all_pairs(
     n = len(sequences)
     with span("pipeline:profiles"):
         profiles = [member_profile(s) for s in sequences]
-        index = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        ii, jj = np.triu_indices(n, 1)  # row-major, as the tiles' ids assume
     arena = ProfileArena(matrix.alphabet.size, tuple(config.bucket_sizes),
                          mesh.devices[0] if mesh else device)
     scores = np.zeros((n, n), dtype=np.float64)
@@ -146,39 +148,32 @@ def batched_all_pairs(
         lengths[i, i] = max(1, sequences[i].length)
 
     # tiles exist for resume; without a checkpoint the stage is one call
+    n_pairs = len(ii)
     tile_pairs = DISTANCE_TILE_PAIRS
     if ckpt is None and fault_hook is None:
-        tile_pairs = max(len(index), 1)
-    for t in range(0, len(index), tile_pairs):
+        tile_pairs = max(n_pairs, 1)
+    for t in range(0, n_pairs, tile_pairs):
         tile_id = t // tile_pairs
-        tile = index[t : t + tile_pairs]
+        tile_i, tile_j = ii[t : t + tile_pairs], jj[t : t + tile_pairs]
         loaded = ckpt.load_distance_tile(tile_id) if ckpt else None
         if loaded is not None:
             tile_scores, tile_lengths = loaded
         else:
             if fault_hook is not None:
                 fault_hook(tile_id)
-            with span("pipeline:profiles"):
-                pairs = [(profiles[i], profiles[j]) for i, j in tile]
-            results = align_pairs_batched(
-                pairs, matrix, config.gap_series, config.distance_mode,
-                device=device, traceback=False,
-                bucket_sizes=tuple(config.bucket_sizes),
+            tile_scores, tile_lengths = align_pairs_indexed(
+                profiles, tile_i, tile_j, matrix, config.gap_series, config.distance_mode,
+                device=device, bucket_sizes=tuple(config.bucket_sizes),
                 batch_pairs=_wide_batch_pairs(config), arena=arena, mesh=mesh,
             )
-            with span("pipeline:matrix"):
-                tile_scores = np.array([r.score for r in results])
-                tile_lengths = np.array([r.length for r in results])
             if ckpt:
                 ckpt.save_distance_tile(tile_id, tile_scores, tile_lengths)
         with span("pipeline:matrix"):
-            ii = np.fromiter((i for i, _ in tile), np.int64, len(tile))
-            jj = np.fromiter((j for _, j in tile), np.int64, len(tile))
-            scores[ii, jj] = scores[jj, ii] = np.asarray(tile_scores, np.float64)
-            lengths[ii, jj] = lengths[jj, ii] = np.asarray(tile_lengths, np.int64)
+            scores[tile_i, tile_j] = scores[tile_j, tile_i] = np.asarray(tile_scores, np.float64)
+            lengths[tile_i, tile_j] = lengths[tile_j, tile_i] = np.asarray(tile_lengths, np.int64)
         log.info(
-            "all-pairs: %d/%d pairs done%s", min(t + tile_pairs, len(index)),
-            len(index), " (from checkpoint)" if loaded is not None else "",
+            "all-pairs: %d/%d pairs done%s", min(t + tile_pairs, n_pairs),
+            n_pairs, " (from checkpoint)" if loaded is not None else "",
         )
     if ckpt:
         ckpt.save_distances(scores, lengths)

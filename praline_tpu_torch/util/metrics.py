@@ -55,9 +55,13 @@ class Metrics:
     ``counters`` holds the DP cells the batch drivers launch and need, a
     route each (``batch.cells_launched:{route}``: rows times the bucket's
     ``bx * by`` a chunk; ``batch.cells_needed:{route}``: ``lx * ly`` at the
-    true lengths), and the device merge's (``merge.cells_launched``: joins
-    times ``C_cap**2`` for every rung a walk tries; ``merge.cells_needed``:
-    the emitted joins' ``cols_left * cols_right``)."""
+    true lengths), the pairs that enter the batch driver by each entry
+    (``batch.pairs:indexed``: as index arrays, ``align_pairs_indexed``;
+    ``batch.pairs:listed``: as a list of profile pairs,
+    ``align_pairs_batched``), and the device merge's
+    (``merge.cells_launched``: joins times ``C_cap**2`` for every rung a
+    walk tries; ``merge.cells_needed``: the emitted joins' ``cols_left *
+    cols_right``)."""
 
     def __init__(self) -> None:
         self.stages: dict[str, StageStats] = {}

@@ -17,7 +17,11 @@ from praline_tpu.oracle import align_profiles
 from praline_tpu_torch.convert import matrix_from_arrays, profile_from_arrays
 from praline_tpu_torch.dist import PairMesh, make_pair_mesh
 from praline_tpu_torch.kernels import batch
-from praline_tpu_torch.kernels.batch import ProfileArena, align_pairs_batched
+from praline_tpu_torch.kernels.batch import ProfileArena, align_pairs_batched, align_pairs_indexed
+from praline_tpu_torch.msa import pipeline
+from praline_tpu_torch.msa.pipeline import batched_all_pairs
+from praline_tpu_torch.types import ALPHABET_AA as PORT_AA, PralineConfig as PortConfig, Sequence
+from praline_tpu_torch.util.checkpoint import Checkpoint, run_digest
 
 torch.set_num_threads(1)
 
@@ -125,3 +129,126 @@ def test_unported_routes_raise(monkeypatch):
     got = align_pairs_batched(pairs, PORT_B62, (11, 1), "global", device="cpu")
     assert batch.route_counts == {"fused": 1, "two_kernel": 0, "tiled": 0}
     assert got == want
+
+
+def index_of(pairs, profs):
+    """The member indices ``(ii, jj)`` of ``pairs`` drawn from ``profs``."""
+    pos = {id(p): k for k, p in enumerate(profs)}
+    return (np.array([pos[id(x)] for x, _ in pairs], np.int64),
+            np.array([pos[id(y)] for _, y in pairs], np.int64))
+
+
+def chunks():
+    return sum(batch.route_counts.values()) + batch.checkpointed_chunks
+
+
+@pytest.mark.parametrize("mode", ["global", "semiglobal"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_indexed_matches_the_list_entry_and_jax(mode, shards):
+    """Members over two buckets and an empty one, pairs in both orders and
+    with themselves: the index entry gives the list entry's scores and
+    lengths in as many chunks, and the JAX package's scores and lengths;
+    on a two-shard pair mesh too."""
+    jprofs = profiles(5 + shards)
+    profs = port_profiles(jprofs)
+    assert {batch._bucket(p.length, BUCKETS) for p in profs if p.length} == set(BUCKETS)
+    pairs = pair_list(profs)
+    ii, jj = index_of(pairs, profs)
+    kw = dict(device="cpu", bucket_sizes=BUCKETS, batch_pairs=4,
+              mesh=make_pair_mesh(shards, device="cpu") if shards > 1 else None)
+    batch.reset_route_counts()
+    listed = align_pairs_batched(pairs, PORT_B62, (11, 1), mode, **kw)
+    listed_chunks = chunks()
+    batch.reset_route_counts()
+    score, length = align_pairs_indexed(profs, ii, jj, PORT_B62, (11, 1), mode, **kw)
+    assert chunks() == listed_chunks > 1
+    assert score.dtype == np.float64 and length.dtype == np.int64
+    np.testing.assert_array_equal(score, [r.score for r in listed])
+    np.testing.assert_array_equal(length, [r.length for r in listed])
+    want = jax_batched(pair_list(jprofs), B62, (11, 1), mode, backend="xla",
+                       bucket_sizes=BUCKETS, batch_pairs=4)
+    np.testing.assert_array_equal(score, [w.score for w in want])
+    np.testing.assert_array_equal(length, [w.length for w in want])
+
+
+def test_indexed_exactness_raises_the_list_message():
+    """The first pair past the exact-f32 limit raises the list entry's
+    message; indices outside the profiles are refused."""
+    big = np.zeros((5, A), np.float32)
+    big[:, 0] = 2000.0
+    p = profile_from_arrays(big, np.zeros(5, np.float32), ALPHABET_AA.symbols)
+    small = port_profiles(profiles(4))[0]
+    with pytest.raises(ValueError, match="exact f32") as listed:
+        align_pairs_batched([(small, small), (p, p)], PORT_B62, (11, 1), "global", device="cpu")
+    with pytest.raises(ValueError, match="exact f32") as indexed:
+        align_pairs_indexed([small, p], [0, 1], [0, 1], PORT_B62, (11, 1), "global",
+                            device="cpu")
+    assert str(indexed.value) == str(listed.value)
+    with pytest.raises(ValueError, match="outside"):
+        align_pairs_indexed([small], [0], [1], PORT_B62, (11, 1), "global", device="cpu")
+
+
+
+def test_indexed_without_a_dp_pair():
+    """No pairs, and pairs whose every side is empty or paired with an empty
+    one: no DP runs, and the index entry gives the list entry's values."""
+    profs = port_profiles(profiles(8))
+    empty, full = profs[3], profs[0]
+    assert empty.length == 0 < full.length
+    kw = dict(device="cpu", bucket_sizes=BUCKETS)
+    score, length = align_pairs_indexed(profs, [], [], PORT_B62, (11, 1), "global", **kw)
+    assert score.shape == length.shape == (0,)
+    for mode in ("global", "semiglobal", "local"):
+        pairs = [(empty, empty), (empty, full), (full, empty)]
+        listed = align_pairs_batched(pairs, PORT_B62, (11, 1), mode, **kw)
+        score, length = align_pairs_indexed([empty, full], [0, 0, 1], [0, 1, 0], PORT_B62,
+                                            (11, 1), mode, **kw)
+        assert score.tolist() == [r.score for r in listed]
+        assert length.tolist() == [r.length for r in listed]
+
+def family(seed, n=9):
+    rng = np.random.default_rng(seed)
+    return [Sequence(f"s{k}", rng.integers(0, 20, int(L)).astype(np.int32), PORT_AA)
+            for k, L in enumerate(rng.integers(5, 50, n))]
+
+
+def test_all_pairs_resumes_from_a_fault_to_the_same_matrices(tmp_path, monkeypatch):
+    """A fault in the third distance tile, then a resumed run: the first
+    two tiles load from the checkpoint and the matrices equal an
+    uninterrupted run's."""
+    seqs = family(4)
+    cfg = PortConfig(bucket_sizes=BUCKETS)
+    want = batched_all_pairs(seqs, PORT_B62, cfg, device="cpu")
+    monkeypatch.setattr(pipeline, "DISTANCE_TILE_PAIRS", 7)  # 36 pairs: six tiles
+    ckpt = Checkpoint(tmp_path / "ck", run_digest(seqs, cfg))
+
+    def crash(tile_id):
+        if tile_id == 2:
+            raise RuntimeError("injected fault")
+
+    with pytest.raises(RuntimeError, match="injected"):
+        batched_all_pairs(seqs, PORT_B62, cfg, device="cpu", ckpt=ckpt, fault_hook=crash)
+    computed = []
+    got = batched_all_pairs(seqs, PORT_B62, cfg, device="cpu", ckpt=ckpt,
+                            fault_hook=computed.append)
+    assert computed == [2, 3, 4, 5]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_the_index_path_builds_no_pair_result(monkeypatch):
+    """With ``PairResult`` made to raise, the all-pairs stage still runs
+    (no object a pair) and the list entry without traceback does not."""
+    def refused(*args):
+        raise AssertionError("a PairResult was built")
+
+    seqs = family(5, n=6)
+    cfg = PortConfig(bucket_sizes=BUCKETS)
+    want = batched_all_pairs(seqs, PORT_B62, cfg, device="cpu")
+    monkeypatch.setattr(batch, "PairResult", refused)
+    got = batched_all_pairs(seqs, PORT_B62, cfg, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    profs = port_profiles(profiles(3, n=4))
+    with pytest.raises(AssertionError, match="PairResult"):
+        align_pairs_batched([(profs[0], profs[1])], PORT_B62, (11, 1), "global", device="cpu")

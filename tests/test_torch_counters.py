@@ -33,7 +33,8 @@ def profile(length: int, rng) -> Profile:
 def test_batch_cells_equal_bucket_and_true_length_sums(tracks):
     """Ragged lengths over three buckets, chunks of three rows, an empty
     member (no DP, no cells): launched is the sum of each pair's bucket
-    product, needed the sum of its lengths' product, both on the route."""
+    product, needed the sum of its lengths' product, both on the route;
+    the list entry counts every pair it takes as listed."""
     rng = np.random.default_rng(3)
     lengths = [7, 40, 63, 64, 100, 127, 128, 200, 0]
     profs = [profile(L, rng) for L in lengths]
@@ -52,6 +53,7 @@ def test_batch_cells_equal_bucket_and_true_length_sums(tracks):
         "batch.cells_launched:two_kernel":
             sum(batch._bucket(a, BUCKETS) * batch._bucket(b, BUCKETS) for a, b in real),
         "batch.cells_needed:two_kernel": sum(a * b for a, b in real),
+        **({} if tracks else {"batch.pairs:listed": len(pairs)}),
     }
 
 
@@ -94,3 +96,23 @@ def test_msa_align_counts_its_all_pairs_and_merge_cells():
     assert grown["merge.cells_needed"] == METRICS.stages["merge"].cells
     assert grown["merge.cells_launched"] == \
         (len(seqs) - 1) * sum(c * c for c in METRICS.notes["merge_attempts"])
+
+
+def test_all_pairs_counts_its_pairs_as_indexed():
+    """One ``batched_all_pairs`` on N members: N(N-1)/2 pairs enter the
+    batch driver as index arrays and none as a list; the list entry counts
+    its pairs as listed."""
+    seqs = load_sequence_fasta(TESTDATA / "family10.fasta", ALPHABET_AA)
+    n = len(seqs)
+    before = dict(METRICS.counters)
+    batched_all_pairs(seqs, B62, PralineConfig(), device="cpu")
+    grown = {k: v - before.get(k, 0) for k, v in METRICS.counters.items()}
+    assert grown["batch.pairs:indexed"] == n * (n - 1) // 2
+    assert grown.get("batch.pairs:listed", 0) == 0
+    rng = np.random.default_rng(4)
+    profs = [profile(L, rng) for L in (9, 30, 0)]
+    before = dict(METRICS.counters)
+    batch.align_pairs_batched([(profs[0], profs[1]), (profs[1], profs[2]), (profs[0], profs[0])],
+                              B62, (11, 1), "global", device="cpu", bucket_sizes=BUCKETS)
+    assert METRICS.counters["batch.pairs:listed"] - before.get("batch.pairs:listed", 0) == 3
+    assert METRICS.counters["batch.pairs:indexed"] == before["batch.pairs:indexed"]
