@@ -24,6 +24,11 @@ problem computed by the one built for whether its y counts pass 255) or
 ``"scalar"`` (f32 dot products in place).  Bound on the H100: the chain of dependent
 diagonals.  No ``hs`` tensor, so memory is ``O(B * (Lx + Ly) * A)`` and
 ``Ly`` is unbounded; lanes are bounded by the cluster: :data:`MAX_LANES_FUSED`.
+
+The wrapper's host steps run inside ``util.metrics.span`` ranges, innermost
+under the batch drivers' ``dispatch:fused:`` spans: ``fused:geometry`` (the
+cluster, its occupancy query, the scratch and outputs), ``fused:launch``
+(the kernel's entry point) and, on the CPU, ``fused:plain``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..util.metrics import span
 from . import build
 from .fused_scores import TIERS, mma_scratch_bytes
 from .scan import MODES
@@ -188,8 +194,9 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     if cx.device.type == "cpu":
-        got = wavefront_dp_fused_plain(cx, inv_x, cy, inv_y, s, lx, ly, gap_series, mode,
-                                       traceback)
+        with span("fused:plain"):
+            got = wavefront_dp_fused_plain(cx, inv_x, cy, inv_y, s, lx, ly, gap_series, mode,
+                                           traceback)
         if out is None:
             return got
         check_out(out, *cx.shape[:2], cy.shape[1], traceback, cx.device)
@@ -205,22 +212,23 @@ def wavefront_dp_fused(cx, inv_x, cy, inv_y, s, lx, ly, gap_series=(11, 1),
             f"the fused CUDA DP takes Lp <= {MAX_LANES_FUSED}, "
             f"got {Lp} (longer rows take kernels/tiled_dp.py)"
         )
-    geo = fused_geometry(Lp, k)
-    if max_active_clusters(k, tier, geo) < 1:
-        raise RuntimeError(f"the card cannot hold one cluster of {geo.R} CTAs of {geo.W} "
-                           f"threads at k={k} on the {tier!r} tier")
-    gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
-    if tier == "mma":
-        scratch_bytes = mma_scratch_bytes(B, Lx, Ly)
-    else:
-        scratch_bytes = B * (Lx + Ly) * padded_alphabet(A) * 4
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
-    if out is None:
-        out = empty_outputs(B, Lx, Ly, traceback, dev)
-    check_out(out, B, Lx, Ly, traceback, dev)
+    with span("fused:geometry"):
+        geo = fused_geometry(Lp, k)
+        if max_active_clusters(k, tier, geo) < 1:
+            raise RuntimeError(f"the card cannot hold one cluster of {geo.R} CTAs of {geo.W} "
+                               f"threads at k={k} on the {tier!r} tier")
+        gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
+        if tier == "mma":
+            scratch_bytes = mma_scratch_bytes(B, Lx, Ly)
+        else:
+            scratch_bytes = B * (Lx + Ly) * padded_alphabet(A) * 4
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+        if out is None:
+            out = empty_outputs(B, Lx, Ly, traceback, dev)
+        check_out(out, B, Lx, Ly, traceback, dev)
     tb = out.get("tb")
     lib = build.load_library()
-    with torch.cuda.device(dev):
+    with span("fused:launch"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.praline_fused_dp(
             cx.data_ptr(), inv_x.data_ptr(), cy.data_ptr(), inv_y.data_ptr(), s.data_ptr(),

@@ -57,6 +57,17 @@ CUDA tensors.
 
 Bound on the H100: the chain of dependent diagonals, ``m`` times as long
 as one tile's, plus ``R - 1`` boxes to fill the cluster; see the source.
+
+The wrappers' host steps run inside ``util.metrics.span`` ranges, innermost
+under the batch drivers' ``dispatch:`` spans: ``tiled:geometry`` (the
+cluster, its occupancy query, the carry scratch), ``tiled:operands`` (the
+in-place sources' operands), ``tiled:launch`` (the kernel's entry point)
+and, on the CPU, ``tiled:plain``.  Each call of :func:`wavefront_dp_tiled`
+or :func:`wavefront_dp_tiled_forward` is one chunk of the tiled or the
+checkpointed route: it adds ``tiled.chunks:{source}`` (``hs``, ``rows``,
+``composite``) and its problems to ``tiled.problems:scores`` or
+``tiled.problems:traceback`` in ``METRICS.counters``, host integers from
+the source's shape (:func:`count_chunk`).
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..util.metrics import METRICS, span
 from . import build
 from .fused_dp import (
     CAND_BYTES, SMEM_PER_CTA, check_out, check_rows, check_series, empty_outputs,
@@ -510,7 +522,7 @@ def prepare_operands(source, tier: str) -> InPlaceOperands:
     pwide = torch.zeros(B, dtype=torch.uint8, device=dev) if tier == "mma" else None
     scratch = []
     lib = build.load_library()
-    with torch.cuda.device(dev):
+    with span("tiled:operands"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for cx, cy, s in tracks:
             A = cx.shape[2]
@@ -566,17 +578,18 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, ti
         B, Lx, Ly, _ = _check_composite(source, lx, ly)
         D, Lp = Lx + Ly + 1, Lx + 1
     dev = source_device(source)
-    g = tiled_geometry(Lp, k, kind, tier=tier, **geometry)
-    check_geometry(g, Lp)
-    if ckpt is not None and ckpt[1] % g.T:
-        raise ValueError(f"the interval {ckpt[1]} must be a multiple of the box depth {g.T}")
-    if max_active_clusters(k, kind, g, ckpt is not None, tier) < 1:
-        raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} threads "
-                           f"and {g.smem_bytes} B of shared memory at k={k} on the {kind} source"
-                           + (f" ({tier!r} tier)" if tier else ""))
-    gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
-    f32 = dict(dtype=torch.float32, device=dev)
-    carry = torch.empty((B, carry_values(k), Lp), **f32) if g.carry_scratch else None
+    with span("tiled:geometry"):
+        g = tiled_geometry(Lp, k, kind, tier=tier, **geometry)
+        check_geometry(g, Lp)
+        if ckpt is not None and ckpt[1] % g.T:
+            raise ValueError(f"the interval {ckpt[1]} must be a multiple of the box depth {g.T}")
+        if max_active_clusters(k, kind, g, ckpt is not None, tier) < 1:
+            raise RuntimeError(f"the card cannot hold one cluster of {g.R} CTAs of {g.W} "
+                               f"threads and {g.smem_bytes} B of shared memory at k={k} on the "
+                               f"{kind} source" + (f" ({tier!r} tier)" if tier else ""))
+        gaps = np.ascontiguousarray(gap_series, dtype=np.float32)
+        f32 = dict(dtype=torch.float32, device=dev)
+        carry = torch.empty((B, carry_values(k), Lp), **f32) if g.carry_scratch else None
     tb = out.get("tb")
     outs = (carry.data_ptr() if carry is not None else None, out["score"].data_ptr(),
             out["length"].data_ptr(), out["ti"].data_ptr(), out["tj"].data_ptr(),
@@ -591,33 +604,45 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, ti
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "hs":
             name = "praline_tiled_ckpt_hs" if ckpt is not None else "praline_tiled_dp_hs"
-            rc = getattr(lib, name)(source.data_ptr(), lx.data_ptr(), ly.data_ptr(), *series, D,
-                                    B, Lp, *shape, *outs, *checkpoints, stream)
+            with span("tiled:launch"):
+                rc = getattr(lib, name)(source.data_ptr(), lx.data_ptr(), ly.data_ptr(), *series,
+                                        D, B, Lp, *shape, *outs, *checkpoints, stream)
             build.check(rc, name)
             return
         ops = _operands_for(source, tier, operands)
         pwide = ops.pwide.data_ptr() if ops.pwide is not None else None
         name = _ENTRIES[(kind, ckpt is not None, tier)]
-        if kind == "rows":
-            rc = getattr(lib, name)(ops.scratch[0].data_ptr(), pwide, source[1].data_ptr(),
-                                    source[3].data_ptr(), lx.data_ptr(), ly.data_ptr(), *series,
-                                    B, Lx, Ly, padded_alphabet(ops.alphabets[0]), *shape, *outs,
-                                    *checkpoints, stream)
-        else:
-            n = len(ops.scratch)
+        with span("tiled:launch"):
+            if kind == "rows":
+                rc = getattr(lib, name)(ops.scratch[0].data_ptr(), pwide, source[1].data_ptr(),
+                                        source[3].data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                                        *series, B, Lx, Ly, padded_alphabet(ops.alphabets[0]),
+                                        *shape, *outs, *checkpoints, stream)
+            else:
+                n = len(ops.scratch)
 
-            def ptrs(ts):
-                return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+                def ptrs(ts):
+                    return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
 
-            weights = np.array([float(track_weight(w)) for w in source.weights], np.float32)
-            aps = (ctypes.c_int * n)(*(padded_alphabet(A) for A in ops.alphabets))
-            checkpoints = (snap.data_ptr() if snap is not None else None, interval, block,
-                           cum0)
-            rc = getattr(lib, name)(
-                n, ptrs(ops.scratch), ptrs(source.inv_xs), ptrs(source.inv_ys), aps,
-                weights.ctypes.data_as(ctypes.c_void_p), pwide, lx.data_ptr(), ly.data_ptr(),
-                *series, B, Lx, Ly, *shape, *outs, *checkpoints, stream)
+                weights = np.array([float(track_weight(w)) for w in source.weights], np.float32)
+                aps = (ctypes.c_int * n)(*(padded_alphabet(A) for A in ops.alphabets))
+                checkpoints = (snap.data_ptr() if snap is not None else None, interval, block,
+                               cum0)
+                rc = getattr(lib, name)(
+                    n, ptrs(ops.scratch), ptrs(source.inv_xs), ptrs(source.inv_ys), aps,
+                    weights.ctypes.data_as(ctypes.c_void_p), pwide, lx.data_ptr(),
+                    ly.data_ptr(), *series, B, Lx, Ly, *shape, *outs, *checkpoints, stream)
     build.check(rc, name)
+
+
+def count_chunk(source, traceback: bool) -> None:
+    """One chunk of the tiled or checkpointed route into ``METRICS.counters``:
+    ``tiled.chunks:{source kind}`` and its problems under
+    ``tiled.problems:scores`` or ``tiled.problems:traceback`` (from the
+    source's shape: no device sync)."""
+    METRICS.count(f"tiled.chunks:{source_kind(source)}", 1)
+    METRICS.count(f"tiled.problems:{'traceback' if traceback else 'scores'}",
+                  problem_shape(source)[0])
 
 
 def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceback=False,
@@ -639,10 +664,12 @@ def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceb
     cluster of the geometry."""
     key = check_tier(source_kind(source), tier)
     geometry = dict(ctas=ctas, tile_lanes=tile_lanes, steps=steps_per_visit)
+    count_chunk(source, traceback)
     if source_device(source).type == "cpu":
-        got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
-                                       tile_lanes=tile_lanes, ctas=ctas,
-                                       steps_per_visit=steps_per_visit)
+        with span("tiled:plain"):
+            got = wavefront_dp_tiled_plain(source, lx, ly, gap_series, mode, traceback,
+                                           tile_lanes=tile_lanes, ctas=ctas,
+                                           steps_per_visit=steps_per_visit)
         if out is None:
             return got
         check_out(out, *problem_shape(source), traceback, got["score"].device)
@@ -671,8 +698,10 @@ def wavefront_dp_tiled_forward(source, lx, ly, gap_series, mode, interval, *, ti
     card), block q at diagonal 2 + q interval, nblk = ceil((D - 2) /
     interval).  CPU tensors take :func:`~.scan.forward_snapshots`."""
     key = check_tier(source_kind(source), tier)
+    count_chunk(source, True)
     if source_device(source).type == "cpu":
-        return forward_snapshots(source_scores(source), lx, ly, gap_series, mode, interval)
+        with span("tiled:plain"):
+            return forward_snapshots(source_scores(source), lx, ly, gap_series, mode, interval)
     B, Lx, Ly = problem_shape(source)
     dev = source_device(source)
     D, Lp = Lx + Ly + 1, Lx + 1

@@ -13,7 +13,8 @@ recording, whoever started it (the CLI's ``--profile-dir``, a benchmark,
 a caller's own ``torch.profiler.profile``); with none recording it costs
 one test of the profiler's flag.  The host steps' spans are named
 ``<layer>:<step>`` (``pipeline:``, ``batch:``, ``dispatch:``, ``gather:``,
-``merge:``, ``ring:``); the pipeline's two scopes keep their names
+``merge:``, ``ring:``, and the fused and tiled kernels' wrappers'
+``fused:`` and ``tiled:``); the pipeline's two scopes keep their names
 ``msa_align`` and ``merge``.  :func:`enable_profiling` arms a trace directory,
 and the outermost :func:`maybe_trace` scope (``msa_align``) then profiles
 the host and the card and writes a Chrome trace there on exit, unless a
@@ -58,10 +59,12 @@ class Metrics:
     true lengths), the pairs that enter the batch driver by each entry
     (``batch.pairs:indexed``: as index arrays, ``align_pairs_indexed``;
     ``batch.pairs:listed``: as a list of profile pairs,
-    ``align_pairs_batched``), and the device merge's
-    (``merge.cells_launched``: joins times ``C_cap**2`` for every rung a
-    walk tries; ``merge.cells_needed``: the emitted joins' ``cols_left *
-    cols_right``)."""
+    ``align_pairs_batched``), the chunks of the tiled and checkpointed
+    routes by score source (``tiled.chunks:{hs,rows,composite}``) and the
+    problems they ran (``tiled.problems:{scores,traceback}``), and the
+    device merge's (``merge.cells_launched``: joins times ``C_cap**2`` for
+    every rung a walk tries; ``merge.cells_needed``: the emitted joins'
+    ``cols_left * cols_right``)."""
 
     def __init__(self) -> None:
         self.stages: dict[str, StageStats] = {}

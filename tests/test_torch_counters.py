@@ -4,6 +4,7 @@ need (``lx * ly`` at true lengths), a route each, and the device merge's
 (joins times ``C_cap**2`` for every rung tried; the emitted joins'
 ``cols_left * cols_right``), counted exactly and never reset."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -116,3 +117,38 @@ def test_all_pairs_counts_its_pairs_as_indexed():
                               B62, (11, 1), "global", device="cpu", bucket_sizes=BUCKETS)
     assert METRICS.counters["batch.pairs:listed"] - before.get("batch.pairs:listed", 0) == 3
     assert METRICS.counters["batch.pairs:indexed"] == before["batch.pairs:indexed"]
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+def test_tiled_counters_count_the_long_routes_chunks_and_problems(monkeypatch, traceback):
+    """The lane caps forced down (the whole-row DP to 31 lanes, the fused
+    kernel to 63): x sides in bucket 63 take the fused route and longer
+    ones the tiled route, with traceback (127, 255) past a lowered byte
+    budget checkpointed.  Every chunk of the tiled and checkpointed routes
+    adds one to ``tiled.chunks:hs`` and its problems to
+    ``tiled.problems:scores`` or ``tiled.problems:traceback``; the fused
+    route adds nothing there."""
+    monkeypatch.setattr(batch.wavefront, "MAX_LANES", 32)
+    monkeypatch.setattr(batch, "MAX_LANES_FUSED", 64)
+    monkeypatch.setattr(batch, "TB_BYTES_BUDGET", 40_000)  # (127, 127) fits, (127, 255) not
+    monkeypatch.delenv(batch.FUSED_DP_ENV, raising=False)
+    rng = np.random.default_rng(5)
+    profs = [profile(L, rng) for L in (40, 50, 64, 100, 130)]
+    pairs = [(profs[i], profs[j]) for i in range(len(profs)) for j in range(i + 1, len(profs))]
+    batch.reset_route_counts()
+    before = dict(METRICS.counters)
+    got = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu",
+                                    bucket_sizes=BUCKETS, batch_pairs=2, traceback=traceback)
+    grown = {k: v - before.get(k, 0) for k, v in METRICS.counters.items()
+             if k.startswith("tiled.") and v != before.get(k, 0)}
+    long_x = [i for i, (x, _) in enumerate(pairs) if x.length > 63]
+    chunks = batch.route_counts["tiled"] + batch.checkpointed_chunks
+    assert batch.route_counts["fused"] > 0 and batch.route_counts["two_kernel"] == 0
+    assert (batch.checkpointed_chunks > 0) == traceback
+    assert grown == {"tiled.chunks:hs": chunks,
+                     f"tiled.problems:{'traceback' if traceback else 'scores'}": len(long_x)}
+    monkeypatch.undo()  # the default caps: every pair on the two-kernel route, same results
+    want = batch.align_pairs_batched(pairs, B62, (11, 1), "global", device="cpu",
+                                     bucket_sizes=BUCKETS, traceback=traceback)
+    assert all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for a, b in zip(got, want, strict=True) for f in dataclasses.fields(a))

@@ -8,14 +8,16 @@ starts no second profiler; with nothing recording the hooks do nothing."""
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from praline_tpu_torch import ALPHABET_AA, PralineConfig, builtin_score_matrix
+from praline_tpu_torch import ALPHABET_AA, METRICS, PralineConfig, builtin_score_matrix
 from praline_tpu_torch.cli.main import main
 from praline_tpu_torch.io import format_alignment_fasta, load_sequence_fasta
 from praline_tpu_torch.kernels import batch
 from praline_tpu_torch.msa import msa_align
+from praline_tpu_torch.types import Sequence
 from praline_tpu_torch.util import metrics
 
 TESTDATA = Path(__file__).resolve().parent.parent / "testdata"
@@ -114,3 +116,35 @@ def test_dispatch_span_names():
     assert batch.dispatch_name("tiled", 4991, 4991, 8) == "dispatch:tiled:4991x4991x8"
     assert batch.dispatch_name("two_kernel", 1023, 511, 256, tracks=True) == \
         "dispatch:tracks:1023x511x256"
+
+
+def test_long_route_spans_sit_inside_their_dispatch_range(monkeypatch, tmp_path):
+    """The lane caps forced down (the whole-row DP to 31 lanes, the fused
+    kernel to 63): ``msa_align`` on six members of 40-64 residues runs its
+    all-pairs stage on the fused and the tiled route and its merge (rung
+    127) on the tiled route; under an outer profiler each ``fused:`` and
+    ``tiled:`` span of the wrappers lies inside a ``dispatch:`` range of its
+    route, the merge's among them."""
+    monkeypatch.setattr(batch.wavefront, "MAX_LANES", 32)
+    monkeypatch.setattr(batch, "MAX_LANES_FUSED", 64)
+    monkeypatch.delenv(batch.FUSED_DP_ENV, raising=False)
+    rng = np.random.default_rng(8)
+    seqs = [Sequence(f"s{k}", rng.integers(0, 20, size=L).astype(np.int32), ALPHABET_AA)
+            for k, L in enumerate((64, 40, 45, 50, 54, 59))]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        msa_align(seqs, builtin_score_matrix("blosum62"), PralineConfig(), device="cpu")
+    assert METRICS.notes["merge_route"] == "tiled"
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+    def inside(e, prefix):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        return any(o["name"].startswith(prefix) and o["tid"] == e["tid"] and o["ts"] <= a
+                   and b <= o["ts"] + o["dur"] for o in events)
+
+    spans = {kind: [e for e in events if e["name"] == f"{kind}:plain"]
+             for kind in ("fused", "tiled")}
+    assert spans["fused"] and spans["tiled"]
+    assert all(inside(e, f"dispatch:{kind}:") for kind, es in spans.items() for e in es)
+    assert any(inside(e, "merge") and inside(e, "dispatch:tiled:127x127x") for e in spans["tiled"])
