@@ -152,7 +152,11 @@ pair mesh's, homology's and the ring's; ``python3 chip_smoke.py
 tiled-times DIR`` times K6's ordinary launches on the tree at DIR alone
 (for the parent beside this tree in one call), ``python3 chip_smoke.py
 long-times DIR`` K6's in-place launches on each tier that tree takes and
-the long routes end to end.  One more run of each of the
+the long routes end to end, ``python3 chip_smoke.py lanes-times DIR`` K6
+over hs at dhc1.msa64's all-pairs chunk shapes (``[lanes-times]``: the
+one-lane geometry and the tree's choice, each held to the plain DP; also
+in the whole smoke, after the tiled kernel's registers of Q = 2 and 3 at
+k <= 3).  One more run of each of the
 first five main paths under ``torch.profiler`` gives the device time per
 kernel and the busy share.
 Every producer, fused and in-place tiled launch of every main path must
@@ -402,7 +406,7 @@ def phase_build():
         sources=",".join(p.name for p in build.sources()),
         per_source_s=",".join(f"{k}:{v:.3f}" for k, v in sorted(build.last_build_seconds.items())))
     usage = ptxas_usage("\n".join(build.last_build_log.values()))
-    kernels = (("walk_kernel", "tiled_dp", "source", "hs", TILED_HS),
+    kernels = (("walk_kernel", "tiled_dp", "source", "hs", TILED_HS.format(k="{k}", q=1)),
                ("walk_kernel", "tiled_dp", "source", "rows", TILED_ROWS),
                ("walk_kernel", "tiled_ckpt", "source", "hs", TILED_HS_CKPT),
                ("walk_kernel", "tiled_ckpt", "source", "rows", TILED_ROWS_CKPT),
@@ -427,6 +431,7 @@ def phase_build():
                 *kernel_usage(usage, pattern.format(k=k)))
         say("registers", kernel=kernel, file=source, **{what: which}, lanes_per_thread=1,
             **found)
+    lanes_registers(usage)
     phase_cluster_occupancy()
     probes = {}
     for kernel in ("alu_chains_kernel", "smem_chain_kernel", "write_blocks_kernel",
@@ -468,7 +473,7 @@ def phase_build():
 FUSED_MMA = r"fused_cluster_kernelILi{k}ELb1ELb0E"
 FUSED_MMA_WIDE = r"fused_cluster_kernelILi{k}ELb1ELb1E"
 FUSED_SCALAR = r"fused_cluster_kernelILi{k}ELb0ELb0E"
-TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb0E"
+TILED_HS = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb0ELb0ELi{q}E"  # q lanes a thread
 TILED_ROWS = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb0E"
 TILED_HS_CKPT = r"walk_kernelI.*HsSourceELi{k}ELb0ELi512ELi1ELb1E"
 TILED_ROWS_CKPT = r"walk_kernelI.*RowsSourceELi{k}ELb0ELi512ELi1ELb1E"
@@ -480,6 +485,24 @@ TILED_MMA = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi1EEELi{k}ELb0ELi512ELi1ELb0
 TILED_MMA_CKPT = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi1EEELi{k}ELb0ELi512ELi1ELb1E"
 TILED_COMPOSITE_MMA = r"walk_kernel_paramsI.*BoxSourceILb{w}ELi8EEELi{k}ELb0ELi512ELi1ELb1E"
 DP_WALK = r"walk_kernelI.*HsSourceELi{k}ELb1ELi128ELi{n}E"
+
+
+def lanes_registers(usage) -> None:
+    """The registers of K6's launches over hs at Q = 2 and 3 lanes a
+    thread (k = 1 .. 3, the levels they are built for); raises where one
+    spills."""
+    from praline_tpu_torch.kernels import tiled_dp
+
+    for q in tiled_dp.LANES_PER_THREAD:
+        found = {}
+        for k in range(1, tiled_dp.MAX_LANES_K + 1):
+            regs, stores, loads = kernel_usage(usage, TILED_HS.format(k=k, q=q))
+            if stores or loads:
+                raise AssertionError(f"build: K6 at {q} lanes a thread, k={k} spills "
+                                     f"{stores}/{loads} B")
+            found[f"K{k}"] = f"{regs}regs/{stores}B-spill-stores/{loads}B-spill-loads"
+        say("registers", kernel="walk_kernel", file="tiled_dp", source="hs",
+            lanes_per_thread=q, **found)
 
 
 def kernel_usage(usage, pattern) -> tuple[int, int, int]:
@@ -529,7 +552,7 @@ def phase_cluster_occupancy():
                 for lanes in (320, 1024):
                     g = tiled_dp.tiled_geometry(lanes * R, k, source, ctas=R, tier=tier)
                     code = 1 if source == "hs" else 2 if tier == "mma" else 0
-                    kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, code)
+                    kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, code, g.Q)
                     if kernel_smem != g.smem_bytes:
                         raise AssertionError(f"tiled smem {g} k={k} {source} {tier}: kernel "
                                              f"{kernel_smem} B")
@@ -542,6 +565,18 @@ def phase_cluster_occupancy():
             say("clusters", kernel="walk_kernel", k=k, score_source=source,
                 tier=tier or "none", checkpointed=ckpt, T=tiled_dp.MAX_STEPS,
                 R_m_W_smem_carries_active_clusters=",".join(rows))
+    for k in range(1, tiled_dp.MAX_LANES_K + 1):  # Q lanes a thread, at dhc1's widest rows
+        rows = []
+        for g in tiled_dp.lanes_candidates(4736, k, tiled_dp.sm_shared_memory()):
+            kernel_smem = lib.praline_tiled_dp_smem(g.W, g.T, g.m, k, 1, g.Q)
+            if kernel_smem != g.smem_bytes:
+                raise AssertionError(f"tiled smem {g} k={k}: kernel {kernel_smem} B")
+            clusters = tiled_dp.max_active_clusters(k, "hs", g)
+            if clusters < 1:
+                raise AssertionError(f"no cluster of {g} fits at k={k}")
+            rows.append(f"Q{g.Q}:R{g.R}:W{g.W}:T{g.T}:{g.smem_bytes}B:{clusters}")
+        say("clusters", kernel="walk_kernel", k=k, score_source="hs", Lp=4736,
+            Q_R_W_T_smem_active_clusters=",".join(rows))
 
 
 def same_outputs(got, want, what) -> float:
@@ -1565,7 +1600,8 @@ def phase_tiled_vs_plain(dev) -> float:
     the plain DP over the plain scores (``kernels/scan.py::wavefront_dp``,
     the kernel's contract and the tiled plain version's result, bit for
     bit): one step a diagonal, where the tiled plain version takes one a
-    diagonal a tile."""
+    diagonal a tile.  Then Q lanes a thread at k 1-3 in every mode
+    (:func:`tiled_lanes_vs_plain`)."""
     import numpy as np
 
     from praline_tpu_torch import builtin_score_matrix
@@ -1616,6 +1652,58 @@ def phase_tiled_vs_plain(dev) -> float:
         carries=",".join(sorted(carries)), traceback="both",
         result="bit-equal(all outputs, all tb bytes; NaN-poisoned)",
         seconds=round(time.perf_counter() - t0, 3))
+    return max(err, tiled_lanes_vs_plain(dev, s))
+
+
+# A scores chunk over hs whose rows take Q lanes a thread past one wave of
+# one-lane clusters: Lp 4301 (15 CTAs of 288 lanes at one lane), ly 500.
+TILED_LANES_SHAPE = (4300, 500)
+
+
+def tiled_lanes_vs_plain(dev, s) -> float:
+    """The tiled kernel at Q lanes a thread against the plain DP: for each
+    of TILED_SERIES' one-, two- and three-level series, the fewest problems
+    of TILED_LANES_SHAPE (ragged lengths) past one wave of one-lane clusters
+    that the chooser gives Q > 1, in every mode, scores into NaN-poisoned
+    outputs, one launch counted and its problems under
+    ``tiled.problems:q{Q}``."""
+    import numpy as np
+
+    from praline_tpu_torch import METRICS
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+    from praline_tpu_torch.kernels.scores import skewed_pair_scores as plain_scores
+
+    rng = np.random.default_rng(SEED + 7)
+    bx, by = TILED_LANES_SHAPE
+    Lp, D = bx + 1, bx + by + 1
+    err, t0, rows = 0.0, time.perf_counter(), []
+    for series in sorted(TILED_SERIES[:3], key=len):
+        k = len(series)
+        n = tiled_dp.max_active_clusters(k, "hs", tiled_dp.tiled_geometry(Lp, k))
+        B = next((b for b in range(n + 1, 4 * n + 1)
+                  if tiled_dp.tiled_geometry(Lp, k, problems=b, diagonals=D).Q > 1), None)
+        if B is None:
+            raise AssertionError(f"tiled lanes: no chunk of {n + 1} to {4 * n} problems of "
+                                 f"Lp {Lp} takes Q > 1 at k={k}")
+        ops = stacked_operands(rng, dev, s, B, bx, by, 1)
+        hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
+        g = tiled_dp.tiled_geometry(Lp, k, problems=B, diagonals=D)
+        key = f"tiled.problems:q{g.Q}"
+        for mode in MODES:
+            want = plain_dp(plain_scores(*ops[:5]), ops[5], ops[6], series, mode)
+            before = METRICS.counters.get(key, 0)
+            err = max(err, tiled_vs_plain(hs, ops[5], ops[6], series, mode, want,
+                                          f"hs {mode} {series} B{B}x{bx}x{by} Q{g.Q} R{g.R} "
+                                          f"W{g.W} T{g.T}"))
+            if METRICS.counters.get(key, 0) != before + B:
+                raise AssertionError(f"tiled lanes: {key} did not count {B} problems")
+        rows.append(f"k{k}:B{B}:one-lane-clusters{n}:Q{g.Q}:R{g.R}:W{g.W}:T{g.T}")
+        del hs, ops
+    say("tiled=plain", shape=f"Bx{bx}x{by}", lanes=Lp, modes=",".join(MODES), source="hs",
+        lanes_per_thread="|".join(rows), traceback=False,
+        result="bit-equal(all outputs; NaN-poisoned)", seconds=round(time.perf_counter() - t0, 3))
     return err
 
 
@@ -1669,7 +1757,7 @@ def phase_tiled_long(dev, usage) -> dict:
                    "geometry": {"R": gr.R, "m": gr.m, "W": gr.W, "T": gr.T,
                                 "smem_bytes": gr.smem_bytes}}
     g = tiled_geometry(bx + 1, 2)
-    regs, spill_st, spill_ld = kernel_usage(usage, TILED_HS.format(k=2))
+    regs, spill_st, spill_ld = kernel_usage(usage, TILED_HS.format(k=2, q=1))
     out["geometry"] = {"R": g.R, "m": g.m, "W": g.W, "T": g.T, "smem_bytes": g.smem_bytes,
                        "registers": regs, "spill_stores": spill_st, "spill_loads": spill_ld}
     out["variants"] = others
@@ -4209,6 +4297,68 @@ def phase_tiled_ordinary_times(dev) -> dict:
     return out
 
 
+# dhc1.msa64's all-pairs chunks over one hs (benchmark/configs/
+# praline-dhc1.json: 4092-4646 aa, buckets in steps of 128): B problems of
+# bucket 4735 (Lp 4736) x 4607, lengths from 4100, global scores at the
+# cell's (11, 1), and at B21 one level and three.
+LANES_SHAPES = ((21, 4735, 4607, 4100, (11, 1)), (32, 4735, 4607, 4100, (11, 1)),
+                (21, 4735, 4607, 4100, (5,)), (21, 4735, 4607, 4100, (13, 7, 1)))
+
+
+def phase_lanes_times(dev) -> dict:
+    """``lanes-times``: K6 over hs at LANES_SHAPES, by CUDA events, the mean
+    of 5 after a warm-up: at the one-lane geometry (``q1``) and at the
+    tree's default (the chunk's choice, where the tree has the Q-lane
+    geometry: then also the model's time of the choice over q1's,
+    :func:`tiled_dp.chunk_time`), each first into NaN-poisoned outputs held
+    bit for bit to the plain DP (``kernels/scan.py::wavefront_dp``, once a
+    shape) with one launch counted."""
+    import numpy as np
+
+    from praline_tpu_torch import builtin_score_matrix
+    from praline_tpu_torch.convert import matrix_to_torch
+    from praline_tpu_torch.kernels import tiled_dp
+    from praline_tpu_torch.kernels.fused_scores import fused_skewed_scores
+    from praline_tpu_torch.kernels.scan import wavefront_dp as plain_dp
+
+    lanes = hasattr(tiled_dp, "lanes_geometry")
+    s = matrix_to_torch(builtin_score_matrix("blosum62"), dev)
+    out = {}
+    for B, bx, by, lo, series in LANES_SHAPES:
+        t0 = time.perf_counter()
+        ops = stacked_operands(np.random.default_rng(SEED + 40 + B), dev, s, B, bx, by, lo)
+        hs = fused_skewed_scores(*ops[:5], tier=producer_tier(ops))
+        lx, ly = ops[5], ops[6]
+        k, D, Lp = len(series), bx + by + 1, bx + 1
+        g1 = tiled_dp.tiled_geometry(Lp, k)
+        q1 = dict(ctas=g1.R, tile_lanes=g1.W)
+        what = f"lanes-times B{B}x{bx}x{by} k={k}"
+        want = plain_dp(hs, lx, ly, series, "global")
+        tiled_vs_plain(hs, lx, ly, series, "global", want, f"{what} q1", **q1)
+        tiled_vs_plain(hs, lx, ly, series, "global", want, f"{what} default")
+
+        def run(**geometry):
+            return tiled_dp.wavefront_dp_tiled(hs, lx, ly, series, "global", **geometry)
+
+        row = {"q1": f"R{g1.R}:W{g1.W}:T{g1.T}", "q1_clusters":
+               tiled_dp.max_active_clusters(k, "hs", g1),
+               "q1_ms": cuda_ms(lambda: run(**q1), 5), "default_ms": cuda_ms(run, 5)}
+        if lanes:
+            g = tiled_dp.tiled_geometry(Lp, k, problems=B, diagonals=D)
+            row["chosen"] = f"Q{g.Q}:R{g.R}:W{g.W}:T{g.T}"
+            row["chosen_clusters"] = tiled_dp.max_active_clusters(k, "hs", g)
+            row["model_over_q1"] = (tiled_dp.chunk_time(g, k, B, D)
+                                    / tiled_dp.chunk_time(g1, k, B, D))
+            row["measured_over_q1"] = row["default_ms"] / row["q1_ms"]
+        say("lanes-times", shape=f"B{B}x{bx}x{by}", lo=lo, k=k, mode="global", scores=True,
+            plain="bit-equal(q1, default; NaN-poisoned)",
+            seconds=round(time.perf_counter() - t0, 3),
+            **{key: round(v, 4) if isinstance(v, float) else v for key, v in row.items()})
+        out[f"B{B}x{bx}x{by}:k{k}"] = row
+        del hs, want
+    return out
+
+
 # The box depths timed on the "mma" tier at the titin and DNA pairs' rows
 # (their carries go to the L2 scratch at either).
 LONG_TIMES_STEPS = (32, 16)
@@ -4491,13 +4641,14 @@ def phase_walk_times(dev) -> dict:
 
 def tree_only(argv) -> int:
     """``dp-times [DIR]``, ``tiled-times [DIR]``, ``long-times [DIR]``,
-    ``producer-times [DIR]`` or ``walk-times [DIR]``: the build and the
-    [dp-times] phase (K2 and K6 over hs), K6's ordinary launches
-    (phase_tiled_ordinary_times), K6's in-place launches and the long routes
-    end to end (phase_long_times), the producer's and fused kernel's tiers
-    with ``[homology]`` and the ``preprofile`` bench (phase_producer_times)
-    or the merge's walk and compose kernels and stages (phase_walk_times)
-    alone, on the package of the
+    ``producer-times [DIR]``, ``walk-times [DIR]`` or ``lanes-times [DIR]``:
+    the build and the [dp-times] phase (K2 and K6 over hs), K6's ordinary
+    launches (phase_tiled_ordinary_times), K6's in-place launches and the
+    long routes end to end (phase_long_times), the producer's and fused
+    kernel's tiers with ``[homology]`` and the ``preprofile`` bench
+    (phase_producer_times), the merge's walk and compose kernels and stages
+    (phase_walk_times) or K6 on dhc1's all-pairs chunks
+    (phase_lanes_times) alone, on the package of the
     tree at DIR (this checkout by default), so that the parent's kernels are
     timed at this tree's shapes in the same call."""
     global ROOT
@@ -4514,7 +4665,7 @@ def tree_only(argv) -> int:
     say("build", root=str(ROOT), seconds=round(time.perf_counter() - t0, 3))
     times = {"dp-times": phase_dp_times, "tiled-times": phase_tiled_ordinary_times,
              "long-times": phase_long_times, "producer-times": phase_producer_times,
-             "walk-times": phase_walk_times}[argv[0]](dev)
+             "walk-times": phase_walk_times, "lanes-times": phase_lanes_times}[argv[0]](dev)
     say(f"{argv[0]}-tree", root=str(ROOT), json=json.dumps(times))
     print(smi)
     return 0
@@ -4561,7 +4712,7 @@ def main() -> int:
     if sys.argv[1:2] == ["dist"]:
         return dist_only()
     if sys.argv[1:2] in (["dp-times"], ["tiled-times"], ["long-times"], ["producer-times"],
-                         ["walk-times"]):
+                         ["walk-times"], ["lanes-times"]):
         return tree_only(sys.argv[1:])
     if sys.argv[1:2] == ["long-routes"]:
         return long_only(sys.argv[1:])
@@ -4582,6 +4733,7 @@ def main() -> int:
     tiled_err = phase_tiled_vs_plain(dev)
     tiled_long = phase_tiled_long(dev, usage)
     tiled_times = phase_tiled_times(dev)
+    phase_lanes_times(dev)
     dp_check = phase_dp_vs_plain(dev)
     dp_times = phase_dp_times(dev)
     phase_goldens(dev)

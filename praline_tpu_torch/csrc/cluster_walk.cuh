@@ -5,16 +5,17 @@
 // rows of any length).  The recurrence is csrc/wavefront.cuh's; this file
 // orders its steps.
 //
-// The Lp lanes are cut into tiles of W lanes (one lane a thread, W =
-// blockDim.x); CTA rank r of the R in a cluster owns the m tiles r m ..
-// r m + m - 1.  The diagonals 2 .. dend are walked in boxes of T: in phase
-// p, rank r runs box p - r over its tiles with a lane to compute, left to
-// right, and one cluster barrier closes each phase, so rank r runs box k
-// right after rank r - 1 ran it.  A problem thus takes (boxes + R - 1) m T
-// steps in sequence.  The left neighbour of a tile's first lane at step s
-// of a box is the previous tile's last lane before its own step s:
+// The Lp lanes are cut into tiles of W lanes, Q consecutive lanes a thread
+// (W = Q blockDim.x; thread t owns lanes t Q .. t Q + Q - 1 of its tile);
+// CTA rank r of the R in a cluster owns the m tiles r m .. r m + m - 1.
+// The diagonals 2 .. dend are walked in boxes of T: in phase p, rank r runs
+// box p - r over its tiles with a lane to compute, left to right, and one
+// cluster barrier closes each phase, so rank r runs box k right after rank
+// r - 1 ran it.  A problem thus takes (boxes + R - 1) m T steps in
+// sequence.  The left neighbour of a tile's first lane at step s of a box
+// is the previous tile's last lane before its own step s:
 //   - inside a CTA, the previous tile wrote it into the edge buffer
-//     edge[s] earlier in the same box (thread W - 1 after the step's
+//     edge[s] earlier in the same box (the last thread after the step's
 //     barrier; thread 0 of the next tile reads it before its own, and a
 //     barrier closes every visit);
 //   - across CTAs, rank r - 1's last tile wrote it into rank r's ring, in
@@ -23,8 +24,13 @@
 //     barrier a phase orders every write before its read and every read
 //     before the next write to the same half.
 // Inside a tile lanes cross warps by shuffles and a double-buffered slot a
-// warp (xbuf).  One tile's carries live in registers; with m > 1 (TILES) a
-// visit loads the tile's carries from a CarryStore and stores them back.  Borders use the global lane index.
+// warp (xbuf), each thread's last lane exporting and its first lane taking
+// its left neighbour; a step runs a thread's lanes from Q - 1 down to 0, so
+// each reads its left neighbour's diagonal d - 1 values before they are
+// overwritten (csrc/wavefront.cuh's step, untouched: every cell runs the
+// same operations on the same inputs at any Q).  One tile's carries live in
+// registers; with m > 1 (TILES) a visit loads the tile's carries from a
+// CarryStore and stores them back.  Borders use the global lane index.
 // Scores mode stops at diagonal dend = lx + ly and skips tiles past lx,
 // so high ranks may have nothing to do but the barriers.  Semiglobal and
 // local terminals: each thread keeps its best candidate over its lanes,
@@ -96,9 +102,9 @@ struct WalkShape {
   int R, m, W, T;
 };
 
-// Shared memory of the walk: xbuf[2][W / 32][NX], ring[2][T][NX] (written
-// by rank r - 1), edge[T][NX] (TILES only), red[W / 32 + 1] (the last
-// slot is the CTA's best candidate, read by rank 0).
+// Shared memory of the walk: xbuf[2][warps][NX], ring[2][T][NX] (written
+// by rank r - 1), edge[T][NX] (TILES only), red[warps + 1] (the last slot
+// is the CTA's best candidate, read by rank 0); warps = W / Q / 32.
 struct WalkSmem {
   float* xbuf;
   float* ring;
@@ -106,9 +112,10 @@ struct WalkSmem {
   Cand* red;
 };
 
-// Byte offsets of a walking CTA's dynamic shared memory: the walk's
-// cross-warp exchange xbuf[2][W / 32][NX], ring[2][T][NX] and tile edge
-// edge[T][NX], the candidates red[W / 32 + 1]; the score source's src_bytes
+// Byte offsets of a walking CTA's dynamic shared memory (W lanes, Q a
+// thread, so W / Q / 32 warps): the walk's cross-warp exchange
+// xbuf[2][warps][NX], ring[2][T][NX] and tile edge edge[T][NX], the
+// candidates red[warps + 1]; the score source's src_bytes
 // (Src::smem: on the hs source the double-buffered scores hbuf[2][T][W],
 // csrc/hs_visits.cuh; on the tensor cores the box and its operands,
 // csrc/rows_box.cuh); with m > 1 the carries carry[NS][m W] where the whole
@@ -116,9 +123,9 @@ struct WalkSmem {
 // device-memory scratch).  kernels/tiled_dp.py::smem_layout mirrors it.
 struct WalkLayout {
   int xbuf, ring, edge, red, src, carry, total;
-  __host__ __device__ WalkLayout(int W, int T, int m, int nx, int ns, int src_bytes,
-                                 int budget) {
-    const int nw = W / 32;
+  __host__ __device__ WalkLayout(int W, int T, int m, int nx, int ns, int src_bytes, int budget,
+                                 int Q = 1) {
+    const int nw = W / Q / 32;
     xbuf = 0;
     ring = xbuf + round16(2 * nw * nx * 4);
     edge = ring + round16(2 * T * nx * 4);
@@ -196,7 +203,9 @@ __device__ __forceinline__ Cand read_candidate(const float* c, int b, int B) {
 // their lengths and the stay bits); so a tile's carries may stay at their
 // d = 1 values until its first visit in the band, and values past j = ly
 // flow only to larger j.  Traceback mode walks every lane of every box.
-template <int K, bool TILES, bool BAND = false, bool CKPT = false, bool RING = false,
+// Q > 1 (csrc/tiled_dp.cu's scores launches over hs) takes neither the
+// checkpoints nor the ring, and one tile a CTA (walk_geometry_ok).
+template <int K, bool TILES, bool BAND = false, bool CKPT = false, bool RING = false, int Q = 1,
           class Visits>
 __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const WalkSmem& sm,
                                              const WalkShape& w, const Problem& p,
@@ -204,10 +213,12 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
                                              int lane_end, const CarryStore& store,
                                              Visits& visits, const Snapshots ck = Snapshots(),
                                              const RingLaunch rl = RingLaunch()) {
-  using C = Carries<K, 1>;
+  static_assert(Q == 1 || !(CKPT || RING), "Q lanes a thread: neither checkpoints nor the ring");
+  using C = Carries<K, Q>;
   constexpr int NX = C::NX;
   const int W = w.W, T = w.T, R = w.R, m = TILES ? w.m : 1;
-  const int t = threadIdx.x, nw = W >> 5, warp = t >> 5, wl = t & 31;
+  const int NT = W / Q;  // threads
+  const int t = threadIdx.x, nw = NT >> 5, warp = t >> 5, wl = t & 31;
   const int r = (int)cluster.block_rank();
   const int tile0 = r * m;
   // tiles of this CTA with a lane to compute (uniform over the CTA)
@@ -220,9 +231,9 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
   // lane carries of snapshot q (this problem's rows)
   auto snap_at = [&](int q) { return ck.snap + ((size_t)q * p.B + p.b) * C::NS * p.Lp; };
   // a ring lane's carries at the chunk's entry (past the rank's lanes: d = 1's)
-  auto ring_load = [&](C& c, int li, int i) {
-    if (li < p.Lp) c.load(0, rl.carry_in + (size_t)p.b * C::NS * p.Lp, p.Lp, li);
-    else c.init(0, i, p.mode, gaps.g[0]);
+  auto ring_load = [&](C& c, int q, int li, int i) {
+    if (li < p.Lp) c.load(q, rl.carry_in + (size_t)p.b * C::NS * p.Lp, p.Lp, li);
+    else c.init(q, i, p.mode, gaps.g[0]);
   };
   const bool band = BAND && !p.traceback;
   float* next_ring = r + 1 < R ? cluster.map_shared_rank(sm.ring, r + 1) : nullptr;
@@ -261,10 +272,13 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
 
   C c;
   if (!TILES || m == 1) {
-    const int li = tile0 * W + t, i = li + gbase;
-    if (RING) ring_load(c, li, i);
-    else if (resume && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
-    else c.init(0, i, p.mode, gaps.g[0]);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int li = tile0 * W + t * Q + q, i = li + gbase;
+      if (RING) ring_load(c, q, li, i);
+      else if (resume && i < p.Lp) c.load(q, snap_at(ck.resume), p.Lp, i);
+      else c.init(q, i, p.mode, gaps.g[0]);
+    }
   }
   // the ring's diagonal-1 candidates are in the rank's buffer already
   Cand best = first_candidate<K>(p.mode, !RING && tile0 == 0 && t == 0, p.lx, p.ly);
@@ -279,27 +293,31 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
       const int d0 = dbase + k * T, d1 = min(d0 + T - 1, dend);
       Border<K> border = box_border;
       for (int jj = 0; jj < tiles; ++jj) {
-        // storage lane li, global lane i
-        const int i0 = (tile0 + jj) * W, li = i0 + t, i = li + gbase;
+        // this thread's first storage lane li, global lane i (lane q: li + q, i + q)
+        const int i0 = (tile0 + jj) * W, li = i0 + t * Q, i = li + gbase;
         border = box_border;
-        const int ci = store.global ? li : jj * W + t;
+        const int ci = store.global ? li : jj * W + t * Q;
         int first, last;
         const bool runs = steps_of(k, jj, first, last);
         float* right = jj + 1 < tiles ? sm.edge
                        : (jj == m - 1 && next_ring ? next_ring + (k & 1) * T * NX : nullptr);
-        if (TILES && m > 1 && (runs || t == W - 1)) {
-          // a tile's first visit in the band starts from its d = 1 carries
-          if (RING && k == kfirst) ring_load(c, li, i);
-          else if (resume && k == kfirst && i < p.Lp) c.load(0, snap_at(ck.resume), p.Lp, i);
-          else if (k == kfirst || (band && d0 <= i0) || (store.global && li >= p.Lp))
-            c.init(0, i, p.mode, gaps.g[0]);
-          else c.load(0, store.base, store.stride, ci);
+        if (TILES && m > 1 && (runs || t == NT - 1)) {
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            // a tile's first visit in the band starts from its d = 1 carries
+            if (RING && k == kfirst) ring_load(c, q, li + q, i + q);
+            else if (resume && k == kfirst && i + q < p.Lp)
+              c.load(q, snap_at(ck.resume), p.Lp, i + q);
+            else if (k == kfirst || (band && d0 <= i0) || (store.global && li + q >= p.Lp))
+              c.init(q, i + q, p.mode, gaps.g[0]);
+            else c.load(q, store.base, store.stride, ci + q);
+          }
         }
         // the forward launch: this lane's carries at the entry of a block
         if (CKPT && ck.snap && !resume && k % ck.every == 0 && i < p.Lp)
           c.store(0, snap_at(k / ck.every), p.Lp, i);
         if (!runs) {  // BAND only: the next tile's left neighbour at d0
-          if (t == W - 1 && right) c.export_x(0, right);
+          if (t == NT - 1 && right) c.export_x(Q - 1, right);
           if (jj + 1 < tiles) __syncthreads();  // the next visit reads edge[0]
           continue;
         }
@@ -322,9 +340,9 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
           border.next(gaps, d);
           if (d < first) continue;  // uniform over the CTA
           const int s = d - d0, buf = d & 1;
-          float sh[NX];
-          c.shfl_in(0, sh);
-          if (wl == 31) c.export_x(0, sm.xbuf + (buf * nw + warp) * NX);
+          float sh[NX];  // the left neighbour of the thread's lane 0
+          c.shfl_in(Q - 1, sh);
+          if (wl == 31) c.export_x(Q - 1, sm.xbuf + (buf * nw + warp) * NX);
           if (t == 0 && left) {
 #pragma unroll
             for (int v = 0; v < NX; ++v) sh[v] = left[s * NX + v];
@@ -334,8 +352,8 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
             for (int v = 0; v < NX; ++v) sh[v] = head[((size_t)s * NX + v) * p.B];
           }
           __syncthreads();
-          // this lane's values before step s, for the next tile's first lane
-          if (t == W - 1 && right) c.export_x(0, right + s * NX);
+          // the tile's last lane before step s, for the next tile's first lane
+          if (t == NT - 1 && right) c.export_x(Q - 1, right + s * NX);
           if (wl == 0 && warp > 0) {
             const float* x = sm.xbuf + (buf * nw + warp - 1) * NX;
 #pragma unroll
@@ -349,12 +367,20 @@ __device__ __forceinline__ void cluster_walk(cg::cluster_group& cluster, const W
 #pragma unroll
             for (int v = 0; v < NX; ++v) tail[(size_t)v * p.B] = x[v];
           }
+#pragma unroll
+          for (int q = Q - 1; q > 0; --q) {  // lane q's left neighbour: lane q - 1 at d - 1
+            float x[NX];
+            c.export_x(q - 1, x);
+            if (li + q <= lane_end) c.step(q, i + q, d, x, border.cum, score, gaps, p, out, best);
+          }
           if (li <= lane_end) c.step(0, i, d, sh, border.cum, score, gaps, p, out, best);
         }
         // the loop above stepped diagonals first .. last
         if (out.slots && t == 0) atomicAdd(out.slots, (unsigned long long)(last - first + 1) * W);
-        if (TILES && m > 1 && (!store.global || li < p.Lp))
-          c.store(0, store.base, store.stride, ci);
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          if (TILES && m > 1 && (!store.global || li + q < p.Lp))
+            c.store(q, store.base, store.stride, ci + q);
         if (RING && k == nbox - 1 && li < p.Lp)  // the carries at the chunk's last diagonal
           c.store(0, rl.carry_out + (size_t)p.b * C::NS * p.Lp, p.Lp, li);
         if (jj + 1 < tiles) __syncthreads();  // the next visit reuses edge and xbuf
@@ -425,32 +451,36 @@ struct WalkArgs {
 __host__ __device__ constexpr int hs_smem(int W, int T) { return 2 * T * W * 4; }
 
 // The shared-memory layout of a walk at k levels whose score source takes
-// src_bytes (Src::smem).
+// src_bytes (Src::smem), Q lanes a thread.
 __host__ __device__ inline WalkLayout walk_layout(int k, int src_bytes, int W, int m, int T,
-                                                  int budget) {
+                                                  int budget, int Q = 1) {
   const int kc = k == 2 ? 1 : k;
-  return WalkLayout(W, T, m, 6 + 2 * kc, 10 + 4 * kc, src_bytes, budget);
+  return WalkLayout(W, T, m, 6 + 2 * kc, 10 + 4 * kc, src_bytes, budget, Q);
 }
 
 // Whether walk_kernel takes this geometry for rows of Lp lanes in tiles of
-// at most max_w lanes, on a source of Src::smem(W, T) = src_bytes.
+// W lanes, Q a thread (then one tile a CTA), at most max_w threads, on a
+// source of Src::smem(W, T) = src_bytes.
 inline bool walk_geometry_ok(int k, int Lp, int W, int max_w, int R, int m, int T,
-                             int src_bytes) {
-  return k >= 1 && k <= MAXK && W >= 32 && W <= max_w && W % 32 == 0 && R >= 1 &&
-         R <= WALK_MAX_R && m >= 1 && (long long)R * m * W >= Lp && T >= 1 &&
-         T <= WALK_MAX_T && walk_layout(k, src_bytes, W, m, T, 0).total <= WALK_MAX_SMEM;
+                             int src_bytes, int Q = 1) {
+  return k >= 1 && k <= MAXK && Q >= 1 && W >= 32 * Q && W <= max_w * Q && W % (32 * Q) == 0 &&
+         R >= 1 && R <= WALK_MAX_R && m >= 1 && (Q == 1 || m == 1) &&
+         (long long)R * m * W >= Lp && T >= 1 &&
+         T <= WALK_MAX_T && walk_layout(k, src_bytes, W, m, T, 0, Q).total <= WALK_MAX_SMEM;
 }
 
 // The checks and fields of a launch common to every walk; false for
-// arguments the kernel does not take.  src_bytes: the source's Src::smem.
+// arguments the kernel does not take.  src_bytes: the source's Src::smem;
+// Q lanes a thread.
 inline bool walk_args(WalkArgs* a, int src_bytes, int max_w, int budget, const int* lx,
                       const int* ly, const float* gaps_host, int k, int mode, int traceback,
                       int D, int B, int Lp, int W, int R, int m, int T, float* carry,
-                      const Outs& out, void* stream) {
+                      const Outs& out, void* stream, int Q = 1) {
   if (mode < 0 || mode > 2 || B < 1 || Lp < 2 || D < Lp + 1 ||
-      (long long)B * R > 0x7fffffffLL || !walk_geometry_ok(k, Lp, W, max_w, R, m, T, src_bytes))
+      (long long)B * R > 0x7fffffffLL ||
+      !walk_geometry_ok(k, Lp, W, max_w, R, m, T, src_bytes, Q))
     return false;
-  if (m > 1 && walk_layout(k, src_bytes, W, m, T, budget).carry < 0 && carry == nullptr)
+  if (m > 1 && walk_layout(k, src_bytes, W, m, T, budget, Q).carry < 0 && carry == nullptr)
     return false;  // the carries need the device-memory scratch
   for (int l = 0; l < k; ++l) a->gaps.g[l] = gaps_host[l];
   a->lx = lx;
@@ -489,6 +519,15 @@ inline bool walk_snapshots(WalkArgs* a, float* snap, int interval, int block, fl
   return true;
 }
 
+// The visits of problem b on Src: src.visits, or with Q > 1 lanes a thread
+// src.visits<Q> (the hs source's alone).
+template <int Q, class Src>
+__device__ __forceinline__ auto source_visits(const Src& src, const WalkArgs& a, int b, int dend,
+                                              float* buf) {
+  if constexpr (Q == 1) return src.visits(a, b, dend, buf);
+  else return src.template visits<Q>(a, b, dend, buf);
+}
+
 // One problem a cluster, its scores from Src: Src::smem(W, T) bytes of
 // shared memory at L.src for the source, src.takes(b) whether this launch
 // runs problem b (else every CTA of its cluster leaves at once),
@@ -496,17 +535,18 @@ inline bool walk_snapshots(WalkArgs* a, float* snap, int interval, int block, fl
 // with BAND) builds the checkpointed launches in, RING (with neither) the
 // ring's launch (src.ring, a RingLaunch; a.Lp the rank's lanes, a.out.tb
 // its uint8[rows, B, Lp] bytes); without them none of their code is there,
-// so the ordinary launches run the walk as it was.
-template <class Src, int K, bool BAND, bool CKPT, bool RING = false>
+// so the ordinary launches run the walk as it was.  Q: lanes a thread (a.W /
+// Q threads a CTA); Q > 1 takes a source with src.visits<Q>.
+template <class Src, int K, bool BAND, bool CKPT, bool RING = false, int Q = 1>
 __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) {
   static_assert(!(BAND && CKPT), "the band and the checkpoints exclude each other");
   static_assert(!(RING && (BAND || CKPT)), "the ring's launch takes neither");
-  using C = Carries<K, 1>;
+  using C = Carries<K, Q>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / a.R;
   if (!src.takes(b)) return;  // uniform over the cluster
   cg::cluster_group cluster = cg::this_cluster();
-  const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::smem(a.W, a.T), a.budget);
+  const WalkLayout L(a.W, a.T, a.m, C::NX, C::NS, Src::smem(a.W, a.T), a.budget, Q);
   const int lx = a.lx[b], ly = a.ly[b], Lp = a.Lp;
   Problem p = {b, lx, ly, a.mode, a.traceback, a.B, Lp};
   Outs out = a.out;
@@ -553,16 +593,17 @@ __device__ __forceinline__ void walk_problem(const WalkArgs& a, const Src& src) 
                        reinterpret_cast<float*>(smem + L.ring),
                        reinterpret_cast<float*>(smem + L.edge),
                        reinterpret_cast<Cand*>(smem + L.red)};
-  auto visits = src.visits(a, b, dend, reinterpret_cast<float*>(smem + L.src));
-  cluster_walk<K, true, BAND, CKPT, RING>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p,
-                                          a.gaps, out, dend, lane_end, store, visits, ck, rl);
+  auto visits = source_visits<Q>(src, a, b, dend, reinterpret_cast<float*>(smem + L.src));
+  cluster_walk<K, true, BAND, CKPT, RING, Q>(cluster, sm, WalkShape{a.R, a.m, a.W, a.T}, p,
+                                             a.gaps, out, dend, lane_end, store, visits, ck, rl);
 }
 
 // walk_problem as a kernel, built for CTAs of at most MAXW threads, at
-// least MINB of them an SM (the launch bound).
-template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false, bool RING = false>
+// least MINB of them an SM (the launch bound), Q lanes a thread.
+template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false, bool RING = false,
+          int Q = 1>
 __global__ void __launch_bounds__(MAXW, MINB) walk_kernel(WalkArgs a, Src src) {
-  walk_problem<Src, K, BAND, CKPT, RING>(a, src);
+  walk_problem<Src, K, BAND, CKPT, RING, Q>(a, src);
 }
 
 // The same for a source that its functor reads in place from the kernel's
@@ -576,14 +617,15 @@ __global__ void __launch_bounds__(MAXW, MINB)
 
 // Launches walk_kernel, or walk_kernel_params with PARAMS (or, with
 // clusters != nullptr, asks how many clusters of this shape fit on the
-// card at once: cudaOccupancyMaxActiveClusters).
+// card at once: cudaOccupancyMaxActiveClusters); Q lanes a thread.
 template <class Src, int K, bool BAND, int MAXW, int MINB, bool CKPT = false,
-          bool PARAMS = false, bool RING = false>
+          bool PARAMS = false, bool RING = false, int Q = 1>
 int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
-  const int smem = walk_layout(K, Src::smem(a.W, a.T), a.W, a.m, a.T, a.budget).total;
+  static_assert(Q == 1 || !PARAMS, "walk_kernel_params walks one lane a thread");
+  const int smem = walk_layout(K, Src::smem(a.W, a.T), a.W, a.m, a.T, a.budget, Q).total;
   auto kern = [] {
     if constexpr (PARAMS) return walk_kernel_params<Src, K, BAND, MAXW, MINB, CKPT>;
-    else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT, RING>;
+    else return walk_kernel<Src, K, BAND, MAXW, MINB, CKPT, RING, Q>;
   }();
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -592,7 +634,7 @@ int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.B * a.R);
-  cfg.blockDim = dim3(a.W);
+  cfg.blockDim = dim3(a.W / Q);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
@@ -608,11 +650,12 @@ int launch_walk(const WalkArgs& a, const Src& src, int* clusters) {
   return (int)cudaGetLastError();
 }
 
-// f(std::integral_constant<int, k>()) for the level count 1 <= k <= MAXK.
-template <int K = 1, class F>
+// f(std::integral_constant<int, k>()) for the level count 1 <= k <= TOP
+// (a larger k takes TOP: the caller has checked it).
+template <int K = 1, int TOP = MAXK, class F>
 int with_levels(int k, const F& f) {
-  if constexpr (K < MAXK) {
-    if (k != K) return with_levels<K + 1>(k, f);
+  if constexpr (K < TOP) {
+    if (k != K) return with_levels<K + 1, TOP>(k, f);
   }
   return f(std::integral_constant<int, K>());
 }

@@ -4,7 +4,8 @@
 // (csrc/cluster_walk.cuh) calls prepare() for each visit it runs, and each
 // thread copies its own lane's scores of the next visit into shared memory
 // by cp.async while the DP steps through the current one, so a step reads
-// its score from shared memory and no step waits on device memory.
+// its score from shared memory and no step waits on device memory (with Q
+// lanes a thread, each thread copies its Q lanes).
 // HsSource is the source walk_kernel (csrc/cluster_walk.cuh) takes.
 
 #pragma once
@@ -24,21 +25,26 @@ struct HsBox {
   }
 };
 
-// Double-buffered boxes hbuf[2][T][W] (one thread a lane).
+// Double-buffered boxes hbuf[2][T][W] (Q lanes a thread: thread t's are
+// t Q .. t Q + Q - 1).
+template <int Q = 1>
 struct HsVisits {
   const float* hs;
   float* hbuf;
   int B, Lp, b, W, T, dend, slot;
   bool started;
 
-  // This thread's lane of the visit (d0, i0) into half s of hbuf.
+  // This thread's lanes of the visit (d0, i0) into half s of hbuf.
   __device__ __forceinline__ void fetch(int s, int d0, int i0) const {
-    const int i = i0 + threadIdx.x;
-    float* dst = hbuf + s * T * W + threadIdx.x;
+    const int i = i0 + threadIdx.x * Q;
+    float* dst = hbuf + s * T * W + threadIdx.x * Q;
     for (int q = 0; q < T; ++q) {
       const int d = d0 + q;
-      const bool ok = d <= dend && i < Lp;
-      copy_async<4>(dst + q * W, ok ? hs + ((size_t)d * B + b) * Lp + i : hs, ok);
+#pragma unroll
+      for (int l = 0; l < Q; ++l) {
+        const bool ok = d <= dend && i + l < Lp;
+        copy_async<4>(dst + q * W + l, ok ? hs + ((size_t)d * B + b) * Lp + i + l : hs, ok);
+      }
     }
     copy_commit();
   }
@@ -58,18 +64,19 @@ struct HsVisits {
     }
     const HsBox box{hbuf + slot * T * W, W, d0, i0};
     slot ^= 1;
-    return box;  // each thread reads only the lane it copied: no barrier
+    return box;  // each thread reads only the lanes it copied: no barrier
   }
 };
 
-// walk_kernel's score source hs f32[D, B, Lp].
+// walk_kernel's score source hs f32[D, B, Lp], at Q lanes a thread.
 struct HsSource {
   const float* hs;
   __host__ __device__ static constexpr int smem(int W, int T) { return hs_smem(W, T); }
   __device__ __forceinline__ bool takes(int) const { return true; }
-  __device__ __forceinline__ HsVisits visits(const WalkArgs& a, int b, int dend,
-                                             float* hbuf) const {
-    return HsVisits{hs, hbuf, a.B, a.Lp, b, a.W, a.T, dend, 0, false};
+  template <int Q = 1>
+  __device__ __forceinline__ HsVisits<Q> visits(const WalkArgs& a, int b, int dend,
+                                                float* hbuf) const {
+    return HsVisits<Q>{hs, hbuf, a.B, a.Lp, b, a.W, a.T, dend, 0, false};
   }
 };
 

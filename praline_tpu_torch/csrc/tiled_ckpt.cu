@@ -27,7 +27,7 @@
 // praline_tiled_dp_clusters for the kernels built here.
 extern "C" int praline_tiled_ckpt_clusters(int k, int hs, int W, int R, int m, int T,
                                            int* clusters) {
-  return tiled_clusters<true>(k, hs, W, R, m, T, clusters);
+  return tiled_clusters<true>(k, hs, W, R, m, T, 1, clusters);
 }
 
 // praline_tiled_dp_hs's arguments, then snap, interval (a multiple of T),
@@ -41,9 +41,9 @@ extern "C" int praline_tiled_ckpt_hs(const float* hs, const int* lx, const int* 
                                      int* tj, int* tcode, uint8_t* tb, float* snap,
                                      int interval, int block, float cum0, void* stream) {
   if (snap == nullptr) return (int)cudaErrorInvalidValue;
-  return tiled_hs<true>(hs, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m, T, carry,
-                        Outs{score, length, ti, tj, tcode, tb}, snap, interval, block, cum0,
-                        stream);
+  return tiled_hs<true>(hs, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m, T, 1,
+                        carry, Outs{score, length, ti, tj, tcode, tb}, snap, interval, block,
+                        cum0, stream);
 }
 
 // praline_tiled_dp_rows's arguments, then the checkpoints as above (the

@@ -14,21 +14,32 @@
 //
 // Design.  A problem runs on a cluster of R CTAs (up to 16: past the
 // portable 8 with cudaFuncAttributeNonPortableClusterSizeAllowed), each
-// owning m consecutive tiles of W <= 512 lanes, one lane a thread, so R m W
-// >= Lp covers a row of any length (kernels/tiled_dp.py::tiled_geometry).
-// In phase p rank r runs box p - r (T diagonals) over its m tiles, left to
-// right; the tile edge goes from tile to tile through shared memory inside
-// a CTA and from CTA to CTA through a double-buffered ring in distributed
-// shared memory, one cluster barrier a phase: (boxes + R - 1) m T steps in
-// sequence.  With m = 1 a
+// owning m consecutive tiles of W lanes, Q lanes a thread of at most 512,
+// so R m W >= Lp covers a row of any length
+// (kernels/tiled_dp.py::tiled_geometry).  In phase p rank r runs box p - r
+// (T diagonals) over its m tiles, left to right; the tile edge goes from
+// tile to tile through shared memory inside a CTA and from CTA to CTA
+// through a double-buffered ring in distributed shared memory, one cluster
+// barrier a phase: (boxes + R - 1) m T steps in sequence.  With m = 1 a
 // tile's carries stay in registers; with m > 1 each visit loads and stores
 // them (14 values a lane at k <= 2, 22 at k = 3) in shared memory where
 // they fit beside the rest, else in a device-memory scratch f32[B, NS, Lp]
-// that stays in L2.  On the hs source each thread copies its own lane's
+// that stays in L2.  On the hs source each thread copies its own lanes'
 // next T scores into shared memory by cp.async while the DP steps through
 // the current visit (W contiguous floats a diagonal, a double buffer), so a
 // step reads its score from shared memory and no step waits on device
 // memory.
+//
+// Two geometries, chosen by the chunk's shape.  One problem (a merge
+// join's traceback, a chunk the card holds in one wave) wants latency: Q =
+// 1 and up to 16 CTAs of one tile, the fewest steps at the cheapest step.
+// A scores chunk over hs of more problems than the card holds clusters of
+// that shape at once (dhc1's all-pairs chunks: 21-32 problems of 4224-4736
+// lanes, 7 clusters of 15-16 CTAs at once) wants throughput: Q = 2 or 3
+// lanes a thread, so a row fits on a few CTAs of one wider tile each and
+// the card holds many more clusters; a thread's Q cells of a diagonal are
+// independent, so they share the step's latency, its shuffles and its
+// barrier.  Those launches are built at k <= 3 (csrc/tiled_walk.cuh).
 //
 // The kernel is csrc/cluster_walk.cuh's walk_kernel, built for 512
 // threads a CTA, on either of two score sources: HsSource reads hs
@@ -47,7 +58,10 @@
 // runs (boxes + R - 1) m T steps, each a few dozen dependent instructions
 // of one W-lane tile and a CTA barrier, with one cluster barrier a box; the
 // scores of a box are in shared memory before its first step.  More CTAs
-// a cluster means fewer tiles a CTA (m), so fewer steps in sequence.
+// a cluster means fewer tiles a CTA (m), so fewer steps in sequence; but a
+// chunk of more problems than the card holds clusters runs in waves, and
+// there the Q-lane geometry trades a dearer step (Q cells a thread) for
+// fewer waves.
 // Device memory carries hs once (or the T and Cy rows), tb once and, where
 // the carries do not fit in shared memory, the carry scratch once a box.
 
@@ -56,41 +70,44 @@
 #include "tiled_walk.cuh"
 #include "rows_box.cuh"
 
-// Dynamic shared memory bytes of a CTA of W lanes and m tiles, T diagonals
-// a box, k gap levels, on the source `src`: 1 hs, 0 an in-place source's
-// "scalar" tier, 2 its "mma" tier (the wide launch's, csrc/rows_box.cuh);
-// -1 for arguments the kernel does not take.
-extern "C" int praline_tiled_dp_smem(int W, int T, int m, int k, int src) {
-  if (k < 1 || k > MAXK || m < 1 || W < 32 || T < 1 || src < 0 || src > 2) return -1;
+// Dynamic shared memory bytes of a CTA of W lanes (Q a thread) and m
+// tiles, T diagonals a box, k gap levels, on the source `src`: 1 hs, 0 an
+// in-place source's "scalar" tier, 2 its "mma" tier (the wide launch's,
+// csrc/rows_box.cuh); -1 for arguments the kernel does not take.
+extern "C" int praline_tiled_dp_smem(int W, int T, int m, int k, int src, int Q) {
+  if (k < 1 || k > MAXK || m < 1 || Q < 1 || W < 32 * Q || W % Q || T < 1 || src < 0 || src > 2)
+    return -1;
   const int bytes = src == 1 ? hs_smem(W, T) : src == 2 ? BoxSource<true, 1>::smem(W, T) : 0;
-  return walk_layout(k, bytes, W, m, T, WALK_MAX_SMEM).total;
+  return walk_layout(k, bytes, W, m, T, WALK_MAX_SMEM, Q).total;
 }
 
-// How many clusters of R CTAs of W threads and m tiles (k levels, source:
-// hs = 1 or rows = 0, T) the card holds at once, into *clusters; returns
-// the CUDA error of the query.
-extern "C" int praline_tiled_dp_clusters(int k, int hs, int W, int R, int m, int T,
+// How many clusters of R CTAs of m tiles of W lanes, Q a thread (k levels,
+// source: hs = 1 or rows = 0, T; Q > 1 only on hs at k <= 3) the card holds
+// at once, into *clusters; returns the CUDA error of the query.
+extern "C" int praline_tiled_dp_clusters(int k, int hs, int W, int R, int m, int T, int Q,
                                          int* clusters) {
-  return tiled_clusters<false>(k, hs, W, R, m, T, clusters);
+  return tiled_clusters<false>(k, hs, W, R, m, T, Q, clusters);
 }
 
 // The hs source.  hs f32[D, B, Lp]; lx, ly int32[B] with 1 <= lx < Lp,
 // 1 <= ly <= D - Lp; gaps: k host floats; geometry (kernels/tiled_dp.py::
-// tiled_geometry): W lanes a tile (= threads a CTA), a multiple of 32 up to
-// 512; R CTAs a cluster, 1 to 16; m tiles a CTA with R m W >= Lp; T
-// diagonals a box, 1 to 32.  Scratch carry f32[B, 10 + 4 k', Lp] (k' = 1 at
-// k = 2, else k) where m > 1 and the carries do not fit in shared memory
-// (praline_tiled_dp_smem without them), else unused.  Outputs f32/int32
-// [B]; tb uint8[D - 2, B, Lp] (ignored unless traceback).  Returns
+// tiled_geometry): W lanes a tile, Q lanes a thread (1; or 2 or 3 at k <=
+// 3 with m = 1), W a multiple of 32 Q up to 512 Q; R CTAs a cluster, 1 to
+// 16; m tiles a CTA with R m W >= Lp; T diagonals a box, 1 to 32.  Scratch carry f32[B,
+// 10 + 4 k', Lp] (k' = 1 at k = 2, else k) where m > 1 and the carries do
+// not fit in shared memory (praline_tiled_dp_smem without them), else
+// unused.  Outputs f32/int32 [B]; tb uint8[D - 2, B, Lp] (ignored unless
+// traceback).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments the kernel does not take.
 extern "C" int praline_tiled_dp_hs(const float* hs, const int* lx, const int* ly,
                                    const float* gaps_host, int k, int mode, int traceback,
-                                   int D, int B, int Lp, int W, int R, int m, int T,
+                                   int D, int B, int Lp, int W, int R, int m, int T, int Q,
                                    float* carry, float* score, float* length, int* ti, int* tj,
                                    int* tcode, uint8_t* tb, void* stream) {
-  return tiled_hs<false>(hs, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m, T, carry,
-                         Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f, stream);
+  return tiled_hs<false>(hs, lx, ly, gaps_host, k, mode, traceback, D, B, Lp, W, R, m, T, Q,
+                         carry, Outs{score, length, ti, tj, tcode, tb}, nullptr, 0, -1, 0.0f,
+                         stream);
 }
 
 // The in-place source on the "scalar" tier.  ops: the scratch of

@@ -129,7 +129,7 @@ def load_library() -> ctypes.CDLL:
         f = ctypes.c_float
         ckpt = [p, i, i, f]  # snap, interval, block, cum0
         lib.praline_tiled_dp_hs.restype = i
-        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 10, *[p] * 8]
+        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 11, *[p] * 8]
         lib.praline_tiled_prep.restype = i
         lib.praline_tiled_prep.argtypes = [p, p, p, *[i] * 5, p, p, p]
         # each in-place entry point and its "mma" twin take the same arguments
@@ -146,16 +146,17 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [i, *[p] * 9, *[i] * 10, *[p] * 7, *ckpt, p]
         lib.praline_tiled_ring.restype = i
         lib.praline_tiled_ring.argtypes = [*[p] * 6, *[i] * 11, f, *[i] * 4, *[p] * 8, i, i, p]
-        for name in ("praline_tiled_dp_clusters", "praline_tiled_ckpt_clusters"):
-            getattr(lib, name).restype = i
-            getattr(lib, name).argtypes = [i, i, i, i, i, i, p]
+        lib.praline_tiled_dp_clusters.restype = i
+        lib.praline_tiled_dp_clusters.argtypes = [*[i] * 7, p]
+        lib.praline_tiled_ckpt_clusters.restype = i
+        lib.praline_tiled_ckpt_clusters.argtypes = [*[i] * 6, p]
         for name in ("praline_tiled_ring_clusters", "praline_tiled_composite_clusters",
                      "praline_tiled_mma_clusters", "praline_tiled_ckpt_mma_clusters",
                      "praline_tiled_composite_mma_clusters"):
             getattr(lib, name).restype = i
             getattr(lib, name).argtypes = [*[i] * 5, p]
         lib.praline_tiled_dp_smem.restype = i
-        lib.praline_tiled_dp_smem.argtypes = [i, i, i, i, i]
+        lib.praline_tiled_dp_smem.argtypes = [*[i] * 6]
         lib.praline_replay_moves.restype = i
         lib.praline_replay_moves.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
         lib.praline_replay_block.restype = i

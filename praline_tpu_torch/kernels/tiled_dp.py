@@ -11,7 +11,10 @@ over through an edge buffer of T entries.  On the card a problem runs on
 a thread-block cluster of ``R`` CTAs of ``m`` tiles each
 (:func:`tiled_geometry`): in phase p, CTA r visits box p - r on its m
 tiles, so a row of any length takes ``(boxes + R - 1) * m * T`` steps in
-sequence; this is the route for rows past the fused kernel's 4096 lanes
+sequence.  A thread runs one lane, or, in a scores chunk over ``hs`` of
+more problems than the card holds such clusters at once, Q = 2 or 3 (a
+row on fewer CTAs, so more problems at once: :func:`lanes_geometry`).
+This is the route for rows past the fused kernel's 4096 lanes
 (``kernels/batch.py::choose_route``).  The contract is that of the plain
 DP ``kernels/scan.py::wavefront_dp``, bit for bit: ``score``, ``length``,
 ``ti``, ``tj``, ``tcode`` and, with traceback, ``tb uint8[D-2, B, Lp]``.
@@ -67,13 +70,16 @@ or :func:`wavefront_dp_tiled_forward` is one chunk of the tiled or the
 checkpointed route: it adds ``tiled.chunks:{source}`` (``hs``, ``rows``,
 ``composite``) and its problems to ``tiled.problems:scores`` or
 ``tiled.problems:traceback`` in ``METRICS.counters``, host integers from
-the source's shape (:func:`count_chunk`).
+the source's shape (:func:`count_chunk`); a launch at Q > 1 lanes a thread
+adds its problems to ``tiled.problems:q{Q}`` once it is launched
+(:func:`count_lanes`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -104,7 +110,7 @@ resume_launches = dict.fromkeys(SOURCE_TIERS, 0)
 composite_launches = dict.fromkeys(TIERS, 0)
 ring_launches = 0
 
-MAX_TILE_LANES = 512  # W at most: lanes (= threads) of a CTA (csrc/tiled_dp.cu MAX_W)
+MAX_TILE_LANES = 512  # threads of a CTA at most (csrc/tiled_walk.cuh MAX_W): W / Q
 # R at most: the H100's non-portable cluster size (csrc/tiled_dp.cu MAX_R),
 # and the default geometry's R: a row spread over more CTAs of narrower
 # tiles takes fewer steps or cheaper ones (PERF.md, Findings: the tiled
@@ -117,6 +123,35 @@ MIN_SPREAD_LANES = 256
 MAX_STEPS = 32
 SOURCES = ("hs", "rows", "composite")
 MAX_TRACKS = 8  # tracks of a composite on the card (csrc/tiled_composite.cu)
+# Lanes a thread (Q) of the throughput geometry (:func:`lanes_geometry`) and
+# the gap levels its launches are built for (csrc/tiled_walk.cuh MAX_Q,
+# MAX_LANES_K).
+LANES_PER_THREAD = (2, 3)
+MAX_LANES_K = 3
+# A step of a CTA of W lanes takes about as long as W + STEP_FIXED_LANES
+# lanes' cells: a fixed part (the barriers, the shuffles, the chain's
+# latency) and each lane's issue.  Fitted to K6 over hs on an H100 at 700 W
+# (k = 2, global scores, B1 x 4735 x 4607): 0.470 us a step at 320 lanes a
+# CTA, 1.232 us at 1248 (3 lanes a thread); 640-960 lanes a CTA fell on the
+# same line (PERF.md, Findings: K6 with Q lanes a thread).  It holds for a CTA alone on its
+# SM: narrow CTAs of few warps that share an SM ran slower than it says
+# (0.74 us a step at 2 lanes a thread on 15 CTAs of 320 lanes), so the
+# candidates are CTAs whose shared memory leaves no room for a second.  Not timed at k = 1
+# or 3 yet, where a step's cells cost less or more (``chip_smoke.py lanes-times`` gives the
+# model's ratio beside the measured one at both).
+STEP_FIXED_LANES = 250
+CTA_RESERVED_SMEM = 1024  # shared memory an SM reserves for each CTA it holds (sm_90)
+
+
+@functools.cache
+def _sm_shared_memory(device: int) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_multiprocessor
+
+
+def sm_shared_memory() -> int:
+    """The shared memory of one SM of the current CUDA device (233,472 B
+    on the H100), asked once per device."""
+    return _sm_shared_memory(torch.cuda.current_device())
 
 
 def reset_launches() -> None:
@@ -216,16 +251,17 @@ def box_smem(W: int, T: int) -> int:
 
 
 def smem_layout(W: int, T: int, m: int, k: int, source: str,
-                budget: int = SMEM_PER_CTA, tier: str | None = None) -> tuple[int, bool]:
-    """Dynamic shared memory of a CTA (``csrc/cluster_walk.cuh``
-    ``WalkLayout``) and whether the carries of its ``m`` tiles are in it:
-    the walk's exchange, ring, edge and candidates; the score source's own:
-    on the hs source two boxes of scores, on the in-place sources' "mma"
-    tier :func:`box_smem`, on their "scalar" tier none; with m > 1 the
-    carries where the whole fits in ``budget`` bytes (else they go to a
-    device-memory scratch)."""
+                budget: int = SMEM_PER_CTA, tier: str | None = None,
+                lanes: int = 1) -> tuple[int, bool]:
+    """Dynamic shared memory of a CTA of ``W`` lanes, ``lanes`` a thread
+    (``csrc/cluster_walk.cuh`` ``WalkLayout``) and whether the carries of
+    its ``m`` tiles are in it: the walk's exchange, ring, edge and
+    candidates (by warps); the score source's own: on the hs source two
+    boxes of scores, on the in-place sources' "mma" tier :func:`box_smem`,
+    on their "scalar" tier none; with m > 1 the carries where the whole
+    fits in ``budget`` bytes (else they go to a device-memory scratch)."""
     kc = 1 if k == 2 else k
-    nx, nw = 6 + 2 * kc, W // 32
+    nx, nw = 6 + 2 * kc, W // lanes // 32
     src = 2 * T * W * 4 if source == "hs" else box_smem(W, T) if tier == "mma" else 0
     total = (round16(2 * nw * nx * 4) + round16(2 * T * nx * 4) + round16(T * nx * 4)
              + round16((nw + 1) * CAND_BYTES) + src)
@@ -237,10 +273,11 @@ def smem_layout(W: int, T: int, m: int, k: int, source: str,
 
 @dataclasses.dataclass(frozen=True)
 class TiledGeometry:
-    """A problem's cluster: ``R`` CTAs of ``m`` tiles of ``W`` lanes, boxes
-    of ``T`` diagonals, each CTA's dynamic shared memory (``smem_bytes``)
-    and whether the carries need the device-memory scratch
-    (``carry_scratch``: m > 1 and they do not fit in shared memory)."""
+    """A problem's cluster: ``R`` CTAs of ``m`` tiles of ``W`` lanes, ``Q``
+    lanes a thread (so ``W / Q`` threads a CTA), boxes of ``T`` diagonals,
+    each CTA's dynamic shared memory (``smem_bytes``) and whether the
+    carries need the device-memory scratch (``carry_scratch``: m > 1 and
+    they do not fit in shared memory)."""
 
     R: int
     m: int
@@ -248,20 +285,29 @@ class TiledGeometry:
     T: int
     smem_bytes: int
     carry_scratch: bool
+    Q: int = 1
 
 
-def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = None,
-                   tile_lanes: int | None = None, steps: int = MAX_STEPS,
-                   tier: str | None = None) -> TiledGeometry:
+def tiled_geometry(Lp: int, k: int, source: str = "hs", *, problems: int = 1,
+                   traceback: bool = False, diagonals: int | None = None,
+                   ctas: int | None = None, tile_lanes: int | None = None,
+                   steps: int = MAX_STEPS, tier: str | None = None) -> TiledGeometry:
     """The cluster of a problem of ``Lp`` lanes at ``k`` gap levels on
     ``source`` (on the in-place sources, the score ``tier``'s shared
-    memory).  By default: the fewest tiles a CTA (m) that a cluster of
-    :data:`MAX_CTAS` CTAs of at most :data:`MAX_TILE_LANES` lanes allows,
-    then the row spread over that many CTAs in tiles of equal width
-    rounded up to a warp, but no narrower than :data:`MIN_SPREAD_LANES`
-    (or the lane cap, where it is lower), and the fewest CTAs of m such
-    tiles.  ``tile_lanes`` fixes W and ``ctas`` fixes R (then m is the
-    fewest that covers the row)."""
+    memory), in a chunk of ``problems`` problems of ``diagonals`` (D) with
+    or without ``traceback``.  By default, one lane a thread: the fewest
+    tiles a CTA (m) that a cluster of :data:`MAX_CTAS` CTAs of at most
+    :data:`MAX_TILE_LANES` lanes allows, then the row spread over that many
+    CTAs in tiles of equal width rounded up to a warp, but no narrower than
+    :data:`MIN_SPREAD_LANES` (or the lane cap, where it is lower), and the
+    fewest CTAs of m such tiles: the least latency for one problem.  A
+    scores chunk on hs at k <= :data:`MAX_LANES_K` of more problems than
+    the card holds clusters of that shape at once
+    (:func:`max_active_clusters`) takes :func:`lanes_geometry`'s choice,
+    most often Q > 1 lanes a thread on fewer CTAs, so that more problems
+    run at once.  ``tile_lanes`` fixes W and ``ctas`` fixes R (then m is
+    the fewest that covers the row); either, or ``steps`` other than
+    :data:`MAX_STEPS`, keeps one lane a thread."""
     if source not in SOURCES:
         raise ValueError(f"source must be one of {SOURCES}, got {source!r}")
     if Lp < 1:
@@ -277,7 +323,70 @@ def tiled_geometry(Lp: int, k: int, source: str = "hs", *, ctas: int | None = No
         m = -(-Lp // (cap * W))
     R = ctas or -(-Lp // (m * W))
     smem, carries_in_smem = smem_layout(W, steps, m, k, source, tier=tier)
-    return TiledGeometry(R, m, W, steps, smem, m > 1 and not carries_in_smem)
+    g = TiledGeometry(R, m, W, steps, smem, m > 1 and not carries_in_smem)
+    if (ctas, tile_lanes, steps) != (None, None, MAX_STEPS) or problems < 2 \
+            or not takes_lanes(source, k, traceback) \
+            or problems <= max_active_clusters(k, source, g):  # one wave
+        return g
+    return lanes_geometry(Lp, k, problems, diagonals or 2 * Lp - 1, g)
+
+
+def takes_lanes(source: str, k: int, traceback: bool) -> bool:
+    """Whether a launch may run more than one lane a thread: scores mode
+    on the hs source at k <= :data:`MAX_LANES_K` (the launches built so,
+    csrc/tiled_walk.cuh)."""
+    return source == "hs" and not traceback and k <= MAX_LANES_K
+
+
+@functools.cache
+def lanes_candidates(Lp: int, k: int, sm_smem: int) -> tuple[TiledGeometry, ...]:
+    """The Q-lane clusters of one tile a CTA for rows of ``Lp`` lanes at
+    ``k`` levels on hs: for Q in :data:`LANES_PER_THREAD` and R = 1 ..
+    :data:`MAX_CTAS`, the narrowest W, a multiple of 32 Q of at most 512 Q,
+    that R tiles need (where R is the fewest of that W), at the deepest box
+    T <= :data:`MAX_STEPS` that its shared memory allows, where that CTA is
+    alone on its SM (no room in the SM's ``sm_smem`` bytes for a second);
+    built once per row width, level count and card."""
+    out = []
+    for Q in LANES_PER_THREAD:
+        warp = 32 * Q
+        for R in range(1, MAX_CTAS + 1):
+            W = -(-(-(-Lp // R)) // warp) * warp
+            if W > MAX_TILE_LANES * Q or -(-Lp // W) != R:
+                continue
+            for T in range(MAX_STEPS, 0, -1):
+                smem = smem_layout(W, T, 1, k, "hs", lanes=Q)[0]
+                if smem <= SMEM_PER_CTA:
+                    if 2 * (smem + CTA_RESERVED_SMEM) > sm_smem:
+                        out.append(TiledGeometry(R, 1, W, T, smem, False, Q))
+                    break
+    return tuple(out)
+
+
+def chunk_time(g: TiledGeometry, k: int, problems: int, diagonals: int) -> int | None:
+    """The model of a chunk's time on geometry ``g`` at ``k`` levels over
+    hs, in lane-steps: waves x steps x (W + :data:`STEP_FIXED_LANES`),
+    waves = ceil(problems / clusters at once), steps = (boxes + R - 1) m T,
+    the chain of one problem of ``diagonals`` (D); None where the card
+    holds no such cluster."""
+    n = max_active_clusters(k, "hs", g)
+    if n < 1:
+        return None
+    steps = (-(-(diagonals - 2) // g.T) + g.R - 1) * g.m * g.T
+    return -(-problems // n) * steps * (g.W + STEP_FIXED_LANES)
+
+
+def lanes_geometry(Lp: int, k: int, problems: int, diagonals: int,
+                   one_lane: TiledGeometry) -> TiledGeometry:
+    """The geometry of a scores chunk over hs of ``problems`` problems of
+    ``Lp`` lanes and ``diagonals`` (D): of ``one_lane`` (the one-lane
+    default) and :func:`lanes_candidates` on the current card, the one of
+    the least :func:`chunk_time`; ties to the smaller Q, then R."""
+    def key(g):
+        t = chunk_time(g, k, problems, diagonals)
+        return (t is None, t or 0, g.Q, g.R)
+
+    return min([one_lane, *lanes_candidates(Lp, k, sm_shared_memory())], key=key)
 
 
 def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
@@ -285,8 +394,9 @@ def wavefront_dp_tiled_plain(source, lx, ly, gap_series=(11, 1), mode="global",
                              steps_per_visit=MAX_STEPS, band=False):
     """The plain version: the kernel's visits over ``kernels/scan.py``'s
     recurrence, at the tile width of :func:`tiled_geometry` (``tile_lanes``
-    and ``ctas`` as there).  ``source`` is ``hs f32[D, B, Lp]`` or the tuple
-    ``(cx, inv_x, cy, inv_y, s)``, whose ``hs`` it builds first.  With
+    and ``ctas`` as there; a thread's Q lanes are part of its tile, so the
+    Q-lane geometries are tile widths here).  ``source`` is ``hs f32[D, B, Lp]`` or the
+    tuple ``(cx, inv_x, cy, inv_y, s)``, whose ``hs`` it builds first.  With
     ``band`` (scores mode only; the whole-row DP's walk,
     ``csrc/wavefront_dp.cu``) each problem runs only the visits and steps
     of its band, as ``csrc/cluster_walk.cuh``'s BAND rule says
@@ -422,7 +532,7 @@ def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
     the wide launch's, ``csrc/rows_box.cuh``), asked once per shape."""
     g = geometry
     ckpt = ckpt or source == "composite"
-    key = (k, source, g.R, g.m, g.W, g.T, ckpt, tier)
+    key = (k, source, g.R, g.m, g.W, g.T, g.Q, ckpt, tier)
     n = _clusters.get(key)
     if n is None:
         got = ctypes.c_int(0)
@@ -430,20 +540,28 @@ def max_active_clusters(k: int, source: str, geometry: TiledGeometry,
         name = _CLUSTERS.get((source, ckpt, tier))
         if name is not None:
             rc = getattr(lib, name)(k, g.W, g.R, g.m, g.T, ctypes.byref(got))
+        elif ckpt:
+            name = "praline_tiled_ckpt_clusters"
+            rc = lib.praline_tiled_ckpt_clusters(k, int(source == "hs"), g.W, g.R, g.m, g.T,
+                                                 ctypes.byref(got))
         else:
-            name = "praline_tiled_ckpt_clusters" if ckpt else "praline_tiled_dp_clusters"
-            rc = getattr(lib, name)(k, int(source == "hs"), g.W, g.R, g.m, g.T,
-                                    ctypes.byref(got))
+            name = "praline_tiled_dp_clusters"
+            rc = lib.praline_tiled_dp_clusters(k, int(source == "hs"), g.W, g.R, g.m, g.T, g.Q,
+                                               ctypes.byref(got))
         build.check(rc, name)
         n = _clusters[key] = got.value
     return n
 
 
-def check_geometry(g: TiledGeometry, Lp: int) -> None:
+def check_geometry(g: TiledGeometry, Lp: int, k: int, source: str, traceback: bool) -> None:
     """Raise for a geometry the kernel does not take."""
-    if not (32 <= g.W <= MAX_TILE_LANES and g.W % 32 == 0):
-        raise ValueError(f"tile_lanes must be a multiple of 32 from 32 to {MAX_TILE_LANES}, "
-                         f"got {g.W}")
+    if g.Q != 1 and not (g.Q in LANES_PER_THREAD and g.m == 1
+                         and takes_lanes(source, k, traceback)):
+        raise ValueError(f"{g.Q} lanes a thread: only {LANES_PER_THREAD}, one tile a CTA, in "
+                         f"scores mode on the hs source at k <= {MAX_LANES_K}")
+    if not (32 * g.Q <= g.W <= MAX_TILE_LANES * g.Q and g.W % (32 * g.Q) == 0):
+        raise ValueError(f"tile_lanes must be a multiple of {32 * g.Q} from {32 * g.Q} to "
+                         f"{MAX_TILE_LANES * g.Q} at {g.Q} lanes a thread, got {g.W}")
     if not 1 <= g.R <= MAX_CTAS:
         raise ValueError(f"ctas must be 1 to {MAX_CTAS}, got {g.R}")
     if not 1 <= g.T <= MAX_STEPS:
@@ -579,8 +697,9 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, ti
         D, Lp = Lx + Ly + 1, Lx + 1
     dev = source_device(source)
     with span("tiled:geometry"):
-        g = tiled_geometry(Lp, k, kind, tier=tier, **geometry)
-        check_geometry(g, Lp)
+        g = tiled_geometry(Lp, k, kind, problems=B, traceback=traceback or ckpt is not None,
+                           diagonals=D, tier=tier, **geometry)
+        check_geometry(g, Lp, k, kind, traceback or ckpt is not None)
         if ckpt is not None and ckpt[1] % g.T:
             raise ValueError(f"the interval {ckpt[1]} must be a multiple of the box depth {g.T}")
         if max_active_clusters(k, kind, g, ckpt is not None, tier) < 1:
@@ -603,11 +722,14 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, ti
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "hs":
-            name = "praline_tiled_ckpt_hs" if ckpt is not None else "praline_tiled_dp_hs"
+            # the ordinary launch over hs takes Q lanes a thread after the shape
+            name, lanes = (("praline_tiled_ckpt_hs", ()) if ckpt is not None
+                           else ("praline_tiled_dp_hs", (g.Q,)))
             with span("tiled:launch"):
                 rc = getattr(lib, name)(source.data_ptr(), lx.data_ptr(), ly.data_ptr(), *series,
-                                        D, B, Lp, *shape, *outs, *checkpoints, stream)
+                                        D, B, Lp, *shape, *lanes, *outs, *checkpoints, stream)
             build.check(rc, name)
+            count_lanes(g, B)
             return
         ops = _operands_for(source, tier, operands)
         pwide = ops.pwide.data_ptr() if ops.pwide is not None else None
@@ -635,6 +757,14 @@ def _launch(source, lx, ly, gap_series, mode, traceback, out, ckpt, geometry, ti
     build.check(rc, name)
 
 
+def count_lanes(g: TiledGeometry, problems: int) -> None:
+    """A launch of ``problems`` problems on ``g`` into ``METRICS.counters``:
+    ``tiled.problems:q{Q}`` where it ran Q > 1 lanes a thread (host
+    integers, no device sync)."""
+    if g.Q > 1:
+        METRICS.count(f"tiled.problems:q{g.Q}", problems)
+
+
 def count_chunk(source, traceback: bool) -> None:
     """One chunk of the tiled or checkpointed route into ``METRICS.counters``:
     ``tiled.chunks:{source kind}`` and its problems under
@@ -652,8 +782,9 @@ def wavefront_dp_tiled(source, lx, ly, gap_series=(11, 1), mode="global", traceb
     A], inv_x f32[B, Lx], cy f32[B, Ly, A], inv_y f32[B, Ly], s f32[A, A])``
     with ``Lp = Lx + 1``, or a :class:`Composite` of such tracks) with true
     lengths ``lx, ly int32[B]``, on the cluster of :func:`tiled_geometry`
-    (``tile_lanes`` W a multiple of 32 up to 512, ``ctas`` R from 1 to 16,
-    ``steps_per_visit`` T from 1 to 32).  ``tier`` ("mma", only for
+    for the chunk (``tile_lanes`` W a multiple of 32 up to 512, ``ctas`` R
+    from 1 to 16, ``steps_per_visit`` T from 1 to 32: any of them fixed,
+    one lane a thread).  ``tier`` ("mma", only for
     operands ``fused_scores.tensor_core_exact`` admits, or "scalar") is
     required on the in-place sources and refused on hs, their operands made
     for the launch (:func:`prepare_operands`).  Same outputs as
@@ -887,7 +1018,7 @@ def wavefront_dp_tiled_ring(rows: RingRows, lx, ly, gap_series, mode, traceback,
     dev, B, Lpn = rows.device, rows.B, rows.Lpn
     g = tiled_geometry(Lpn, k, "rows", ctas=ctas, tile_lanes=tile_lanes,
                        steps=steps_per_visit or ring_steps(K), tier="scalar")
-    check_geometry(g, Lpn)
+    check_geometry(g, Lpn, k, "rows", traceback)
     if Lpn < 2:
         raise ValueError(f"a ring launch takes at least 2 lanes a rank, got {Lpn}")
     if max_active_clusters(k, "ring", g) < 1:

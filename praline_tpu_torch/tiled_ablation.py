@@ -58,6 +58,7 @@ struct HsSource {
   const float* hs;
   __host__ __device__ static constexpr int smem(int W, int T) { return hs_smem(W, T); }
   __device__ __forceinline__ bool takes(int) const { return true; }
+  template <int Q = 1>
   __device__ __forceinline__ HsVisits visits(const WalkArgs& a, int b, int, float*) const {
     return HsVisits{HsDirect{hs, a.B, a.Lp, b}};
   }
@@ -95,7 +96,7 @@ def build_variants() -> dict:
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.praline_tiled_dp_hs.restype = i
-        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 10, *[p] * 8]
+        lib.praline_tiled_dp_hs.argtypes = [p, p, p, p, *[i] * 11, *[p] * 8]
         return name, lib
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -132,7 +133,7 @@ def main() -> int:
                 run = lambda lib=libs[name]: lib.praline_tiled_dp_hs(
                     hs.data_ptr(), lx.data_ptr(), ly.data_ptr(),
                     gaps.ctypes.data_as(ctypes.c_void_p), 2, MODES.index(mode), int(traceback),
-                    D, B, Lp, g.W, g.R, g.m, g.T, None, *ptrs, tb, stream)
+                    D, B, Lp, g.W, g.R, g.m, g.T, g.Q, None, *ptrs, tb, stream)
                 for t in out.values():
                     t.fill_(0xAB if t.dtype == torch.uint8 else -7)
                 if run() != 0:

@@ -12,7 +12,7 @@ import pytest
 
 from praline_tpu_torch import ALPHABET_AA, METRICS, PralineConfig, builtin_score_matrix
 from praline_tpu_torch.io import format_alignment_fasta, load_sequence_fasta
-from praline_tpu_torch.kernels import batch
+from praline_tpu_torch.kernels import batch, tiled_dp
 from praline_tpu_torch.msa import device_merge as dm
 from praline_tpu_torch.msa import msa_align
 from praline_tpu_torch.msa.pipeline import batched_all_pairs
@@ -152,3 +152,28 @@ def test_tiled_counters_count_the_long_routes_chunks_and_problems(monkeypatch, t
                                      bucket_sizes=BUCKETS, traceback=traceback)
     assert all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
                for a, b in zip(got, want, strict=True) for f in dataclasses.fields(a))
+
+
+@pytest.mark.parametrize("k,kind,traceback,grows", [
+    (2, "hs", False, True), (3, "hs", False, True), (2, "hs", True, False),
+    (15, "hs", False, False), (2, "rows", False, False)])
+def test_lane_problems_count_where_the_chunk_takes_lanes(monkeypatch, k, kind, traceback,
+                                                         grows):
+    """A launch's geometry, chosen as on the H100 (7 one-lane clusters of
+    15-16 CTAs at once, 30 of 4 CTAs; 233,472 B of shared memory an SM),
+    then counted as launched: a scores chunk over hs of 21 problems of 4736
+    lanes adds them to ``tiled.problems:q{Q}`` for its Q > 1; a traceback
+    launch, more than three levels and the in-place sources add nothing
+    there."""
+    monkeypatch.setattr(tiled_dp, "max_active_clusters",
+                        lambda k, source, g, ckpt=False, tier=None:
+                        7 if g.Q == 1 else max(1, 120 // g.R))
+    monkeypatch.setattr(tiled_dp, "sm_shared_memory", lambda: 233_472)
+    before = dict(METRICS.counters)
+    g = tiled_dp.tiled_geometry(4736, k, kind, problems=21, traceback=traceback, diagonals=9343,
+                                tier=None if kind == "hs" else "scalar")
+    tiled_dp.count_lanes(g, 21)
+    grown = {key: v - before.get(key, 0) for key, v in METRICS.counters.items()
+             if v != before.get(key, 0)}
+    assert (g.Q > 1) == grows
+    assert grown == ({f"tiled.problems:q{g.Q}": 21} if grows else {})

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from praline_tpu_torch import ALPHABET_AA, Profile, builtin_score_matrix
+from praline_tpu_torch import ALPHABET_AA, METRICS, Profile, builtin_score_matrix
 from praline_tpu_torch.convert import matrix_to_torch, operands_from_numpy, profiles_to_stack
 from praline_tpu_torch.kernels import (
     batch, fused_dp, fused_scores, probes, replay, tiled_dp, wavefront,
@@ -474,6 +474,50 @@ def test_tiled_cluster_sizes_match_plain(cuda, R):
             for source in (hs, ops[:5]):
                 tiled_vs_plain(source, ops[5], ops[6], (11, 1), mode, traceback, want,
                                ctas=R, tile_lanes=W, steps_per_visit=(32, 7, 3)[R % 3])
+
+
+@pytest.mark.parametrize("lanes", tiled_dp.LANES_PER_THREAD)
+@pytest.mark.parametrize("gap_series", [(5,), (11, 1), (13, 7, 1)])
+def test_tiled_lanes_per_thread_match_plain(cuda, monkeypatch, lanes, gap_series):
+    """Q lanes a thread (scores mode on hs, k = 1, 2, 3), every mode, ragged
+    lx and ly (Lp 1301): each of the chooser's candidates at Q (1 to 3 CTAs
+    of one tile, boxes of 32 diagonals or fewer where shared memory is
+    short), taken by a chunk of 4 problems on a card said to hold one
+    cluster of any other geometry at once."""
+    Lp, k = 1301, len(gap_series)
+    seed = zlib.crc32(repr(("lanes", lanes, gap_series)).encode())
+    ops = operands(seed, 4, Lp - 1, 1100, cuda)
+    hs = plain_scores(*ops[:5])
+    wants = {mode: plain_dp(hs, ops[5], ops[6], gap_series, mode) for mode in MODES}
+    cands = [g for g in tiled_dp.lanes_candidates(Lp, k, tiled_dp.sm_shared_memory())
+             if g.Q == lanes]
+    assert {g.R for g in cands} >= {2, 3}
+    for target in cands:
+        monkeypatch.setattr(tiled_dp, "max_active_clusters",
+                            lambda k, source, g, ckpt=False, tier=None, t=target:
+                            64 if g == t else 1)
+        assert tiled_dp.tiled_geometry(Lp, k, problems=4, diagonals=hs.shape[0]) == target
+        for mode in MODES:
+            tiled_vs_plain(hs, ops[5], ops[6], gap_series, mode, False, wants[mode])
+
+
+def test_tiled_chunk_past_one_wave_takes_lanes(cuda):
+    """A scores chunk over hs of one problem more than the card holds
+    one-lane clusters at once (Lp 4301) takes the Q-lane geometry by
+    default, counts its problems under ``tiled.problems:q{Q}`` and equals
+    the plain DP."""
+    Lp, k = 4301, 2
+    B = tiled_dp.max_active_clusters(k, "hs", tiled_dp.tiled_geometry(Lp, k)) + 1
+    ops = operands(4301, B, Lp - 1, 500, cuda)
+    hs = plain_scores(*ops[:5])
+    g = tiled_dp.tiled_geometry(Lp, k, problems=B, diagonals=hs.shape[0])
+    assert g.Q > 1
+    key = f"tiled.problems:q{g.Q}"
+    for mode in MODES:
+        want = plain_dp(hs, ops[5], ops[6], (11, 1), mode)
+        before = METRICS.counters.get(key, 0)
+        tiled_vs_plain(hs, ops[5], ops[6], (11, 1), mode, False, want)
+        assert METRICS.counters[key] == before + B
 
 
 @pytest.mark.parametrize("mode", ["global", "local"])

@@ -18,6 +18,7 @@ card's limits at every lane count.  Tolerance 0.  The CUDA kernel is held
 against the plain version in ``test_torch_cuda.py``.
 """
 
+import dataclasses
 import itertools
 import zlib
 from dataclasses import astuple
@@ -160,6 +161,106 @@ def test_geometry_fits_the_card_at_every_lane_count(k, source):
         assert g.smem_bytes == base + (carries if g.m > 1 and not g.carry_scratch else 0)
     with pytest.raises(ValueError):
         tiled_dp.tiled_geometry(10, k, "both")
+
+
+H100_SM_SMEM = 233_472  # shared memory an SM of the H100 holds
+
+
+def clusters_held(g):
+    """Clusters the H100 holds at once, as the card answered for K6 over hs
+    (PERF_ARCHIVE.md, S7: 7 clusters of 10 to 16 CTAs; 30, 22, 17 and 15 of
+    4 to 7), for tests without a card."""
+    return {4: 30, 5: 22, 6: 17, 7: 15}.get(g.R, 7 if g.R >= 8 else int(110 / g.R))
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """The chooser's view of the card without one: the H100's cluster
+    counts (:func:`clusters_held`) and its shared memory an SM."""
+    monkeypatch.setattr(tiled_dp, "max_active_clusters",
+                        lambda k, source, g, ckpt=False, tier=None: clusters_held(g))
+    monkeypatch.setattr(tiled_dp, "sm_shared_memory", lambda: H100_SM_SMEM)
+
+
+def chunk_cost(g, B, D):
+    """The chooser's model of a chunk of B problems of D diagonals on g:
+    waves x steps x (W + the step's fixed part in lanes)."""
+    steps = (-(-(D - 2) // g.T) + g.R - 1) * g.m * g.T
+    return -(-B // clusters_held(g)) * steps * (g.W + tiled_dp.STEP_FIXED_LANES)
+
+
+@pytest.mark.parametrize("Lp,k,source,B,traceback", [
+    (4736, 2, "hs", 1, False), (4736, 2, "hs", 21, True), (4736, 15, "hs", 21, False),
+    (4736, 4, "hs", 32, False), (4736, 2, "rows", 21, False), (4736, 2, "composite", 32, False),
+    (4736, 2, "hs", 7, False), (4224, 3, "hs", 5, False), (8193, 2, "hs", 2, True)])
+def test_chunk_geometry_is_todays_where_lanes_do_not_apply(h100, Lp, k, source, B, traceback):
+    """One problem, a traceback, more than three levels, the in-place
+    sources, and a chunk the card holds in one wave keep the one-lane
+    geometry, field for field."""
+    today = tiled_dp.tiled_geometry(Lp, k, source)
+    assert today.Q == 1
+    got = tiled_dp.tiled_geometry(Lp, k, source, problems=B, traceback=traceback,
+                                  diagonals=2 * Lp - 1)
+    assert got == today
+
+
+@pytest.mark.parametrize("B", [21, 24, 28, 32])
+@pytest.mark.parametrize("Lp", [4224, 4480, 4736])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_chunk_geometry_takes_lanes_past_one_wave(h100, Lp, B, k):
+    """A scores chunk over hs of more problems than the card holds one-lane
+    clusters at once (dhc1's all-pairs chunks, B 21-32 at Lp 4224-4736)
+    takes Q > 1 lanes a thread: one tile a CTA covering the row, warp-wide
+    in threads of at most 512, shared memory within the H100's 232,448
+    bytes, and no candidate nor the one-lane geometry of a smaller modelled
+    time."""
+    D = Lp + 4607 + 1
+    g = tiled_dp.tiled_geometry(Lp, k, problems=B, diagonals=D)
+    assert g.Q in tiled_dp.LANES_PER_THREAD and g.m == 1 and not g.carry_scratch
+    assert g.W % (32 * g.Q) == 0 and g.W // g.Q <= tiled_dp.MAX_TILE_LANES
+    assert g.R * g.W >= Lp > (g.R - 1) * g.W and 1 <= g.T <= tiled_dp.MAX_STEPS
+    assert g.smem_bytes == tiled_dp.smem_layout(g.W, g.T, 1, k, "hs", lanes=g.Q)[0]
+    assert g.smem_bytes <= tiled_dp.SMEM_PER_CTA == 232_448
+    assert tiled_dp.smem_layout(g.W, g.T + 1, 1, k, "hs", lanes=g.Q)[0] > 232_448 \
+        or g.T == tiled_dp.MAX_STEPS
+    cands = tiled_dp.lanes_candidates(Lp, k, H100_SM_SMEM)
+    assert g in cands and all(2 * (c.smem_bytes + 1024) > H100_SM_SMEM for c in cands)
+    assert chunk_cost(g, B, D) == min(chunk_cost(c, B, D) for c in cands)
+    assert chunk_cost(g, B, D) < chunk_cost(tiled_dp.tiled_geometry(Lp, k), B, D)
+
+
+@pytest.mark.parametrize("kw", [dict(Q=2, W=96), dict(Q=3, W=1632), dict(Q=4, W=128),
+                                dict(Q=2, W=768, m=2, R=2)])
+def test_check_geometry_refuses_lanes_the_kernel_does_not_take(kw):
+    """W a multiple of 32 Q up to 512 Q, Q in 1..3, one tile a CTA at Q > 1;
+    Q > 1 only in scores mode on hs at k <= 3."""
+    ok = tiled_dp.TiledGeometry(R=4, m=1, W=768, T=32, smem_bytes=0, carry_scratch=False, Q=2)
+    with pytest.raises(ValueError):
+        tiled_dp.check_geometry(dataclasses.replace(ok, **kw), 3000, 2, "hs", False)
+    tiled_dp.check_geometry(ok, 3000, 2, "hs", False)
+    for args in ((3000, 2, "hs", True), (3000, 4, "hs", False), (3000, 2, "rows", False)):
+        with pytest.raises(ValueError, match="lanes a thread"):
+            tiled_dp.check_geometry(ok, *args)
+    for args in ((3000, 2, "hs", True), (3000, 4, "hs", False), (3000, 2, "rows", False)):
+        with pytest.raises(ValueError, match="lanes a thread"):
+            tiled_dp.check_geometry(ok, *args)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("lanes,W", [(2, 64), (2, 128), (3, 96), (3, 288)])
+def test_plain_at_lane_tile_widths_matches_whole_row(mode, lanes, W):
+    """The plain version at the tile widths of Q lanes a thread (multiples
+    of 32 Q, a ragged last tile), gap series of 1, 2 and 3 levels, scores
+    and traceback: the whole-row plain DP's bits."""
+    ops = operands(seed_of("lanes", mode, lanes, W), 3, 200, 150)
+    hs = skewed_pair_scores(*ops[:5])
+    for gap_series in ((5,), (11, 1), (13, 7, 1)):
+        for traceback in (False, True):
+            want = plain_dp(hs, ops[5], ops[6], gap_series, mode, traceback)
+            got = tiled(hs, ops[5], ops[6], gap_series, mode, traceback, tile_lanes=W,
+                        steps_per_visit=7)
+            for key in want:
+                assert torch.equal(got[key], want[key]), (gap_series, traceback, key)
 
 
 @pytest.mark.parametrize("W,Lx,mode,traceback", [(320, 700, "local", True),
